@@ -1,19 +1,31 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's main path - a batch of ragdoll locomotion environments
-stepped in lockstep by the trained walking policy - through the entry points a
-user calls, after building the hand-written CUDA kernel from the sources in
-this checkout and holding it against its plain PyTorch version on the card.
+Drives the port's two main paths through the entry points a user calls,
+after building the hand-written CUDA kernels from the sources in this
+checkout and holding each against its plain PyTorch version on the card:
+  - a batch of ragdoll locomotion environments stepped in lockstep by the
+    trained walking policy (the fused step);
+  - bench.py's 1k-box stack (64 towers of 16 boxes, 32 envs) on the
+    reference step under each of the three broadphases (table, K-select,
+    sort-and-sweep).
 
-    python3 chip_smoke.py                 # full run: 4096 envs x 600 steps
+    python3 chip_smoke.py                 # full run
     python3 chip_smoke.py --steps 120     # shorter serve phase
 
 Phases, one JSON line each; any failure raises and the exit code is non-zero:
-  device   a CUDA device is present; its name and power limit
-  build    nvcc compiles dxk_tpu_torch/ops/kernels/csrc/fused_step.cu
-  kernels  kernel vs plain version on rolled-out states, times, bound
-  serve    policy rollout and zero-action rollout, checks on the results
-The last line is {"ok": true, "device": {...}}.
+  device     a CUDA device is present; its name and power limit
+  build      nvcc compiles csrc/fused_step.cu and csrc/broadphase.cu, side
+             by side
+  kernels    fused-step kernel vs plain version on rolled-out states, times,
+             bound
+  serve      policy rollout and zero-action rollout, checks on the results
+  box_stack  the three broadphase kernels vs their plain versions (equal
+             integers) on the initial and a rolled-out state, pair sets equal
+             across the broadphases, then the box stack stepped in each
+             broadphase: launches per step, overflow, agreement with the
+             table broadphase, body-steps/s
+The line before the last is the card's name and power limit; the line before
+that lists every kernel. The last line is {"ok": true, "device": {...}}.
 
 Imports torch and the port only; nothing of JAX.
 """
@@ -23,6 +35,7 @@ import json
 import os
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -74,14 +87,25 @@ def device_phase():
 
 
 def build_phase():
+    """Both CUDA sources, one nvcc each, started together."""
+    from dxk_tpu_torch.ops.kernels import broadphase_kernel as bk
     from dxk_tpu_torch.ops.kernels import fused_step as fs
-    t0 = time.perf_counter()
-    fs.load_library(verbose=True)
-    secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in fs.BUILD_LOG.splitlines()
-             if "registers" in ln or "spill" in ln or "fused_step_kernel" in ln]
-    emit("build", seconds=round(secs, 2), flags=" ".join(fs.NVCC_FLAGS),
-         ptxas=ptxas[-6:])
+
+    def timed(mod):
+        t0 = time.perf_counter()
+        mod.load_library(verbose=True)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as pool:
+        secs = list(pool.map(timed, (fs, bk)))
+    out = {}
+    for name, mod, sec in (("fused_step", fs, secs[0]),
+                           ("broadphase", bk, secs[1])):
+        ptxas = [ln.strip() for ln in mod.BUILD_LOG.splitlines()
+                 if "registers" in ln or "spill" in ln or "Function" in ln]
+        out[name] = dict(seconds=round(sec, 2), flags=" ".join(mod.NVCC_FLAGS),
+                         ptxas=ptxas[-12:])
+    emit("build", **out)
 
 
 def load_policy(env):
@@ -108,9 +132,14 @@ def kernel_inputs(env, scene, state):
 
 
 def time_ms(fn, reps):
+    """Device time per call of `fn` over `reps` back-to-back calls. The
+    card first spins for ~25 ms, so that the host has queued the calls
+    before the start event runs: a kernel shorter than its wrapper's host
+    cost is then timed on the device, not at the host's launch rate."""
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -277,6 +306,304 @@ def rollout(env, net, steps, seed):
         dones=n_done, reward_min=rmin, reward_max=rmax)
 
 
+# ---------------------------------------------------------------------------
+# the 1k-box stack on the reference step
+
+DEVICE = "cuda"
+BOX_TOWERS, BOX_PER_TOWER = 64, 16        # bench.py _box_towers(1024)
+BOX_BATCH = 32                            # bench.py's on-chip box_batch
+BOX_STEPS = 120
+BOX_WARM = 60
+BOX_DT = 1.0 / 120.0
+BOX_MODES = ("table", "kselect", "sap")
+BOX_PATH_TOL = 1e-4
+BOX_PATH_TOL_REASON = ("the JAX package's own bound between broadphases "
+                       "(tests/test_sap_broadphase.py, test_pallas_"
+                       "broadphase.py): the pair sets are equal, the pair "
+                       "rows are ordered differently, so per-body sums may "
+                       "round differently")
+# per-pair work of the broadphase kernels, for bound_ms: six float compares
+# for the AABB test of every pair the placement rule admits; for every pair
+# that overlaps, the class id (about 16 integer operations)
+OPS_AABB_TEST = 6
+OPS_CLASS = 16
+
+
+def box_towers(builder):
+    """bench.py's box stack: towers of unit boxes 1.001 apart, 3 m apart on
+    a square grid, on a 200 x 2 x 200 ground box."""
+    b = builder()
+    ground = b.add_static()
+    b.add_box_collider(ground, (0, -1, 0), (200, 1, 200))
+    side = int(np.ceil(np.sqrt(BOX_TOWERS)))
+    for t in range(BOX_TOWERS):
+        x, z = (t % side) * 3.0, (t // side) * 3.0
+        for i in range(BOX_PER_TOWER):
+            body = b.add_body(position=(x, 0.5 + 1.001 * i, z))
+            b.add_box_collider(body, (0, 0, 0), (0.5, 0.5, 0.5))
+    return b
+
+
+def box_scenes():
+    from dxk_tpu_torch.scene import SceneBuilder
+    return {m: box_towers(SceneBuilder).finalize(
+        max_narrow_pairs_per_group=512, contact_phases=4, broadphase=m,
+        broadphase_k=8, device=DEVICE) for m in BOX_MODES}
+
+
+def box_initial_state(scene, seed):
+    """BOX_BATCH envs of the stack, each box moved by a seeded jitter of
+    0.5 mm (std) in x and z, so the envs differ."""
+    st = scene.initial_state(BOX_BATCH)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    jit = torch.randn((BOX_BATCH, scene.num_bodies - 1, 2), device=DEVICE,
+                      generator=gen) * 5e-4
+    pos = st.pos.clone()
+    pos[:, 1:scene.num_bodies, 0] += jit[..., 0]
+    pos[:, 1:scene.num_bodies, 2] += jit[..., 1]
+    return st.replace(pos=pos)
+
+
+def aabbs(scene, state):
+    from dxk_tpu_torch.ops.shapes import collider_aabbs, world_colliders
+    w = world_colliders(scene, state.pos, state.rot)
+    mn, mx = collider_aabbs(scene, w)
+    return mn.contiguous(), mx.contiguous()
+
+
+def broadphase_calls(scenes, mn, mx):
+    """For each broadphase kernel: (kernel call, plain call, library call or
+    None, the bound's bytes and operations) on the main path's inputs."""
+    from dxk_tpu_torch.ops.kernels import broadphase_kernel as bk
+    from dxk_tpu_torch.ops.kernels import kselect_broadphase as ks
+    from dxk_tpu_torch.ops.kernels import sap_broadphase as sp
+    B, C = mn.shape[0], mn.shape[1]
+    ks_scene, sap_scene = scenes["kselect"], scenes["sap"]
+    col = ks_scene.colliders
+    nph, K = ks_scene.num_contact_phases, ks_scene.broadphase_k
+    order, mn_s, mx_s, body_s, owner_s, ctype_s = sp.sort_for_sweep(
+        mn, mx, col.body, col.owner_type, col.ctype, sap_scene.sap_broad)
+    W = sap_scene.sap_window
+    kargs = (mn, mx, col.body, col.owner_type, col.ctype, nph, K)
+    sargs = (mn_s, mx_s, body_s, owner_s, ctype_s, nph, K, W)
+
+    # pairs the placement rules admit (data independent) and pairs that
+    # overlap (this run's data), for the operation counts
+    ov = bk.aabb_overlap_matrix_plain(mn, mx).bool()
+    owner = col.owner_type
+    rb = owner == 0
+    st = owner == 1
+    same = col.body[:, None] == col.body[None, :]
+    ii = torch.arange(C, device=mn.device)
+    upper = ii[None, :] > ii[:, None]
+    k_admit = ((rb[:, None] & rb[None, :] & upper & ~same)
+               | (rb[:, None] & st[None, :]))
+    k_pairs = int(k_admit.sum()) * B
+    k_hits = int((ov & k_admit).sum())
+    s_idx, s_cls, s_cnt, _ = sp.sap_sweep_plain(*sargs)
+    i0 = (ii // 128) * 128
+    s_pairs = int(torch.clamp(torch.clamp(i0 + W * 128, max=C) - ii - 1,
+                              min=0).sum()) * B
+    s_hits = int(s_cnt.sum())
+    f32 = 4
+    return {
+        "aabb_overlap_matrix": dict(
+            kernel=lambda: bk.aabb_overlap_matrix(mn, mx),
+            plain=lambda: bk.aabb_overlap_matrix_plain(mn, mx),
+            bytes=B * C * 6 * f32 + B * C * C,
+            ops=B * C * C * OPS_AABB_TEST,
+            source="dxk_tpu_torch/ops/kernels/csrc/broadphase.cu",
+            replaces="dxk_tpu/ops/pallas/broadphase_kernel.py:62"),
+        "kselect_broadphase": dict(
+            kernel=lambda: ks.kselect_broadphase(*kargs),
+            plain=lambda: ks.kselect_broadphase_plain(*kargs),
+            bytes=B * C * 6 * f32 + 3 * C * f32 + B * C * (2 * K + 1) * f32,
+            ops=k_pairs * OPS_AABB_TEST + k_hits * OPS_CLASS,
+            source="dxk_tpu_torch/ops/kernels/csrc/broadphase.cu",
+            replaces="dxk_tpu/ops/pallas/kselect_broadphase.py:146"),
+        "sap_broadphase": dict(
+            kernel=lambda: sp.sap_sweep(*sargs),
+            plain=lambda: sp.sap_sweep_plain(*sargs),
+            bytes=B * C * (6 + 3) * f32 + B * C * (2 * K + 2) * f32,
+            ops=s_pairs * OPS_AABB_TEST + s_hits * OPS_CLASS,
+            source="dxk_tpu_torch/ops/kernels/csrc/broadphase.cu",
+            replaces="dxk_tpu/ops/pallas/sap_broadphase.py:202"),
+    }
+
+
+def hold_kernels(calls, where):
+    """Each kernel's outputs equal its plain version's, integer for
+    integer; raises on any difference."""
+    out = {}
+    for name, c in calls.items():
+        got = c["kernel"]()
+        got = got if isinstance(got, tuple) else (got,)
+        torch.cuda.synchronize()
+        want = c["plain"]()
+        want = want if isinstance(want, tuple) else (want,)
+        diff = [int((g.long() - w.long()).abs().max()) if g.numel() else 0
+                for g, w in zip(got, want)]
+        shapes_ok = all(g.shape == w.shape and g.dtype == w.dtype
+                        for g, w in zip(got, want))
+        if not shapes_ok or any(diff):
+            raise RuntimeError(f"{name} kernel disagrees with its plain "
+                               f"version on the {where} state: max abs "
+                               f"differences {diff}")
+        out[name] = max(diff)
+    return out
+
+
+def pair_keys(scene, mn, mx):
+    """The candidate pairs the broadphase of `scene` hands the narrowphase,
+    as sorted keys (phase, a, b) per env, unused slots last."""
+    from dxk_tpu_torch.ops.broadphase import (aabb_overlap_mask,
+                                              compact_pairs, is_dense,
+                                              kselect_group_pairs)
+    from dxk_tpu_torch.ops.kernels.broadphase_kernel import (
+        aabb_overlap_matrix)
+    C = mn.shape[1]
+    keys = []
+    if scene.broadphase_k > 0:
+        sel = kselect_group_pairs(scene, mn, mx)[0]
+        items = [(g.phase, *sel[gi][:2]) for gi, g in
+                 enumerate(scene.pair_groups)]
+    else:
+        matrix = (aabb_overlap_matrix(mn, mx)
+                  if any(is_dense(g.pairs.shape[0], C)
+                         for g in scene.pair_groups) else None)
+        items = []
+        for g in scene.pair_groups:
+            mask = aabb_overlap_mask(mn, mx, g.pairs, matrix)
+            pairs, mask, _ = compact_pairs(g.pairs, mask, g.max_narrow)
+            items.append((g.phase, pairs, mask))
+    for phase, pairs, mask in items:
+        k = (phase * C + pairs[..., 0].long()) * C + pairs[..., 1].long()
+        keys.append(torch.where(mask, k, torch.iinfo(torch.int64).max))
+    return torch.sort(torch.cat(keys, dim=1), dim=1).values
+
+
+def box_stack_phase(seed):
+    from dxk_tpu_torch.ops.kernels import broadphase_kernel as bk
+    from dxk_tpu_torch.ops.kernels import fused_step as fs
+    from dxk_tpu_torch.ops.kernels import kselect_broadphase as ks
+    from dxk_tpu_torch.ops.kernels import sap_broadphase as sp
+    from dxk_tpu_torch.physics import PhysicsSettings, physics_step
+
+    counters = {"aabb_overlap_matrix": bk, "kselect_broadphase": ks,
+                "sap_broadphase": sp, "fused_step": fs}
+    path_kernel = {"table": "aabb_overlap_matrix",
+                   "kselect": "kselect_broadphase", "sap": "sap_broadphase"}
+    scenes = box_scenes()
+    C = scenes["table"].colliders.ctype.shape[0]
+    dense = [int(g.pairs.shape[0]) for g in scenes["table"].pair_groups
+             if g.pairs.shape[0] * 8 >= C * C]
+    settings = PhysicsSettings(num_rigid_solver_iterations=ITERATIONS,
+                               solver_mode="jacobi")
+    state0 = box_initial_state(scenes["table"], seed)
+
+    # ---- kernels and pair sets on the initial and a rolled-out state
+    st = state0
+    for _ in range(BOX_WARM):
+        st, _info = physics_step(scenes["table"], st, settings, BOX_DT)
+    checks = {}
+    for where, state in (("initial", state0), (f"after_{BOX_WARM}_steps", st)):
+        mn, mx = aabbs(scenes["table"], state)
+        calls = broadphase_calls(scenes, mn, mx)
+        errs = hold_kernels(calls, where)
+        hits = calls["kselect_broadphase"]["kernel"]()[2].sum(dim=1)
+        keys = {m: pair_keys(scenes[m], mn, mx) for m in BOX_MODES}
+        live = int((keys["table"] != torch.iinfo(torch.int64).max).sum())
+        same = {m: bool(torch.equal(keys[m], keys["table"]))
+                for m in ("kselect", "sap")}
+        checks[where] = dict(max_abs_err=errs, pair_sets_equal=same,
+                             candidate_pairs=live,
+                             live_overlaps_per_env=hits.tolist())
+        if not all(same.values()):
+            raise RuntimeError(f"pair sets differ between broadphases on the "
+                               f"{where} state: {same}")
+        if live == 0:
+            raise RuntimeError(f"no candidate pair on the {where} state")
+
+    # ---- timing of the kernels at the main path's shapes (rolled-out state)
+    timing = {}
+    for name, c in calls.items():
+        for _ in range(3):
+            c["kernel"]()
+        ms = time_ms(c["kernel"], 50)
+        plain_ms = time_ms(c["plain"], 3)
+        t_bytes = c["bytes"] / PEAK_BYTES * 1e3
+        t_ops = c["ops"] / PEAK_FLOPS * 1e3
+        timing[name] = dict(ms=ms, plain_ms=plain_ms,
+                            bound_ms=max(t_bytes, t_ops),
+                            bound_by="bytes" if t_bytes > t_ops
+                            else "operations",
+                            bytes=c["bytes"], ops=c["ops"], bytes_ms=t_bytes,
+                            ops_ms=t_ops, source=c["source"],
+                            replaces=c["replaces"])
+
+    # ---- the main path: each broadphase, counts from zero just before it
+    runs, final = {}, {}
+    for mode in BOX_MODES:
+        scene = scenes[mode]
+        st = state0
+        worst_ovf = torch.zeros((), dtype=torch.int32, device=DEVICE)
+        finite = torch.ones((), dtype=torch.bool, device=DEVICE)
+        contacts = torch.zeros((), dtype=torch.int64, device=DEVICE)
+        for mod in counters.values():
+            mod.reset_launch_count()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(BOX_STEPS):
+            st, info = physics_step(scene, st, settings, BOX_DT)
+            worst_ovf = torch.maximum(worst_ovf, info.broadphase_overflow.max())
+            finite &= torch.isfinite(st.pos).all() & torch.isfinite(
+                st.lin_vel).all()
+            contacts += info.num_contacts.sum()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {n: mod.launch_count() for n, mod in counters.items()}
+        final[mode] = st
+        drift = (st.pos - state0.pos)[:, 1:scene.num_bodies]
+        runs[mode] = dict(
+            steps=BOX_STEPS, seconds=secs,
+            body_steps_per_s=BOX_BATCH * (scene.num_bodies - 1) * BOX_STEPS
+            / secs,
+            ms_per_step=secs / BOX_STEPS * 1e3, launches=launches,
+            broadphase_overflow_max=int(worst_ovf), finite=bool(finite),
+            contacts_per_env_step=int(contacts) / (BOX_BATCH * BOX_STEPS),
+            max_xz_drift=float(drift[..., [0, 2]].abs().max()),
+            max_y_drop=float((-drift[..., 1]).max()))
+        want = {n: (BOX_STEPS if n == path_kernel[mode] else 0)
+                for n in counters}
+        if launches != want:
+            raise RuntimeError(f"box stack ({mode}): kernel launches "
+                               f"{launches}, expected {want}")
+        if int(worst_ovf) != 0 or not bool(finite):
+            raise RuntimeError(f"box stack ({mode}): overflow {int(worst_ovf)}"
+                               f", finite {bool(finite)}")
+    for mode in ("kselect", "sap"):
+        err = float((final[mode].pos - final["table"].pos).abs().max())
+        runs[mode]["max_abs_pos_diff_vs_table"] = err
+        if not err <= BOX_PATH_TOL:
+            raise RuntimeError(f"box stack: {mode} positions differ from the "
+                               f"table broadphase by {err} after "
+                               f"{BOX_STEPS} steps")
+    emit("box_stack", envs=BOX_BATCH, boxes=scenes["table"].num_bodies - 1,
+         colliders=C, iterations=ITERATIONS, dense_table_pairs=dense,
+         path_tolerance=BOX_PATH_TOL, path_tolerance_reason=BOX_PATH_TOL_REASON,
+         checks=checks, kernels=timing, runs=runs)
+    return [{
+        "name": name, "route": "cuda", "source": t["source"],
+        "replaces": t["replaces"],
+        "launches": runs[mode]["launches"][name],
+        "max_abs_err": max(checks[w]["max_abs_err"][name] for w in checks),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None}
+        for mode, name in path_kernel.items()
+        for t in (timing[name],)]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=600,
@@ -353,6 +680,9 @@ def main():
         raise RuntimeError("the trained policy survives no longer than zero "
                            "actions in the port's simulator")
 
+    # ---- the box stack on the reference step, each broadphase
+    box_kernels = box_stack_phase(args.seed + 3)
+
     print(json.dumps({"kernels": [{
         "name": "fused_step", "route": "cuda",
         "source": "dxk_tpu_torch/ops/kernels/csrc/fused_step.cu",
@@ -361,7 +691,7 @@ def main():
             cmp_full[k] for k in ("err_v", "err_w", "err_pos", "err_rot",
                                   "err_imp")),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": None}]}), flush=True)
+        "bound_by": b_by, "library_ms": None}] + box_kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

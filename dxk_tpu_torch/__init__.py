@@ -8,7 +8,8 @@ dimension where the JAX package used ``vmap``, and every entry point takes a
 Top-level API:
     SceneBuilder      — describe bodies/colliders/joints, finalize() -> Scene
     physics_step      — (Scene, State, PhysicsSettings, dt) -> (State, StepInfo)
-    PhysicsSettings   — solver iterations / mode (only ``"fused"`` so far)
+    PhysicsSettings   — solver iterations / mode (``"fused"``; ``"jacobi"``
+                        and ``"colored"`` on the reference step)
     apply_ray_impulse — poke interaction
     LocoEnv           — batched ragdoll locomotion environment
 """

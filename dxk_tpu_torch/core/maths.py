@@ -36,6 +36,10 @@ def squared_length(v):
     return torch.sum(v * v, dim=-1)
 
 
+def lerp(a, b, t):
+    return a + (b - a) * t
+
+
 def normalize(v):
     """Plain normalize; caller guarantees nonzero length."""
     return v / length(v)[..., None]

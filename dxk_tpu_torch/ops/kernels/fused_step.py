@@ -46,15 +46,13 @@ prep-passed groups (heightfield) raise NotImplementedError.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 from dataclasses import dataclass
 from typing import List
 
 import numpy as np
 import torch
 
+from dxk_tpu_torch.ops.kernels import build
 from dxk_tpu_torch.ops.kernels import cm_narrowphase as cm
 from dxk_tpu_torch.ops.kernels.batched_solver import (
     CT_ROWS, HINGE_ROWS, JOINT_ORDER, JOINT_SPECS, TYPE_MAX_POINTS,
@@ -519,10 +517,7 @@ def _fused_core(tab: FusedTables, num_iterations, omega, inv_dt,
 # ===========================================================================
 # the CUDA kernel: build, bind, launch
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                    "fused_step.cu")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = build.BASE_FLAGS + ["-fmad=false"]
 
 _LIB = None
 _LAUNCHES = 0
@@ -539,21 +534,6 @@ def reset_launch_count() -> None:
     _LAUNCHES = 0
 
 
-def build_dir() -> str:
-    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))))
-    return os.path.join(root, "build")
-
-
-def build_command(out_path: str, verbose: bool = False) -> List[str]:
-    cand = "/usr/local/cuda/bin/nvcc"
-    nvcc = cand if os.path.exists(cand) else "nvcc"
-    flags = list(NVCC_FLAGS)
-    if verbose:
-        flags += ["-Xptxas", "-v"]
-    return [nvcc] + flags + ["-o", out_path, _SRC]
-
-
 def load_library(verbose: bool = False):
     """Compile csrc/fused_step.cu with nvcc into the build directory (once
     per source content) and bind it with ctypes. Raises if nvcc is missing
@@ -566,22 +546,8 @@ def load_library(verbose: bool = False):
         raise RuntimeError("row layouts changed: csrc/fused_step.cu hard-"
                            "codes HINGE_ROWS, CT_ROWS, STATIC_WIDTH, "
                            "POINT_FIELDS and ROW_INTS")
-    with open(_SRC, "rb") as f:
-        tag = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
-                           ).hexdigest()[:12]
-    out_dir = build_dir()
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"libdxk_fused_step_{tag}.so")
-    if not os.path.exists(path):
-        tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.run(build_command(tmp, verbose),
-                              capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed to build fused_step.cu:\n"
-                               + BUILD_LOG)
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(path)
+    lib, BUILD_LOG = build.compile_library("fused_step.cu", NVCC_FLAGS,
+                                           verbose)
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.dxk_fused_step_launch.restype = i
     lib.dxk_fused_step_launch.argtypes = (
@@ -594,18 +560,6 @@ def load_library(verbose: bool = False):
     return lib
 
 
-def _check(name, x, shape, dtype=torch.float32):
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_step: {name} must be a CUDA tensor")
-    if x.dtype != dtype:
-        raise ValueError(f"fused_step: {name} must be {dtype}, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"fused_step: {name} has shape {tuple(x.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"fused_step: {name} must be contiguous")
-
-
 def _launch(tab: FusedTables, num_iterations, omega, inv_dt, v, w, inv_mass,
             inv_inertia, pos_cog, rot, ctl, col_a, col_b, col_rot):
     """Check the inputs, allocate the outputs, launch the kernel on the
@@ -616,16 +570,16 @@ def _launch(tab: FusedTables, num_iterations, omega, inv_dt, v, w, inv_mass,
     P, R1 = tab.num_rows, tab.ctl_rows + 1
     if B == 0:
         raise ValueError("fused_step: empty batch")
-    _check("v", v, (B, nb, 3))
-    _check("w", w, (B, nb, 3))
-    _check("inv_mass", inv_mass, (nb,))
-    _check("inv_inertia", inv_inertia, (B, nb, 3, 3))
-    _check("pos_cog", pos_cog, (B, nb, 3))
-    _check("rot", rot, (B, nb, 4))
-    _check("ctl", ctl, (B, R1))
-    _check("col_a", col_a, (B, C, 3))
-    _check("col_b", col_b, (B, C, 3))
-    _check("col_rot", col_rot, (B, C, 4))
+    build.check_cuda("fused_step", "v", v, (B, nb, 3))
+    build.check_cuda("fused_step", "w", w, (B, nb, 3))
+    build.check_cuda("fused_step", "inv_mass", inv_mass, (nb,))
+    build.check_cuda("fused_step", "inv_inertia", inv_inertia, (B, nb, 3, 3))
+    build.check_cuda("fused_step", "pos_cog", pos_cog, (B, nb, 3))
+    build.check_cuda("fused_step", "rot", rot, (B, nb, 4))
+    build.check_cuda("fused_step", "ctl", ctl, (B, R1))
+    build.check_cuda("fused_step", "col_a", col_a, (B, C, 3))
+    build.check_cuda("fused_step", "col_b", col_b, (B, C, 3))
+    build.check_cuda("fused_step", "col_rot", col_rot, (B, C, 4))
     if v.device != tab.device:
         raise ValueError(f"fused_step: inputs on {v.device}, tables on "
                          f"{tab.device}")
@@ -641,19 +595,14 @@ def _launch(tab: FusedTables, num_iterations, omega, inv_dt, v, w, inv_mass,
     dims = [B, nb, C, P, tab.num_phases, tab.num_hinge, tab.num_cone_twist,
             R1, tab.num_points, int(num_iterations)] + tab.ioffs + tab.foffs
     dims_c = (ctypes.c_int * len(dims))(*dims)
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dxk_fused_step_launch(
-            dims_c, float(omega), float(inv_dt),
-            v.data_ptr(), w.data_ptr(), inv_mass.data_ptr(),
-            inv_inertia.data_ptr(), pos_cog.data_ptr(), rot.data_ptr(),
-            ctl.data_ptr(), col_a.data_ptr(), col_b.data_ptr(),
-            col_rot.data_ptr(), tab.itab.data_ptr(), tab.ftab.data_ptr(),
-            v_out.data_ptr(), w_out.data_ptr(), imp.data_ptr(),
-            live.data_ptr(), tab.threads(), smem, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_step kernel launch failed: CUDA error "
-                           f"{err}")
+    build.raise_on_error("fused_step", lib.dxk_fused_step_launch(
+        dims_c, float(omega), float(inv_dt),
+        v.data_ptr(), w.data_ptr(), inv_mass.data_ptr(),
+        inv_inertia.data_ptr(), pos_cog.data_ptr(), rot.data_ptr(),
+        ctl.data_ptr(), col_a.data_ptr(), col_b.data_ptr(),
+        col_rot.data_ptr(), tab.itab.data_ptr(), tab.ftab.data_ptr(),
+        v_out.data_ptr(), w_out.data_ptr(), imp.data_ptr(),
+        live.data_ptr(), tab.threads(), smem, build.stream_of(v)))
     _LAUNCHES += 1
     return v_out, w_out, imp, live
 

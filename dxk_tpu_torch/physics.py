@@ -2,19 +2,25 @@
 
 Pipeline per substep, batched over environments (same order as the JAX
 package's physics.py):
-  1. world-space collider flattening
-  2. integrate forces (gravity, damping)
-  3. fused step: narrowphase + contact prep + joint prep + N solver
-     iterations in one kernel (ops/kernels/fused_step.py)
-  4. integrate velocities
+  1. world-space collider flattening + AABBs
+  2. broadphase: static pair tables, K-select or sort-and-sweep
+  3. narrowphase: per-bucket contact manifolds
+  4. integrate forces (gravity, damping)
+  5. contact prep + N solver iterations
+  6. integrate velocities
 
-Only ``solver_mode="fused"`` is ported; every other mode, and every scene
-the fused step cannot take, raises NotImplementedError — there is no other
-solver path to degrade to yet.
+Two branches, as in the JAX package: the fused step (``solver_mode=
+"fused"`` on a scene the fused kernel takes), where 3 and 5 run inside one
+kernel (ops/kernels/fused_step.py); and the reference step for every other
+scene, where "fused" falls back to "jacobi". The reference step is ported
+for box-box contacts in the "jacobi" and "colored" modes; "scan", the other
+contact buckets, joints, heightfields, overlaps and cloth raise
+NotImplementedError.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -24,8 +30,10 @@ import torch
 from dxk_tpu_torch.core.maths import cross, quat_inv_rotate, quat_rotate
 from dxk_tpu_torch.ops.integrator import (integrate_forces,
                                           integrate_velocities)
-from dxk_tpu_torch.ops.shapes import world_colliders
-from dxk_tpu_torch.scene.scene import Scene, State, StepInfo
+from dxk_tpu_torch.ops.shapes import collider_aabbs, world_colliders
+from dxk_tpu_torch.scene.scene import SHAPE_BOX, Scene, State, StepInfo
+
+JOINT_TYPES = ("distance", "ball", "fixed", "hinge", "cone_twist", "slider")
 
 
 @dataclass(frozen=True)
@@ -58,17 +66,193 @@ def controls_pack(scene: Scene, controls, dt) -> torch.Tensor:
 def physics_step(scene: Scene, state: State, settings: PhysicsSettings,
                  dt: float) -> Tuple[State, StepInfo]:
     """One fixed substep of a batch of environments."""
-    if settings.solver_mode != "fused":
-        raise NotImplementedError(
-            f"solver_mode={settings.solver_mode!r} is not ported to "
-            "dxk_tpu_torch yet; only 'fused'")
     if scene.cloth is not None or scene.heightfield is not None:
         raise NotImplementedError(
             "cloth and heightfield terrain are not ported yet")
     if scene.overlap_pairs is not None and scene.overlap_pairs.shape[0] > 0:
         raise NotImplementedError(
             "trigger / force-field overlaps are not ported yet")
-    return _physics_step_fused(scene, state, settings, dt)
+    if settings.solver_mode in ("fused", "fused_seq"):
+        from dxk_tpu_torch.ops.kernels.fused_step import fused2_eligible
+        if fused2_eligible(scene):
+            return _physics_step_fused(scene, state, settings, dt)
+    return _physics_step_reference(scene, state, settings, dt)
+
+
+def _pair_params(w, idx):
+    """World box params (center, half extents, rotation) of one side of a
+    (B, P) pair list."""
+    ar = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    return w.a[ar, idx], w.b[ar, idx], w.rot[ar, idx]
+
+
+def _contacts_for_group(w, group, pairs, mask):
+    """Contact manifolds of one (typeA, typeB) bucket. pairs (B, P, 2),
+    mask (B, P). Returns (points (B, P, 4, 3), depths (B, P, 4),
+    normal (B, P, 3), count (B, P), hit (B, P))."""
+    from dxk_tpu_torch.ops import narrowphase as np_ops
+    ta, tb = group.type_a, group.type_b
+    if (ta, tb) != (SHAPE_BOX, SHAPE_BOX):
+        raise NotImplementedError(
+            f"contact pair ({ta}, {tb}) on the reference step is not ported "
+            "to dxk_tpu_torch yet; only box-box")
+    ia, ib = pairs[..., 0].long(), pairs[..., 1].long()
+    a_a, a_b, a_q = _pair_params(w, ia)
+    b_a, b_b, b_q = _pair_params(w, ib)
+    pts, dps, nrm, cnt, hit = np_ops.box_box_contact(a_a, a_b, a_q,
+                                                     b_a, b_b, b_q)
+    hit = hit & mask
+    cnt = torch.where(hit, cnt, 0)
+    return pts, dps, nrm, cnt, hit
+
+
+def _physics_step_reference(scene, state, settings, dt):
+    """The reference step: broadphase, narrowphase per type bucket, contact
+    prep and the phased contact solve as separate stages."""
+    from dxk_tpu_torch.ops.broadphase import (aabb_overlap_mask,
+                                              compact_pairs, is_dense,
+                                              kselect_group_pairs)
+    from dxk_tpu_torch.ops.kernels.broadphase_kernel import (
+        aabb_overlap_matrix)
+    from dxk_tpu_torch.ops.solver import prep_contacts, solve_constraints
+
+    mode = {"fused": "jacobi", "fused_seq": "scan"}.get(
+        settings.solver_mode, settings.solver_mode)
+    if mode not in ("jacobi", "colored"):
+        raise NotImplementedError(
+            f"solver_mode={settings.solver_mode!r} on the reference step is "
+            "not ported to dxk_tpu_torch yet; only 'jacobi', 'colored' and "
+            "'fused' (which runs 'jacobi' here)")
+    joints = [n for n in JOINT_TYPES if getattr(scene, n) is not None]
+    if joints:
+        raise NotImplementedError(
+            f"joints ({', '.join(joints)}) on the reference step are not "
+            "ported to dxk_tpu_torch yet")
+    if mode == "colored" and scene.pair_groups \
+            and scene.num_contact_phases <= 1:
+        warnings.warn(
+            "solver_mode='colored' on a scene finalized without "
+            "contact_phases>1: contacts degrade to averaged Jacobi. "
+            "Pass contact_phases=4 (or more) to SceneBuilder.finalize "
+            "for conflict-free Gauss-Seidel contact slices.",
+            stacklevel=3)
+    dt32 = float(np.float32(dt))
+    B = state.pos.shape[0]
+    dev = state.pos.device
+
+    # 1-2: colliders -> AABBs -> candidate overlaps
+    w = world_colliders(scene, state.pos, state.rot)
+    mn, mx = collider_aabbs(scene, w)
+
+    # groups in ascending contact-phase order, so the concatenated contact
+    # rows are phase-contiguous for the solver's phase slices
+    groups = scene.pair_groups
+    order = sorted(range(len(groups)), key=lambda gi: groups[gi].phase)
+    num_overlaps = torch.zeros(B, dtype=torch.int32, device=dev)
+    num_dropped = torch.zeros(B, dtype=torch.int32, device=dev)
+
+    kselect = None
+    matrix = None
+    if scene.broadphase_k > 0:
+        kselect, num_overlaps, row_dropped = kselect_group_pairs(scene, mn, mx)
+        num_dropped = num_dropped + row_dropped
+    elif any(is_dense(g.pairs.shape[0], mn.shape[1]) for g in groups):
+        # one overlap matrix serves every dense table of the step
+        matrix = aabb_overlap_matrix(mn, mx)
+
+    selected = []
+    for gi in order:
+        group = groups[gi]
+        if kselect is not None:
+            pairs, mask, dropped = kselect[gi]
+        else:
+            mask = aabb_overlap_mask(mn, mx, group.pairs, matrix)
+            num_overlaps = num_overlaps + torch.sum(mask, dim=-1,
+                                                    dtype=torch.int32)
+            pairs, mask, dropped = compact_pairs(group.pairs, mask,
+                                                 group.max_narrow)
+        num_dropped = num_dropped + dropped
+        selected.append((gi, group, pairs, mask))
+
+    # 3: one narrowphase call per (typeA, typeB) bucket; the phase splits of
+    # a bucket are concatenated and split back after
+    buckets = {}
+    for item in selected:
+        buckets.setdefault((item[1].type_a, item[1].type_b), []).append(item)
+    narrow = {}
+    for items in buckets.values():
+        cat_pairs = torch.cat([it[2] for it in items], dim=1)
+        cat_mask = torch.cat([it[3] for it in items], dim=1)
+        out = _contacts_for_group(w, items[0][1], cat_pairs, cat_mask)
+        ia, ib = cat_pairs[..., 0].long(), cat_pairs[..., 1].long()
+        # friction/restitution combine
+        fric = torch.clamp(torch.sqrt(w.friction[ia] * w.friction[ib]),
+                           0.0, 1.0)
+        rest = torch.clamp(torch.maximum(w.restitution[ia],
+                                         w.restitution[ib]), 0.0, 1.0)
+        fields = (*out, w.body[ia].long(), w.body[ib].long(), fric, rest)
+        off = 0
+        for gi, _g, p, _m in items:
+            n = p.shape[1]
+            narrow[gi] = tuple(x[:, off:off + n] for x in fields)
+            off += n
+
+    # 4: integrate forces
+    bodies = integrate_forces(scene, state, dt32)
+
+    # pair-major contact rows: (B, P, 4) points per pair, phases contiguous
+    prepped = None
+    contact_pairs = None
+    contact_mask = None
+    total_contacts = torch.zeros(B, dtype=torch.int32, device=dev)
+    if selected:
+        cols = [[] for _ in range(9)]
+        phase_sizes = {}
+        for gi, group, pairs, _mask in selected:
+            for col, x in zip(cols, narrow[gi]):
+                col.append(x)
+            phase_sizes[group.phase] = (phase_sizes.get(group.phase, 0)
+                                        + pairs.shape[1])
+        pts, dps, nrm, cnt, hit, body_a, body_b, fric, rest = (
+            torch.cat(c, dim=1) for c in cols)
+        P = pts.shape[1]
+        nrm = nrm[:, :, None, :].expand(B, P, 4, 3)
+        cmask = hit[..., None] & (torch.arange(4, device=dev)
+                                  < cnt[..., None])
+        # dead pairs point at the dummy static body, so they do not count
+        # in the per-body degrees of the averaged solve
+        live = torch.any(cmask, dim=-1)
+        body_a = torch.where(live, body_a, scene.num_bodies)
+        body_b = torch.where(live, body_b, scene.num_bodies)
+        sizes = tuple(phase_sizes[p] for p in sorted(phase_sizes))
+        total_contacts = torch.sum(cmask.flatten(1), dim=-1,
+                                   dtype=torch.int32)
+        contact_mask = live
+        contact_pairs = torch.cat([it[2] for it in selected], dim=1)
+        prepped = prep_contacts(bodies, body_a, body_b, pts, nrm, dps, fric,
+                                rest, cmask.to(pts.dtype), dt32,
+                                phase_sizes=sizes)
+
+    # 5: contact solve
+    bodies, contact_imp_n = solve_constraints(
+        bodies, prepped, settings.num_rigid_solver_iterations, mode,
+        settings.sor_omega)
+
+    # 6: integrate velocities
+    new_state = integrate_velocities(scene, bodies, state, dt32)
+
+    info = StepInfo(
+        num_broadphase_overlaps=num_overlaps,
+        num_contacts=total_contacts,
+        broadphase_overflow=num_dropped,
+        trigger_overlap=None,
+        contact_pairs=contact_pairs,
+        contact_mask=contact_mask,
+        contact_impulse=(torch.sum(contact_imp_n, dim=-1)
+                         if contact_imp_n is not None else None),
+        validate_stage=None,
+    )
+    return new_state, info
 
 
 def _physics_step_fused(scene, state, settings, dt):
@@ -86,6 +270,7 @@ def _physics_step_fused(scene, state, settings, dt):
 
     fused = make_fused_step_solver(
         scene, settings.num_rigid_solver_iterations, settings.sor_omega,
+        sequential=settings.solver_mode == "fused_seq",
         joint_prep_in_kernel=settings.joint_prep_in_kernel)
     inv_dt = float(np.float32(1.0) / dt32)
     v_new, w_new, imp_n, point_mask = fused(bodies, w, ctl, inv_dt)

@@ -8,8 +8,9 @@ in the JAX package, so both builders round the same values to float32);
 `finalize(device=...)` converts to tensors on the requested device.
 
 Ported so far: rigid bodies, statics, sphere/capsule/box colliders, hinge
-and cone-twist joints, static uncapped pair tables. Everything else raises
-NotImplementedError naming what is missing.
+and cone-twist joints, static pair tables (capped or not, in contact
+phases or not) and the K-select / sort-and-sweep broadphase settings.
+Everything else raises NotImplementedError naming what is missing.
 """
 
 from __future__ import annotations
@@ -360,26 +361,53 @@ class SceneBuilder:
 
     # -- finalize ----------------------------------------------------------
 
+    def _collider_bounding_spheres(self, col, init_pos, init_rot, nb):
+        """Initial-pose world bounding sphere per collider (conservative):
+        picks the broad statics of the sort-and-sweep broadphase."""
+        C = len(self._colliders)
+        centers = np.zeros((C, 3))
+        brads = np.zeros(C)
+        for i in range(C):
+            ct = col["ctype"][i]
+            a, bb, r = col["a"][i], col["b"][i], col["r"][i]
+            if ct in (SHAPE_CAPSULE, SHAPE_CYLINDER):
+                lc = (a + bb) * 0.5
+                br = 0.5 * np.linalg.norm(bb - a) + r
+            elif ct == SHAPE_BOX:
+                lc, br = a, np.linalg.norm(bb)
+            else:   # sphere
+                lc, br = a, r
+            body = col["body"][i]
+            if body >= nb:   # static owner: params already world-baked
+                centers[i] = lc
+            else:
+                centers[i] = (_np_quat_rotate(init_rot[body], lc)
+                              + init_pos[body])
+            brads[i] = br
+        return centers, brads
+
     def finalize(self, max_narrow_pairs_per_group: Optional[int] = None,
                  dtype=np.float32, contact_phases: int = 1,
                  broadphase: str = "table", broadphase_k: int = 8,
                  candidate_margin: Optional[float] = None,
                  orbit_margin: Optional[float] = None,
+                 sap_window: int = 4, sap_broad_extent: float = 15.0,
                  device="cuda") -> Scene:
         """Bake the scene into static tensors on `device`.
 
-        Only static, uncapped, single-phase pair tables are ported: the
-        dynamic broadphases (`broadphase="kselect"`/`"sap"`), narrowphase
-        caps, contact phases and build-time pruning margins raise
-        NotImplementedError."""
-        if broadphase != "table":
-            raise _later(f"broadphase={broadphase!r} (kselect / SAP kernels)")
-        if contact_phases != 1:
-            raise _later("contact_phases > 1")
+        contact_phases=K > 1 splits every candidate bucket into K phase
+        sub-buckets by a body-index hash, so that pairs within a phase
+        rarely share a dynamic body; max_narrow_pairs_per_group caps each
+        (type bucket, phase) sub-bucket. broadphase='kselect' replaces the
+        masked tables by the K-select kernel (broadphase_k partners per
+        collider); broadphase='sap' by the sort-and-sweep kernel, with the
+        statics whose initial bounding radius exceeds sap_broad_extent
+        paired by a dense side pass. Build-time pruning margins
+        (candidate_margin / orbit_margin) raise NotImplementedError."""
+        if broadphase not in ("table", "kselect", "sap"):
+            raise ValueError(f"unknown broadphase {broadphase!r}")
         if candidate_margin is not None or orbit_margin is not None:
             raise _later("candidate_margin / orbit_margin pruning")
-        if (max_narrow_pairs_per_group or self.max_narrow_pairs_per_group):
-            raise _later("capped pair tables (max_narrow_pairs_per_group)")
         device = resolve_device(device)
 
         def tens(x):
@@ -455,14 +483,40 @@ class SceneBuilder:
         coll_buckets, overlap_np = bake_pair_tables(
             col["ctype"], col["owner_type"], col["body"])
         overlap_pairs = [tuple(p) for p in overlap_np]
+
+        if broadphase == "sap":
+            _centers, brads = self._collider_bounding_spheres(
+                col, init_pos, init_rot, nb)
+            sap_broad = tuple(
+                int(i) for i in range(C)
+                if col["owner_type"][i] == OWNER_STATIC
+                and brads[i] > sap_broad_extent)
+        else:
+            sap_broad = ()
+
+        cap = max_narrow_pairs_per_group or self.max_narrow_pairs_per_group
         groups = []
         for (ta, tb), pairs in sorted(coll_buckets.items()):
             p = np.asarray(pairs, np.int32).reshape(-1, 2)
-            if len(p) == 0:
-                continue
-            groups.append(PairGroup(type_a=int(ta), type_b=int(tb),
-                                    pairs=tens(p), max_narrow=len(p),
-                                    phase=0))
+            if contact_phases > 1:
+                ba, bb = col["body"][p[:, 0]], col["body"][p[:, 1]]
+                a_st, b_st = ba == nb, bb == nb
+                dyn_min = np.where(a_st, bb, np.where(b_st, ba,
+                                                      np.minimum(ba, bb)))
+                # static pairs are offset by 2, so a body's chain contact
+                # and its ground contact land in different phases
+                phase = (dyn_min + 2 * (a_st | b_st)) % contact_phases
+            else:
+                phase = np.zeros(len(p), np.int32)
+            for ph in range(contact_phases):
+                pp = p[phase == ph]
+                if len(pp) == 0:
+                    continue
+                max_narrow = len(pp) if cap is None else min(cap, len(pp))
+                groups.append(PairGroup(type_a=int(ta), type_b=int(tb),
+                                        pairs=tens(pp),
+                                        max_narrow=int(max_narrow),
+                                        phase=int(ph)))
         if len(overlap_pairs):
             raise _later("trigger / force-field overlap pairs")
 
@@ -531,8 +585,12 @@ class SceneBuilder:
             ),
             hulls=None,
             pair_groups=tuple(groups),
-            num_contact_phases=1,
-            broadphase_k=0,
+            num_contact_phases=int(contact_phases),
+            broadphase_k=(int(broadphase_k)
+                          if broadphase in ("kselect", "sap") else 0),
+            broadphase_kind=("sap" if broadphase == "sap" else "kselect"),
+            sap_window=int(sap_window),
+            sap_broad=sap_broad,
             overlap_groups=(),
             overlap_pairs=tens(np.zeros((0, 2), np.int32)),
             hinge=hinge, cone_twist=cone_twist,

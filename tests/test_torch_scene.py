@@ -100,8 +100,8 @@ def test_ragdoll_tables():
 
 @pytest.mark.parametrize("call", [
     lambda b: b.add_cylinder_collider(b.add_body(), (0, 0, 0), (0, 1, 0), 0.2),
-    lambda b: b.finalize(broadphase="kselect", broadphase_k=4, device="cpu"),
-    lambda b: b.finalize(contact_phases=4, device="cpu"),
+    lambda b: b.finalize(candidate_margin=0.25, device="cpu"),
+    lambda b: b.finalize(orbit_margin=0.25, device="cpu"),
 ])
 def test_unported_builder_features_raise(call):
     b = SceneBuilder()
@@ -111,6 +111,47 @@ def test_unported_builder_features_raise(call):
     b.add_sphere_collider(bd, (0, 0, 0), 0.5)
     with pytest.raises(NotImplementedError):
         call(b)
+
+
+def _box_towers(builder):
+    """bench.py's box stack at a small size: 2 towers of 4 unit boxes on a
+    200 x 2 x 200 ground box."""
+    b = builder()
+    ground = b.add_static()
+    b.add_box_collider(ground, (0, -1, 0), (200, 1, 200))
+    for t in range(2):
+        for i in range(4):
+            body = b.add_body(position=(t * 3.0, 0.5 + 1.001 * i, 0.0))
+            b.add_box_collider(body, (0, 0, 0), (0.5, 0.5, 0.5))
+    return b
+
+
+@pytest.mark.parametrize("broadphase", ["table", "kselect", "sap"])
+def test_box_stack_scene_arrays_equal(broadphase):
+    """The box stack finalized with bench.py's box-stack options (capped
+    pair groups in 4 contact phases) under each broadphase: pair groups,
+    phases, caps, broadphase settings and the broad statics equal the JAX
+    package's, array for array."""
+    from dxk_tpu.scene import SceneBuilder as JaxSceneBuilder
+    kw = dict(max_narrow_pairs_per_group=4, contact_phases=4,
+              broadphase=broadphase, broadphase_k=8)
+    want = {}
+    _flatten_jax("", _box_towers(JaxSceneBuilder).finalize(**kw), want)
+    tscene = _box_towers(SceneBuilder).finalize(device="cpu", **kw)
+    got = scene_arrays(tscene)
+    assert sorted(got) == sorted(want)
+    for name in sorted(want):
+        w, g = want[name], got[name]
+        assert g.shape == w.shape, name
+        if np.issubdtype(w.dtype, np.floating):
+            assert np.abs(g.astype(np.float64) - w).max(initial=0.0) <= 1e-7, name
+        else:
+            assert np.array_equal(g, w), name
+    assert tscene.num_contact_phases == 4
+    assert sorted({g.phase for g in tscene.pair_groups}) == [0, 1, 2, 3]
+    assert all(g.max_narrow == 4 for g in tscene.pair_groups)
+    assert tscene.sap_broad == ((0,) if broadphase == "sap" else ())
+    assert tscene.broadphase_k == (0 if broadphase == "table" else 8)
 
 
 def test_initial_state_batch():
