@@ -1,10 +1,12 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two main paths through the entry points a user calls,
+Drives the port's main paths through the entry points a user calls,
 after building the hand-written CUDA kernels from the sources in this
 checkout and holding each against its plain PyTorch version on the card:
   - a batch of ragdoll locomotion environments stepped in lockstep by the
     trained walking policy (the fused step);
+  - bench.py's constraint zoo (BASELINE config 2: 16 chains with one link
+    per joint type, 256 and 4096 envs) on the fused step;
   - bench.py's 1k-box stack (64 towers of 16 boxes, 32 envs) on the
     reference step under each of the three broadphases (table, K-select,
     sort-and-sweep).
@@ -19,13 +21,18 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
   kernels    fused-step kernel vs plain version on rolled-out states, times,
              bound
   serve      policy rollout and zero-action rollout, checks on the results
+  zoo        fused-step kernel vs plain version on zoo states (initial, after
+             60 steps, limit poses), live joint limits and motors by type,
+             then 600 steps at each batch: launches, finiteness, anchor gaps,
+             body-steps/s, the kernel's times and bound
   box_stack  the three broadphase kernels vs their plain versions (equal
              integers) on the initial and a rolled-out state, pair sets equal
              across the broadphases, then the box stack stepped in each
              broadphase: launches per step, overflow, agreement with the
              table broadphase, body-steps/s
 The line before the last is the card's name and power limit; the line before
-that lists every kernel. The last line is {"ok": true, "device": {...}}.
+that lists every kernel (the fused step twice: loco and zoo). The last line
+is {"ok": true, "device": {...}}.
 
 Imports torch and the port only; nothing of JAX.
 """
@@ -60,13 +67,20 @@ PEAK_BYTES = 3.35e12
 # abs or negations), counted by hand from csrc/fused_step.cu
 FLOPS_CONTACT_POINT = 124        # friction + normal update of one live point
 FLOPS_ROW_DELTA = 24             # 12 subtractions + 12 adds into body sums
-FLOPS_HINGE_SOLVE = 275 + 24
-FLOPS_CT_SOLVE = 257 + 24
 FLOPS_BODY_APPLY = 3             # per body component and pass: scale, add
 FLOPS_PREP_POINT = 183
 FLOPS_NARROW = {0: 170, 1: 380, 2: 1600}   # capsule-capsule, capsule-box, box-box
-FLOPS_HINGE_PREP = 600
-FLOPS_CT_PREP = 900
+# per joint type: (prep once a step, solve per iteration incl. the 24
+# operations of its velocity deltas), all counted the same way
+FLOPS_JOINT = {"distance": (143, 60 + 24), "ball": (266, 156 + 24),
+               "fixed": (336, 258 + 24), "hinge": (600, 275 + 24),
+               "cone_twist": (900, 257 + 24), "slider": (420, 323 + 24)}
+# prep rows that hold a joint's limit and motor flags, by type
+# (batched_solver.py layouts)
+JOINT_FLAG_ROWS = {"hinge": {"limit": 40, "motor": 41},
+                   "cone_twist": {"swing_limit": 45, "twist_limit": 48,
+                                  "swing_motor": 52, "twist_motor": 56},
+                   "slider": {"limit": 51, "motor": 55}}
 
 
 def emit(phase, **kw):
@@ -101,10 +115,13 @@ def build_phase():
     out = {}
     for name, mod, sec in (("fused_step", fs, secs[0]),
                            ("broadphase", bk, secs[1])):
+        # each kernel's registers, and any stack frame or spill at all
         ptxas = [ln.strip() for ln in mod.BUILD_LOG.splitlines()
-                 if "registers" in ln or "spill" in ln or "Function" in ln]
+                 if "entry function" in ln or "Used" in ln
+                 or ("spill" in ln and "0 bytes stack frame, 0 bytes spill "
+                     "stores, 0 bytes spill loads" not in ln)]
         out[name] = dict(seconds=round(sec, 2), flags=" ".join(mod.NVCC_FLAGS),
-                         ptxas=ptxas[-12:])
+                         ptxas=ptxas)
     emit("build", **out)
 
 
@@ -118,13 +135,12 @@ def load_policy(env):
     return net.to(env.device).eval()
 
 
-def kernel_inputs(env, scene, state):
+def kernel_inputs(scene, state, dt):
     """What physics_step hands the fused step for `state`."""
-    from dxk_tpu_torch.envs.loco_env import DT
     from dxk_tpu_torch.ops.integrator import integrate_forces
     from dxk_tpu_torch.ops.shapes import world_colliders
     from dxk_tpu_torch.physics import controls_pack
-    dt32 = np.float32(DT)
+    dt32 = np.float32(dt)
     wcol = world_colliders(scene, state.pos, state.rot)
     bodies = integrate_forces(scene, state, float(dt32))
     ctl = controls_pack(scene, state.controls, dt32)
@@ -163,10 +179,11 @@ def bound_ms(tab, live, batch):
     live_points = int(sum(((lv >> k) & 1).sum() for k in range(4)))
     types = tab.itab[tab.ioffs[0]:tab.ioffs[0] + 8 * P].view(P, 8)[:, 0].tolist()
     narrow = sum(FLOPS_NARROW[t] for t in types)
-    nH, nC = tab.num_hinge, tab.num_cone_twist
-    per_env_once = narrow + nH * FLOPS_HINGE_PREP + nC * FLOPS_CT_PREP
-    passes = (nH > 0) + (nC > 0) + tab.num_phases
-    per_env_iter = (nH * FLOPS_HINGE_SOLVE + nC * FLOPS_CT_SOLVE
+    counts = tab.joint_counts
+    per_env_once = narrow + sum(n * FLOPS_JOINT[t][0]
+                                for t, n in counts.items())
+    passes = sum(n > 0 for n in counts.values()) + tab.num_phases
+    per_env_iter = (sum(n * FLOPS_JOINT[t][1] for t, n in counts.items())
                     + passes * nb * 6 * FLOPS_BODY_APPLY)
     flops = (batch * (per_env_once + ITERATIONS * per_env_iter)
              + live_points * (FLOPS_PREP_POINT
@@ -179,12 +196,26 @@ def bound_ms(tab, live, batch):
                  live_points=live_points, bytes_ms=t_bytes, ops_ms=t_ops))
 
 
-def compare_kernel(env, state, batch, scene=None):
+def joint_flags(tab, bodies, ctl, inv_dt):
+    """Joints whose limit or motor is on, by type, from the plain
+    version's prep rows."""
+    from dxk_tpu_torch.ops.kernels import fused_step as fs
+    inv_dt = torch.tensor(inv_dt, dtype=torch.float32, device=ctl.device)
+    out = {}
+    for jt in tab.joint_types:
+        if jt.name not in JOINT_FLAG_ROWS:
+            continue
+        rows = fs._joint_rows(tab, jt, bodies.rot, bodies.pos_cog,
+                              bodies.inv_inertia, bodies.inv_mass, ctl, inv_dt)
+        out[jt.name] = {k: int((rows[r] > 0.5).sum())
+                        for k, r in JOINT_FLAG_ROWS[jt.name].items()}
+    return out
+
+
+def compare_kernel(scene, state, batch, dt):
     """Kernel vs plain version on the card for the first `batch` envs of
-    `state`: max abs differences after the solve and after one full step.
-    `scene` replaces the env's scene (same bodies, other pair grouping)."""
-    scene = env.scene if scene is None else scene
-    from dxk_tpu_torch.envs.loco_env import DT
+    `state`: max abs differences after the solve and after one full step,
+    live pair rows by recipe and live joint limits and motors by type."""
     from dxk_tpu_torch.ops.integrator import integrate_velocities
     from dxk_tpu_torch.ops.kernels import fused_step as fs
     sub = state.replace(**{
@@ -194,8 +225,8 @@ def compare_kernel(env, state, batch, scene=None):
         controls=type(state.controls)(**{
             k: v[:batch].contiguous()
             for k, v in vars(state.controls).items()}))
-    bodies, wcol, ctl, inv_dt = kernel_inputs(env, scene, sub)
-    tab = fs.fused_tables(scene, env.device)
+    bodies, wcol, ctl, inv_dt = kernel_inputs(scene, sub, dt)
+    tab = fs.fused_tables(scene, state.pos.device)
     solver = fs.make_fused_step_solver(scene, ITERATIONS, 1.0)
 
     def run_kernel():
@@ -225,7 +256,7 @@ def compare_kernel(env, state, batch, scene=None):
     rows_live = (klive != 0).sum(dim=0)
     live_by_recipe = {name: int(rows_live[types == t].sum())
                       for t, name in RECIPES.items()}
-    dt = float(np.float32(DT))
+    dt = float(np.float32(dt))
     ks = integrate_velocities(scene, bodies.replace(v=kv, w=kw), sub, dt)
     ps = integrate_velocities(
         scene, bodies.replace(v=pvw[..., :3].contiguous(),
@@ -240,8 +271,18 @@ def compare_kernel(env, state, batch, scene=None):
                err_w=err_w, err_pos=err_pos, err_rot=err_rot, err_imp=err_imp,
                imp_scale=imp_scale, mask_mismatch=mask_mismatch,
                finite=finite, live_rows_by_recipe=live_by_recipe,
-               live_rows_per_env=float((klive != 0).sum()) / batch)
+               live_rows_per_env=float((klive != 0).sum()) / batch,
+               joints_on=joint_flags(tab, bodies, ctl, inv_dt))
     return out, run_kernel, run_plain, tab, klive
+
+
+def hold_fused(c):
+    """Raise unless the fused kernel agreed with its plain version."""
+    worst = max(c["err_v"], c["err_w"], c["err_pos"], c["err_rot"],
+                c["err_imp"] / c["imp_scale"])
+    if not c["finite"] or c["mask_mismatch"] or not worst <= KERNEL_TOL:
+        raise RuntimeError(f"fused_step kernel disagrees with its plain "
+                           f"version: {c}")
 
 
 def rollout(env, net, steps, seed):
@@ -604,6 +645,247 @@ def box_stack_phase(seed):
         for t in (timing[name],)]
 
 
+# ---------------------------------------------------------------------------
+# the constraint zoo (BASELINE config 2) on the fused step
+
+ZOO_CHAINS = 16                           # bench.py's width
+ZOO_BATCHES = (256, 4096)                 # bench.py's on-chip zoo_batch; 4096
+ZOO_RAGGED = 1000
+ZOO_STEPS = 600
+ZOO_WARM = 60
+ZOO_DT = 1.0 / 120.0
+ZOO_JOINTS = ("distance", "ball", "fixed", "hinge", "cone_twist", "slider")
+# bench.py:303-313: position-drive the hinges, velocity-drive the sliders
+ZOO_MOTORS = dict(hinge_motor_type=1, hinge_target=0.5, hinge_max_torque=50.0,
+                  slider_motor_type=0, slider_target=0.2,
+                  slider_max_force=80.0)
+
+
+def zoo_builder(builder, n_chains=ZOO_CHAINS):
+    """bench.py:261-300 (bench_constraint_zoo), copied: `n_chains` chains
+    of six capsule links, one per joint type, with limits, each hanging
+    from a kinematic anchor. `builder` is a SceneBuilder class; the result
+    is finalized by the caller with candidate_margin=3.0."""
+    b = builder()
+    for ci in range(n_chains):
+        x = ci * 4.0
+        top = b.add_body(position=(x, 8, 0), kinematic=True)
+        prev, y = top, 8.0
+        for kind in ZOO_JOINTS:
+            y -= 1.0
+            link = b.add_body(position=(x, y, 0))
+            b.add_capsule_collider(link, (0, -0.3, 0), (0, 0.3, 0), 0.12)
+            anchor = (x, y + 0.5, 0)
+            if kind == "distance":
+                b.add_distance_constraint(prev, link, (x, y + 0.8, 0), anchor)
+            elif kind == "ball":
+                b.add_ball_constraint(prev, link, anchor)
+            elif kind == "fixed":
+                b.add_fixed_constraint(prev, link, anchor)
+            elif kind == "hinge":
+                b.add_hinge_constraint(prev, link, anchor, (1, 0, 0),
+                                       min_limit=-1.0, max_limit=1.0)
+            elif kind == "cone_twist":
+                b.add_cone_twist_constraint(prev, link, anchor, (0, -1, 0),
+                                            swing_limit=0.8, twist_limit=0.5)
+            else:
+                b.add_slider_constraint(prev, link, anchor, (0, 1, 0),
+                                        min_limit=-0.4, max_limit=0.4)
+            prev = link
+    return b
+
+
+def zoo_scene(n_chains=ZOO_CHAINS, device=DEVICE):
+    """The zoo as bench.py finalizes it (candidate_margin=3.0 keeps the
+    192 intra-chain capsule pairs of the 4,560), with bench's motors."""
+    from dxk_tpu_torch.scene import SceneBuilder
+    scene = zoo_builder(SceneBuilder, n_chains).finalize(
+        candidate_margin=3.0, device=device)
+    c = scene.default_controls
+    motors = {k: torch.full_like(getattr(c, k), v)
+              for k, v in ZOO_MOTORS.items()}
+    return scene.replace(default_controls=c.replace(**motors))
+
+
+def _turn(pos, rot, env, bodies, pivot, axis, angle):
+    """Rigidly turn `bodies` of env `env` about `pivot` (in place)."""
+    axis = torch.tensor(axis, dtype=torch.float64)
+    q = torch.cat([axis * np.sin(angle / 2), torch.tensor([np.cos(angle / 2)],
+                                                          dtype=torch.float64)])
+    from dxk_tpu_torch.core.maths import quat_mul, quat_rotate
+    piv = torch.tensor(pivot, dtype=torch.float64)
+    qb = q.expand(len(bodies), 4)
+    pos[env, bodies] = piv + quat_rotate(qb, pos[env, bodies] - piv)
+    rot[env, bodies] = quat_mul(qb, rot[env, bodies])
+
+
+def zoo_limit_state(scene, batch, seed):
+    """`batch` envs of the zoo posed so that every limit of every chain is
+    violated somewhere: env e (mod 5) moves the slider link 0.46 m up its
+    axis, turns the hinge link and the links below it by +-1.15 rad about
+    the hinge axis (limit 1 rad), swings or twists the cone-twist link and
+    the slider link by 0.9 / 0.6 rad (limits 0.8 / 0.5) and moves the slider
+    0.46 m down. Each move is a rigid motion about the joint's anchor, so
+    the other joints stay closed. Velocities get the seeded 0.01 m/s noise
+    of zoo_initial_state."""
+    st = zoo_initial_state(scene, batch, seed)
+    pos = st.pos.double().cpu()
+    rot = st.rot.double().cpu()
+    n_chains = scene.num_bodies // 7
+    for e in range(batch):
+        for ci in range(n_chains):
+            x, base = ci * 4.0, ci * 7
+            hinge_sub = [base + 4, base + 5, base + 6]
+            cone_sub = [base + 5, base + 6]
+            kind = e % 5
+            if kind == 0:
+                pos[e, base + 6, 1] += 0.46
+            elif kind in (1, 2):
+                _turn(pos, rot, e, hinge_sub, (x, 4.5, 0.0), (1.0, 0.0, 0.0),
+                      1.15 if kind == 1 else -1.15)
+            elif kind == 3:
+                _turn(pos, rot, e, cone_sub, (x, 3.5, 0.0), (0.0, 0.0, 1.0),
+                      0.9)
+            else:
+                _turn(pos, rot, e, cone_sub, (x, 3.5, 0.0), (0.0, 1.0, 0.0),
+                      0.6)
+                pos[e, base + 6, 1] -= 0.46
+    return st.replace(pos=pos.float().to(st.pos.device),
+                      rot=rot.float().to(st.rot.device))
+
+
+def zoo_initial_state(scene, batch, seed):
+    """`batch` envs of the zoo at rest, each with a seeded normal
+    perturbation of 0.01 m/s on every body's linear velocity (as
+    tests/test_fused_solver.py:46-52 does), so that the envs differ."""
+    st = scene.initial_state(batch)
+    gen = torch.Generator(device=st.pos.device)
+    gen.manual_seed(seed)
+    noise = torch.randn(st.lin_vel.shape, generator=gen,
+                        device=st.pos.device) * 0.01
+    return st.replace(lin_vel=st.lin_vel + noise)
+
+
+def anchor_gap(scene, state, name):
+    """Largest distance between the two world anchors of a joint type."""
+    from dxk_tpu_torch.core.maths import quat_rotate
+    j = getattr(scene, name)
+    a, b = j.body_a.long(), j.body_b.long()
+    ga = state.pos[:, a] + quat_rotate(state.rot[:, a],
+                                       j.local_anchor_a.expand_as(
+                                           state.pos[:, a]))
+    gb = state.pos[:, b] + quat_rotate(state.rot[:, b],
+                                       j.local_anchor_b.expand_as(
+                                           state.pos[:, b]))
+    return float((ga - gb).norm(dim=-1).max())
+
+
+def zoo_phase(seed):
+    """The constraint zoo on the fused step: kernel vs plain version on the
+    card, every joint path live, then the main path at each batch."""
+    from dxk_tpu_torch.ops.kernels import broadphase_kernel as bk
+    from dxk_tpu_torch.ops.kernels import fused_step as fs
+    from dxk_tpu_torch.ops.kernels import kselect_broadphase as ks
+    from dxk_tpu_torch.ops.kernels import sap_broadphase as sp
+    from dxk_tpu_torch.physics import PhysicsSettings, physics_step
+
+    counters = {"fused_step": fs, "aabb_overlap_matrix": bk,
+                "kselect_broadphase": ks, "sap_broadphase": sp}
+    scene = zoo_scene()
+    tab = fs.fused_tables(scene, DEVICE)
+    settings = PhysicsSettings(num_rigid_solver_iterations=ITERATIONS,
+                               solver_mode="fused")
+    n_bodies = scene.num_bodies
+
+    # ---- kernel vs plain version: bench's batch and a ragged one, on the
+    # initial state and after ZOO_WARM steps; and on the limit poses
+    checks = {}
+    for batch in (ZOO_BATCHES[0], ZOO_RAGGED):
+        st0 = zoo_initial_state(scene, batch, seed)
+        st = st0
+        for _ in range(ZOO_WARM):
+            st, _info = physics_step(scene, st, settings, ZOO_DT)
+        checks[f"B{batch}_initial"] = compare_kernel(scene, st0, batch,
+                                                     ZOO_DT)[0]
+        checks[f"B{batch}_after_{ZOO_WARM}_steps"] = compare_kernel(
+            scene, st, batch, ZOO_DT)[0]
+    checks["limit_poses"] = compare_kernel(
+        scene, zoo_limit_state(scene, ZOO_BATCHES[0], seed), ZOO_BATCHES[0],
+        ZOO_DT)[0]
+    joints_on = {}
+    for c in checks.values():
+        for t, flags in c["joints_on"].items():
+            for k, n in flags.items():
+                key = f"{t}.{k}"
+                joints_on[key] = joints_on.get(key, 0) + n
+
+    # ---- the main path at each batch, counts from zero just before it
+    runs, timing = {}, {}
+    for batch in ZOO_BATCHES:
+        st = zoo_initial_state(scene, batch, seed + 1)
+        finite = torch.ones((), dtype=torch.bool, device=DEVICE)
+        for mod in counters.values():
+            mod.reset_launch_count()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ZOO_STEPS):
+            st, _info = physics_step(scene, st, settings, ZOO_DT)
+            finite &= torch.isfinite(st.pos).all() & torch.isfinite(
+                st.lin_vel).all() & torch.isfinite(st.ang_vel).all()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {n: mod.launch_count() for n, mod in counters.items()}
+        runs[batch] = dict(
+            steps=ZOO_STEPS, seconds=secs,
+            body_steps_per_s=n_bodies * batch * ZOO_STEPS / secs,
+            ms_per_step=secs / ZOO_STEPS * 1e3, launches=launches,
+            finite=bool(finite),
+            max_anchor_gap_m={n: anchor_gap(scene, st, n)
+                              for n in ("ball", "fixed")})
+        # the kernel at this batch on the rolled-out state
+        cmp, run_kernel, run_plain, _tab, live = compare_kernel(
+            scene, st, batch, ZOO_DT)
+        hold_fused(cmp)
+        for _ in range(3):
+            run_kernel()
+        b_ms, b_by, b_detail = bound_ms(tab, live, batch)
+        timing[batch] = dict(ms=time_ms(run_kernel, 20),
+                             plain_ms=time_ms(run_plain, 2), bound_ms=b_ms,
+                             bound_by=b_by, bound_detail=b_detail,
+                             err_v=cmp["err_v"], err_w=cmp["err_w"])
+    emit("zoo", chains=ZOO_CHAINS, bodies=n_bodies,
+         colliders=tab.num_colliders, pair_rows=tab.num_rows,
+         joints=tab.joint_counts, iterations=ITERATIONS, dt=ZOO_DT,
+         threads=tab.threads(), smem_bytes=tab.shared_floats() * 4,
+         shared_floats=tab.shared_floats(), tolerance=KERNEL_TOL,
+         checks=checks, joints_on=joints_on, runs=runs, kernel=timing)
+    for where, c in checks.items():
+        hold_fused(c)
+    never = [k for k in ("hinge.motor", "slider.motor", "hinge.limit",
+                         "cone_twist.swing_limit", "cone_twist.twist_limit",
+                         "slider.limit") if joints_on.get(k, 0) == 0]
+    if never:
+        raise RuntimeError(f"zoo: joint paths never live in the compared "
+                           f"states: {never}")
+    for batch, r in runs.items():
+        want = {n: (ZOO_STEPS if n == "fused_step" else 0) for n in counters}
+        if r["launches"] != want or not r["finite"]:
+            raise RuntimeError(f"zoo B={batch}: launches {r['launches']} "
+                               f"(expected {want}), finite {r['finite']}")
+    big = ZOO_BATCHES[-1]
+    return {
+        "name": "fused_step_zoo", "route": "cuda",
+        "source": "dxk_tpu_torch/ops/kernels/csrc/fused_step.cu",
+        "replaces": "dxk_tpu/ops/pallas/fused_step.py:1177",
+        "launches": runs[big]["launches"]["fused_step"],
+        "max_abs_err": max(max(c["err_v"], c["err_w"], c["err_pos"],
+                               c["err_rot"], c["err_imp"])
+                           for c in checks.values()),
+        "ms": timing[big]["ms"], "plain_ms": timing[big]["plain_ms"],
+        "bound_ms": timing[big]["bound_ms"],
+        "bound_by": timing[big]["bound_by"], "library_ms": None}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=600,
@@ -634,14 +916,15 @@ def main():
         st, obs, _r, _d = env.step(st, policy_apply(net, obs), gen)
     torch.cuda.synchronize()
     state = st.physics
+    from dxk_tpu_torch.envs.loco_env import DT
     cmp_full, run_kernel, run_plain, tab, live = compare_kernel(
-        env, state, NUM_ENVS)
-    cmp_ragged = compare_kernel(env, state, RAGGED_ENVS)[0]
+        env.scene, state, NUM_ENVS, DT)
+    cmp_ragged = compare_kernel(env.scene, state, RAGGED_ENVS, DT)[0]
     # the same scene with each pair group in a contact phase of its own, so
     # that the kernel's sequential phase slices run too
     phased = env.scene.replace(pair_groups=tuple(
         g.replace(phase=i) for i, g in enumerate(env.scene.pair_groups)))
-    cmp_phased = compare_kernel(env, state, RAGGED_ENVS, phased)[0]
+    cmp_phased = compare_kernel(phased, state, RAGGED_ENVS, DT)[0]
     for _ in range(3):
         run_kernel()
     kernel_ms = time_ms(run_kernel, 20)
@@ -655,11 +938,7 @@ def main():
          bound_by=b_by, bound_detail=b_detail,
          threads=tab.threads(), smem_bytes=tab.shared_floats() * 4)
     for c in (cmp_full, cmp_ragged, cmp_phased):
-        worst = max(c["err_v"], c["err_w"], c["err_pos"], c["err_rot"],
-                    c["err_imp"] / c["imp_scale"])
-        if not c["finite"] or c["mask_mismatch"] or not worst <= KERNEL_TOL:
-            raise RuntimeError(f"fused_step kernel disagrees with its plain "
-                               f"version: {c}")
+        hold_fused(c)
         if min(c["live_rows_by_recipe"].values()) == 0:
             raise RuntimeError(f"a contact recipe has no live row in the "
                                f"compared states: {c}")
@@ -680,6 +959,9 @@ def main():
         raise RuntimeError("the trained policy survives no longer than zero "
                            "actions in the port's simulator")
 
+    # ---- the constraint zoo on the fused step
+    zoo_kernel = zoo_phase(args.seed + 4)
+
     # ---- the box stack on the reference step, each broadphase
     box_kernels = box_stack_phase(args.seed + 3)
 
@@ -691,7 +973,8 @@ def main():
             cmp_full[k] for k in ("err_v", "err_w", "err_pos", "err_rot",
                                   "err_imp")),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": None}] + box_kernels}), flush=True)
+        "bound_by": b_by, "library_ms": None}, zoo_kernel] + box_kernels}),
+        flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,7 @@ the same arithmetic as the JAX package's joint-by-joint unrolled loop
 because the averaged mode reads every joint's velocities before any
 write-back.
 
-Ported so far: contacts, hinge, cone-twist.
+Ported: contacts and all six joint types.
 """
 
 from __future__ import annotations
@@ -62,6 +62,22 @@ CT_SCALS = ("solve_swing_limit", "eff_swing_limit_mass", "swing_limit_bias",
 # packed rows per joint: vec fields + mt(9) + mr(4) + rot_bias(2) + scalars
 HINGE_ROWS = len(HINGE_VECS) * 3 + 9 + 4 + 2 + len(HINGE_SCALS)
 CT_ROWS = len(CT_VECS) * 3 + 9 + len(CT_SCALS)
+
+# distance / ball / fixed / slider layouts (reference SIMD paths
+# constraints.cpp:189-459, 460-735, 736-1078, 2638-3306)
+DIST_VECS = ("rel_a", "rel_b", "u", "to_wa", "to_wb")
+DIST_SCALS = ("bias", "eff_mass")
+DIST_ROWS = len(DIST_VECS) * 3 + len(DIST_SCALS)
+BALL_VECS = ("rel_a", "rel_b", "bias")
+BALL_ROWS = len(BALL_VECS) * 3 + 9                       # + inv_eff_mass
+FIXED_VECS = ("rel_a", "rel_b", "translation_bias", "rotation_bias")
+FIXED_ROWS = len(FIXED_VECS) * 3 + 9 + 9                 # + mt + mr
+SLIDER_VECS = ("r_au_x_t", "r_au_x_b", "r_b_x_t", "r_b_x_b", "tangent",
+               "bitangent", "axis", "r_au_x_s", "r_b_x_s", "l_to_wa",
+               "l_to_wb", "rotation_bias")
+SLIDER_SCALS = ("solve_limit", "eff_axial_mass", "limit_bias", "limit_sign",
+                "solve_motor", "motor_velocity", "max_motor_impulse")
+SLIDER_ROWS = len(SLIDER_VECS) * 3 + 4 + 2 + 9 + len(SLIDER_SCALS)
 
 
 # reference solve order within one iteration (constraints.cpp:3748-3772);
@@ -291,19 +307,166 @@ def _cone_twist_one(f, inv_ma, inv_mb, inv_ia, inv_ib, va, wa, vb, wb,
     return va, wa, vb, wb, swing_imp, twist_imp, sm_imp, tm_imp
 
 
+def _distance_one(f, inv_ma, inv_mb, inv_ia, inv_ib, va, wa, vb, wb):
+    """_distance_solve_one (constraints.cpp:244-263 with the corrected
+    torque arm). Inertia args unused (uniform joint-solve signature)."""
+    av = _add(va, _cross(wa, f["rel_a"]))
+    bv = _add(vb, _cross(wb, f["rel_b"]))
+    cdot = _dot(f["u"], _sub(bv, av)) + f["bias"]
+    lam = -f["eff_mass"] * cdot
+    va = _sub(va, _muls(f["u"], inv_ma * lam))
+    wa = _sub(wa, _muls(f["to_wa"], lam))
+    vb = _add(vb, _muls(f["u"], inv_mb * lam))
+    wb = _add(wb, _muls(f["to_wb"], lam))
+    return va, wa, vb, wb
+
+
+def _ball_one(f, inv_ma, inv_mb, inv_ia, inv_ib, va, wa, vb, wb):
+    """_ball_solve_one (constraints.cpp:508-527)."""
+    av = _add(va, _cross(wa, f["rel_a"]))
+    bv = _add(vb, _cross(wb, f["rel_b"]))
+    cdot = _add(_sub(bv, av), f["bias"])
+    P = _solve_3x3(f["m"], tuple(-c for c in cdot))
+    va = _sub(va, _muls(P, inv_ma))
+    wa = _sub(wa, _matvec(inv_ia, _cross(f["rel_a"], P)))
+    vb = _add(vb, _muls(P, inv_mb))
+    wb = _add(wb, _matvec(inv_ib, _cross(f["rel_b"], P)))
+    return va, wa, vb, wb
+
+
+def _fixed_one(f, inv_ma, inv_mb, inv_ia, inv_ib, va, wa, vb, wb):
+    """_fixed_solve_one (constraints.cpp:787-822): rotation then
+    position."""
+    cdot = _sub(wb, wa)
+    rhs = tuple(-(c + rb) for c, rb in zip(cdot, f["rotation_bias"]))
+    lam = _solve_3x3(f["mr"], rhs)
+    wa = _sub(wa, _matvec(inv_ia, lam))
+    wb = _add(wb, _matvec(inv_ib, lam))
+
+    av = _add(va, _cross(wa, f["rel_a"]))
+    bv = _add(vb, _cross(wb, f["rel_b"]))
+    cdot = _add(_sub(bv, av), f["translation_bias"])
+    P = _solve_3x3(f["mt"], tuple(-c for c in cdot))
+    va = _sub(va, _muls(P, inv_ma))
+    wa = _sub(wa, _matvec(inv_ia, _cross(f["rel_a"], P)))
+    vb = _add(vb, _muls(P, inv_mb))
+    wb = _add(wb, _matvec(inv_ib, _cross(f["rel_b"], P)))
+    return va, wa, vb, wb
+
+
+def _slider_one(f, inv_ma, inv_mb, inv_ia, inv_ib, va, wa, vb, wb,
+                limit_imp, motor_imp):
+    """_slider_solve_one (constraints.cpp:2761-2845): motor -> limit ->
+    rotation -> position."""
+    axis = f["axis"]
+    # motor (pure linear along axis)
+    cdot = _dot(vb, axis) - _dot(va, axis) - f["motor_velocity"]
+    mass = _inv_nz(inv_ma + inv_mb)
+    lam = -mass * cdot
+    new = _clip(motor_imp + lam, -f["max_motor_impulse"],
+                f["max_motor_impulse"])
+    on = f["solve_motor"] > 0.5
+    lam = torch.where(on, new - motor_imp, 0.0)
+    motor_imp = torch.where(on, new, motor_imp)
+    va = _sub(va, _muls(axis, inv_ma * lam))
+    vb = _add(vb, _muls(axis, inv_mb * lam))
+
+    # limit
+    cdot = (_dot(vb, axis) + _dot(wb, f["r_b_x_s"])
+            - _dot(va, axis) - _dot(wa, f["r_au_x_s"]))
+    lam = -f["eff_axial_mass"] * (f["limit_sign"] * cdot + f["limit_bias"])
+    imp = _max(limit_imp + lam, 0.0)
+    on = f["solve_limit"] > 0.5
+    lam = torch.where(on, imp - limit_imp, 0.0)
+    limit_imp = torch.where(on, imp, limit_imp)
+    lam = lam * f["limit_sign"]
+    va = _sub(va, _muls(axis, inv_ma * lam))
+    wa = _sub(wa, _muls(f["l_to_wa"], lam))
+    vb = _add(vb, _muls(axis, inv_mb * lam))
+    wb = _add(wb, _muls(f["l_to_wb"], lam))
+
+    # rotation (3D)
+    cdot = _sub(wb, wa)
+    rhs = tuple(-(c + rb) for c, rb in zip(cdot, f["rotation_bias"]))
+    lam3 = _solve_3x3(f["mr"], rhs)
+    wa = _sub(wa, _matvec(inv_ia, lam3))
+    wb = _add(wb, _matvec(inv_ib, lam3))
+
+    # position (2D in the plane normal to the slider axis)
+    cx = (_dot(f["tangent"], vb) + _dot(f["r_b_x_t"], wb)
+          - _dot(f["tangent"], va) - _dot(f["r_au_x_t"], wa))
+    cy = (_dot(f["bitangent"], vb) + _dot(f["r_b_x_b"], wb)
+          - _dot(f["bitangent"], va) - _dot(f["r_au_x_b"], wa))
+    l0, l1 = _solve_2x2(f["mt00"], f["mt01"], f["mt10"], f["mt11"],
+                        -(cx + f["tb0"]), -(cy + f["tb1"]))
+    tbv = _add(_muls(f["tangent"], l0), _muls(f["bitangent"], l1))
+    va = _sub(va, _muls(tbv, inv_ma))
+    wa = _sub(wa, _matvec(
+        inv_ia, _add(_muls(f["r_au_x_t"], l0), _muls(f["r_au_x_b"], l1))))
+    vb = _add(vb, _muls(tbv, inv_mb))
+    wb = _add(wb, _matvec(
+        inv_ib, _add(_muls(f["r_b_x_t"], l0), _muls(f["r_b_x_b"], l1))))
+    return va, wa, vb, wb, limit_imp, motor_imp
+
+
 # ===========================================================================
 # packed joint rows -> field dicts (layout shared with cm_joint_prep's row
 # builders and with the CUDA kernel's shared-memory joint tables)
 
 
+def _vec_fields(rows, names, f):
+    """Read len(names) 3-lane vectors from the front of `rows` into `f`;
+    returns the next row."""
+    r = 0
+    for name in names:
+        f[name] = (rows[r], rows[r + 1], rows[r + 2])
+        r += 3
+    return r
+
+
+def _dist_field_rows(rows):
+    f = {}
+    r = _vec_fields(rows, DIST_VECS, f)
+    for name in DIST_SCALS:
+        f[name] = rows[r]
+        r += 1
+    return f
+
+
+def _ball_field_rows(rows):
+    f = {}
+    r = _vec_fields(rows, BALL_VECS, f)
+    f["m"] = tuple(rows[r + i] for i in range(9))
+    return f
+
+
+def _fixed_field_rows(rows):
+    f = {}
+    r = _vec_fields(rows, FIXED_VECS, f)
+    f["mt"] = tuple(rows[r + i] for i in range(9)); r += 9
+    f["mr"] = tuple(rows[r + i] for i in range(9))
+    return f
+
+
+def _slider_field_rows(rows):
+    f = {}
+    r = _vec_fields(rows, SLIDER_VECS, f)
+    f["mt00"], f["mt01"], f["mt10"], f["mt11"] = rows[r:r + 4]
+    r += 4
+    f["tb0"], f["tb1"] = rows[r], rows[r + 1]
+    r += 2
+    f["mr"] = tuple(rows[r + i] for i in range(9)); r += 9
+    for name in SLIDER_SCALS:
+        f[name] = rows[r]
+        r += 1
+    return f
+
+
 def _hinge_field_rows(rows):
     """Field dict of the hinges from their packed row list (HINGE_ROWS
     lanes)."""
-    r = 0
     f = {}
-    for name in HINGE_VECS:
-        f[name] = (rows[r], rows[r + 1], rows[r + 2])
-        r += 3
+    r = _vec_fields(rows, HINGE_VECS, f)
     f["mt"] = tuple(rows[r + i] for i in range(9)); r += 9
     f["mr00"], f["mr01"], f["mr10"], f["mr11"] = rows[r:r + 4]
     r += 4
@@ -316,11 +479,8 @@ def _hinge_field_rows(rows):
 
 
 def _ct_field_rows(rows):
-    r = 0
     f = {}
-    for name in CT_VECS:
-        f[name] = (rows[r], rows[r + 1], rows[r + 2])
-        r += 3
+    r = _vec_fields(rows, CT_VECS, f)
     f["m"] = tuple(rows[r + i] for i in range(9)); r += 9
     for name in CT_SCALS:
         f[name] = rows[r]
@@ -330,8 +490,12 @@ def _ct_field_rows(rows):
 
 # name -> (rows, reader, solve, n_acc)
 JOINT_SPECS = {
+    "distance": (DIST_ROWS, _dist_field_rows, _distance_one, 0),
+    "ball": (BALL_ROWS, _ball_field_rows, _ball_one, 0),
+    "fixed": (FIXED_ROWS, _fixed_field_rows, _fixed_one, 0),
     "hinge": (HINGE_ROWS, _hinge_field_rows, _hinge_one, 2),
     "cone_twist": (CT_ROWS, _ct_field_rows, _cone_twist_one, 4),
+    "slider": (SLIDER_ROWS, _slider_field_rows, _slider_one, 2),
 }
 
 

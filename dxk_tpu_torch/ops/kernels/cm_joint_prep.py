@@ -11,7 +11,8 @@ kernel reads them. The inverse-trig calls use core/fastmath.py.
 Each `*_rows` function returns the packed row list in the layout
 batched_solver's `_*_field_rows` readers consume.
 
-Ported so far: hinge, cone-twist.
+All six joint types of the JAX package are ported: distance, ball, fixed,
+hinge, cone-twist, slider.
 """
 
 from __future__ import annotations
@@ -27,10 +28,14 @@ from dxk_tpu_torch.ops.kernels.cm_narrowphase import (_add, _clip, _cross,
                                                       quat_rotate_cm)
 
 # Baumgarte factors and the degenerate-dt guard of the constraint preps
+# (the JAX package's ops/solver.py:46-53)
+DISTANCE_BETA = 0.1
 BALL_BETA = 0.1
+SLIDER_BETA = 0.1
 HINGE_ROTATION_BETA = 0.3
 HINGE_LIMIT_BETA = 0.1
 TWIST_LIMIT_BETA = 0.1
+SLIDER_LIMIT_BETA = 0.1
 DT_THRESHOLD = 1e-5
 
 # ---------------------------------------------------------------------------
@@ -182,6 +187,60 @@ def _anchors(js, bd):
     gb = _add(bd["pb"], rel_b)
     return rel_a, rel_b, ga, gb
 
+
+def distance_rows(js, ctl, bd, dt, inv_dt):
+    """solver.prep_distance (constraints.cpp:189-243)."""
+    rel_a, rel_b, ga, gb = _anchors(js, bd)
+    u = _sub(gb, ga)
+    l = torch.sqrt(_max(_sqlen(u), 0.0))
+    ok = l > 0.001
+    u = tuple(torch.where(ok, c / _max(l, 1e-12), 0.0) for c in u)
+    cr_a = _cross(rel_a, u)
+    cr_b = _cross(rel_b, u)
+    im = (bd["inv_ma"] + _dot(cr_a, skew_matvec(bd["ia"], cr_a))
+          + bd["inv_mb"] + _dot(cr_b, skew_matvec(bd["ib"], cr_b)))
+    bias = torch.where(dt > DT_THRESHOLD,
+                       (l - js["length"]) * (DISTANCE_BETA * inv_dt), 0.0)
+    to_wa = skew_matvec(bd["ia"], cr_a)
+    to_wb = skew_matvec(bd["ib"], cr_b)
+    rows = list(rel_a) + list(rel_b) + list(u) + list(to_wa) + list(to_wb)
+    rows += [bias, _inv_nz(im)]
+    return rows
+
+
+def ball_rows(js, ctl, bd, dt, inv_dt):
+    """solver.prep_ball (constraints.cpp:460-507)."""
+    rel_a, rel_b, ga, gb = _anchors(js, bd)
+    m = point_inv_eff_mass_cm(bd["ia"], bd["ib"], bd["inv_ma"],
+                              bd["inv_mb"], rel_a, rel_b)
+    bias = tuple(torch.where(dt > DT_THRESHOLD,
+                             c * (BALL_BETA * inv_dt), 0.0)
+                 for c in _sub(gb, ga))
+    return list(rel_a) + list(rel_b) + list(bias) + list(m)
+
+
+def _rotation_bias(js, bd, dt, inv_dt):
+    """Fixed and slider rotation error q_b * init_inv_rot * conj(q_a),
+    vector part, as a Baumgarte bias."""
+    q0 = js["init_inv_rot"]
+    rot_err = quat_mul_cm(quat_mul_cm(bd["qb"], q0), quat_conj_cm(bd["qa"]))
+    return tuple(torch.where(dt > DT_THRESHOLD,
+                             rot_err[i] * (SLIDER_BETA * inv_dt * 2.0), 0.0)
+                 for i in range(3))
+
+
+def fixed_rows(js, ctl, bd, dt, inv_dt):
+    """solver.prep_fixed (constraints.cpp:736-786)."""
+    rel_a, rel_b, ga, gb = _anchors(js, bd)
+    mt = point_inv_eff_mass_cm(bd["ia"], bd["ib"], bd["inv_ma"],
+                               bd["inv_mb"], rel_a, rel_b)
+    mr = tuple(x + y for x, y in zip(bd["ia"], bd["ib"]))
+    t_bias = tuple(torch.where(dt > DT_THRESHOLD,
+                               c * (BALL_BETA * inv_dt), 0.0)
+                   for c in _sub(gb, ga))
+    r_bias = _rotation_bias(js, bd, dt, inv_dt)
+    return (list(rel_a) + list(rel_b) + list(t_bias) + list(r_bias)
+            + list(mt) + list(mr))
 
 
 def hinge_rows(js, ctl, bd, dt, inv_dt):
@@ -367,18 +426,98 @@ def cone_twist_rows(js, ctl, bd, dt, inv_dt):
              _max(ctl["twist_max_torque"], 0.0) * dt]
     return rows
 
+def slider_rows(js, ctl, bd, dt, inv_dt):
+    """solver.prep_slider (constraints.cpp:2638-2752)."""
+    rel_a, rel_b, ga, gb = _anchors(js, bd)
+    ia, ib = bd["ia"], bd["ib"]
+    inv_ma, inv_mb = bd["inv_ma"], bd["inv_mb"]
+
+    axis = quat_rotate_cm(bd["qa"], js["local_axis_a"])
+    tangent = get_tangent_cm(axis)
+    bitangent = _cross(axis, tangent)
+    u = _sub(gb, ga)
+    r_au = _add(rel_a, u)
+    rbxt = _cross(rel_b, tangent)
+    rbxb = _cross(rel_b, bitangent)
+    rauxt = _cross(r_au, tangent)
+    rauxb = _cross(r_au, bitangent)
+
+    ia_rauxt = skew_matvec(ia, rauxt)
+    ia_rauxb = skew_matvec(ia, rauxb)
+    ib_rbxt = skew_matvec(ib, rbxt)
+    ib_rbxb = skew_matvec(ib, rbxb)
+    inv_mass_sum = inv_ma + inv_mb
+
+    m00 = _dot(rauxt, ia_rauxt) + _dot(rbxt, ib_rbxt) + inv_mass_sum
+    m01 = _dot(rauxt, ia_rauxb) + _dot(rbxt, ib_rbxb)
+    m10 = _dot(rauxb, ia_rauxt) + _dot(rbxb, ib_rbxt)
+    m11 = _dot(rauxb, ia_rauxb) + _dot(rbxb, ib_rbxb) + inv_mass_sum
+
+    mr = tuple(x + y for x, y in zip(ia, ib))
+    tb0 = torch.where(dt > DT_THRESHOLD,
+                      _dot(u, tangent) * (SLIDER_BETA * inv_dt), 0.0)
+    tb1 = torch.where(dt > DT_THRESHOLD,
+                      _dot(u, bitangent) * (SLIDER_BETA * inv_dt), 0.0)
+    r_bias = _rotation_bias(js, bd, dt, inv_dt)
+
+    # limit (2702-2733)
+    lmin, lmax = js["limit_min"], js["limit_max"]
+    dist = _dot(u, axis)
+    min_v = (lmin <= 0.0) & (dist < lmin)
+    max_v = (lmax >= 0.0) & (dist > lmax)
+    solve_limit = min_v | max_v
+    rauxs = _cross(r_au, axis)
+    rbxs = _cross(rel_b, axis)
+    im_ax = (inv_mass_sum + _dot(rauxs, skew_matvec(ia, rauxs))
+             + _dot(rbxs, skew_matvec(ib, rbxs)))
+    eff_ax = _inv_nz(im_ax)
+    limit_sign = torch.where(min_v, 1.0, -1.0)
+    err = torch.where(min_v, dist - lmin, lmax - dist)
+    limit_bias = torch.where(dt > DT_THRESHOLD,
+                             err * (SLIDER_LIMIT_BETA * inv_dt), 0.0)
+
+    # motor (2735-2752); a disabled limit leaves the target unclamped
+    # (+-3.4e38): the per-joint select replaces the JAX package's
+    # trace-time branch
+    solve_motor = ctl["max_force"] > 0.0
+    min_l = torch.where(lmin <= 0.0, lmin, -3.4e38)
+    max_l = torch.where(lmax >= 0.0, lmax, 3.4e38)
+    target = _clip(ctl["target"], min_l, max_l)
+    vel_p = torch.where(dt > DT_THRESHOLD, (target - dist) * inv_dt, 0.0)
+    motor_vel = torch.where(ctl["motor_type"] == 1.0, vel_p, ctl["target"])
+
+    rows = (list(rauxt) + list(rauxb) + list(rbxt) + list(rbxb)
+            + list(tangent) + list(bitangent) + list(axis)
+            + list(rauxs) + list(rbxs)
+            + list(skew_matvec(ia, rauxs)) + list(skew_matvec(ib, rbxs))
+            + list(r_bias)
+            + [m00, m01, m10, m11] + [tb0, tb1] + list(mr))
+    rows += [_b2f(solve_limit), eff_ax, limit_bias, limit_sign,
+             _b2f(solve_motor), motor_vel,
+             _max(ctl["max_force"], 0.0) * dt]
+    return rows
+
+
 ROW_BUILDERS = {
+    "distance": distance_rows,
+    "ball": ball_rows,
+    "fixed": fixed_rows,
     "hinge": hinge_rows,
     "cone_twist": cone_twist_rows,
+    "slider": slider_rows,
 }
 
 # controls lanes each type consumes, in the order they are packed into the
 # kernel's controls table
 CTL_FIELDS = {
+    "distance": (),
+    "ball": (),
+    "fixed": (),
     "hinge": ("motor_type", "target", "max_torque"),
     "cone_twist": ("swing_motor_type", "swing_target", "swing_axis_angle",
                    "swing_max_torque", "twist_motor_type", "twist_target",
                    "twist_max_torque"),
+    "slider": ("motor_type", "target", "max_force"),
 }
 
 # MotorControls attribute per type and field
@@ -393,49 +532,62 @@ CTL_ATTRS = {
         "twist_motor_type": "ct_twist_motor_type",
         "twist_target": "ct_twist_target",
         "twist_max_torque": "ct_twist_max_torque"},
+    "slider": {"motor_type": "slider_motor_type", "target": "slider_target",
+               "max_force": "slider_max_force"},
 }
 
-# static per-joint parameter table: 24 floats a joint, same layout for
-# hinge and cone-twist (the CUDA kernel indexes it by these offsets)
+# static per-joint parameter table, one layout for every type (the CUDA
+# kernel indexes it by these offsets; a field a type lacks is zero).
+# `length` and `init_inv_rot` come last, so the offsets of the fields before
+# them are those of the hinge / cone-twist-only layout.
 STATIC_FIELDS = (("anchor_a", 3), ("anchor_b", 3), ("local_axis_a", 3),
                  ("local_axis_b", 3), ("local_tangent_a", 3),
                  ("local_bitangent_a", 3), ("local_tangent_b", 3),
                  ("limit_min", 1), ("limit_max", 1),
-                 ("local_axis_a_unit", 3))
+                 ("local_axis_a_unit", 3), ("length", 1),
+                 ("init_inv_rot", 4))
 STATIC_WIDTH = sum(n for _f, n in STATIC_FIELDS)
+
+# JointsOfType attribute behind each static field that is copied as it is
+_STATIC_ATTRS = {"local_axis_a": "local_axis_a",
+                 "local_axis_b": "local_axis_b",
+                 "local_tangent_a": "local_tangent_a",
+                 "local_bitangent_a": "local_bitangent_a",
+                 "local_tangent_b": "local_tangent_b",
+                 "limit_min": "limit_min", "limit_max": "limit_max",
+                 "length": "length",
+                 "init_inv_rot": "initial_inv_rotation_difference"}
 
 
 def static_table(scene, name):
     """(J, STATIC_WIDTH) float32 numpy table of one joint type's static
     parameters (anchors with local_cog pre-subtracted — both are scene
-    constants), in STATIC_FIELDS order."""
+    constants), in STATIC_FIELDS order; zero where the type has no such
+    field."""
     if name not in ROW_BUILDERS:
-        raise NotImplementedError(
-            f"joint type {name!r} is not ported to dxk_tpu_torch yet")
+        raise ValueError(f"unknown joint type {name!r}")
     j = getattr(scene, name)
     f32 = lambda x: x.detach().cpu().numpy().astype(np.float32)
     lc = f32(scene.body_params.local_cog)
     body_a = j.body_a.cpu().numpy()
     body_b = j.body_b.cpu().numpy()
-    axis_a = f32(j.local_axis_a)
-    # normalize the static axis the way the JAX package's trace does: the
-    # squared length in double precision, everything after in float32
-    sq = np.maximum((axis_a.astype(np.float64) ** 2).sum(-1), 1e-30)
-    inv = np.float32(1.0) / np.sqrt(sq.astype(np.float32))
-    cols = {
-        "anchor_a": f32(j.local_anchor_a) - lc[body_a],
-        "anchor_b": f32(j.local_anchor_b) - lc[body_b],
-        "local_axis_a": axis_a,
-        "local_axis_b": f32(j.local_axis_b),
-        "local_tangent_a": f32(j.local_tangent_a),
-        "local_bitangent_a": f32(j.local_bitangent_a),
-        "local_tangent_b": f32(j.local_tangent_b),
-        "limit_min": f32(j.limit_min)[:, None],
-        "limit_max": f32(j.limit_max)[:, None],
-        "local_axis_a_unit": axis_a * inv[:, None],
-    }
-    return np.concatenate([cols[f].reshape(len(body_a), n)
-                           for f, n in STATIC_FIELDS], axis=1)
+    J = len(body_a)
+    cols = {"anchor_a": f32(j.local_anchor_a) - lc[body_a],
+            "anchor_b": f32(j.local_anchor_b) - lc[body_b]}
+    for f, attr in _STATIC_ATTRS.items():
+        if getattr(j, attr) is not None:
+            cols[f] = f32(getattr(j, attr))
+    if "local_axis_a" in cols:
+        # normalize the static axis the way the JAX package's trace does:
+        # the squared length in double precision, everything after in
+        # float32
+        axis_a = cols["local_axis_a"]
+        sq = np.maximum((axis_a.astype(np.float64) ** 2).sum(-1), 1e-30)
+        inv = np.float32(1.0) / np.sqrt(sq.astype(np.float32))
+        cols["local_axis_a_unit"] = axis_a * inv[:, None]
+    return np.concatenate(
+        [cols[f].reshape(J, n) if f in cols else np.zeros((J, n), np.float32)
+         for f, n in STATIC_FIELDS], axis=1)
 
 
 def static_params(scene, name, device=None):

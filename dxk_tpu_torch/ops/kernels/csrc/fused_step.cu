@@ -3,25 +3,29 @@
 //
 // Replaces the JAX package's TPU kernel
 //   dxk_tpu/ops/pallas/fused_step.py::_fused_step_batched (body _fused_core)
-// for scenes whose pair groups are capsule-capsule, capsule-box and box-box and
-// whose joints are hinge and cone-twist, in the averaged ("jacobi") solve mode
-// with joint prep in the kernel. The plain PyTorch version of the same function
-// is ops/kernels/fused_step.py::_fused_core; this file follows it operation for
+// for scenes whose pair groups are capsule-capsule, capsule-box and box-box,
+// with joints of all six types (distance, ball, fixed, hinge, cone-twist,
+// slider), in the averaged ("jacobi") solve mode with joint prep in the kernel.
+// The plain PyTorch version of the same function is
+// ops/kernels/fused_step.py::_fused_core; this file follows it operation for
 // operation, so the two agree to rounding.
 //
 // What bounds it on an H100: operations, not bytes. One env reads ~0.6k floats
 // and writes ~0.8k, but runs a branch-heavy narrowphase over ~150 pair rows and
 // then `iters` rounds of short, dependent joint and contact solves. The
 // iteration loop is latency bound (13 joints and a few dozen live contact rows
-// per env), so the design keeps everything the loop touches on chip and runs
-// several envs on an SM side by side:
+// per env in the ragdoll scene, 96 joints in the constraint zoo), so the design
+// keeps everything the loop touches on chip and runs several envs on an SM side
+// by side:
 //   * one block per env; body velocities, inverse inertias, the joint rows,
 //     every contact point's 30 solver fields and the per-row velocity deltas
-//     live in shared memory for the whole solve (~50 KB for the ragdoll scene;
-//     shared memory would hold four envs per SM, the register count of the
-//     untuned build holds two);
+//     live in shared memory for the whole solve (~50 KB for the ragdoll scene,
+//     ~87 KB for the 16-chain constraint zoo; shared memory would hold four
+//     resp. two envs per SM, the register count of the untuned build two);
 //   * threads [0, T-32) own pair rows, the last warp owns the joints, so the
-//     narrowphase and the joint prep run side by side;
+//     narrowphase and the joint prep run side by side; the joint types are
+//     solved one pass each, in JOINT_ORDER, from a small descriptor per type
+//     (count and offsets); a type with no joints costs nothing;
 //   * dead rows and dead manifold points are skipped (they contribute exactly
 //     zero in the plain version);
 //   * per-body delta sums walk static incidence lists in a fixed order - no
@@ -34,7 +38,8 @@
 // the other side of a tie than the plain version's separately rounded ops.
 //
 // Deliberately not done yet: no cp.async/TMA staging of the inputs, several
-// envs are not packed into one block to fill lanes during the joint passes, no
+// envs are not packed into one block to fill lanes during the joint passes (in
+// the constraint zoo 208 of 224 threads wait through each joint pass), no
 // tuning of block size or register budget.
 
 #include <cuda_runtime.h>
@@ -52,17 +57,33 @@ constexpr float PI_F = 3.14159265358979323846f;
 constexpr float PI_2_F = 1.57079632679489661923f;
 constexpr float PI_4_F = 0.78539816339744830962f;
 constexpr float TAN_PI_8 = 0.4142135623730950f;
+constexpr float DISTANCE_BETA = 0.1f;
 constexpr float BALL_BETA = 0.1f;
+constexpr float SLIDER_BETA = 0.1f;
 constexpr float HINGE_ROTATION_BETA = 0.3f;
 constexpr float HINGE_LIMIT_BETA = 0.1f;
 constexpr float TWIST_LIMIT_BETA = 0.1f;
+constexpr float SLIDER_LIMIT_BETA = 0.1f;
 constexpr float DT_THRESHOLD = 1e-5f;
 
 constexpr int POINT_FIELDS = 30;   // 8 vec3 + eff_n, eff_t, bias, fric + 2 impulses
-constexpr int HINGE_ROWS = 46;
-constexpr int CT_ROWS = 59;
-constexpr int STATIC_WIDTH = 26;   // floats per joint in the static table
+constexpr int STATIC_WIDTH = 31;   // floats per joint in the static table
 constexpr int ROW_INTS = 8;
+
+// joint types in JOINT_ORDER (batched_solver.py): packed rows per joint,
+// accumulated impulses per joint, controls per joint
+constexpr int NJT = 6;
+enum { J_DISTANCE, J_BALL, J_FIXED, J_HINGE, J_CONE_TWIST, J_SLIDER };
+__host__ __device__ constexpr int joint_rows(int t) {
+  return t == J_DISTANCE ? 17 : t == J_BALL ? 18 : t == J_FIXED ? 30
+       : t == J_HINGE ? 46 : t == J_CONE_TWIST ? 59 : 58;
+}
+__host__ __device__ constexpr int joint_accs(int t) {
+  return t == J_HINGE ? 2 : t == J_CONE_TWIST ? 4 : t == J_SLIDER ? 2 : 0;
+}
+__host__ __device__ constexpr int joint_ctls(int t) {
+  return t == J_HINGE ? 3 : t == J_CONE_TWIST ? 7 : t == J_SLIDER ? 3 : 0;
+}
 
 struct V3 { float x, y, z; };
 struct Q4 { float x, y, z, w; };
@@ -648,7 +669,8 @@ DF void prep_point(V3 point, float depth, V3 normal, V3 pa, V3 pb, V3 va, V3 wa,
 // ---- joint prep (ops/kernels/cm_joint_prep.py) ------------------------------
 // static table per joint: 0 anchor_a, 3 anchor_b, 6 local_axis_a, 9 local_axis_b,
 // 12 local_tangent_a, 15 local_bitangent_a, 18 local_tangent_b, 21 limit_min,
-// 22 limit_max, 23 local_axis_a_unit
+// 22 limit_max, 23 local_axis_a_unit, 26 length, 27 init_inv_rot (x, y, z, w);
+// a field a type lacks is zero
 
 struct JointBodies {
   Q4 qa, qb;
@@ -734,6 +756,77 @@ DF void point_inv_eff_mass(const JointBodies& bd, V3 ra, V3 rb, float* m) {
   for (int i = 0; i < 9; ++i) m[i] = m[i] + t2[i];
   float sm = bd.inv_ma + bd.inv_mb;
   m[0] += sm; m[4] += sm; m[8] += sm;
+}
+
+DF void st9(float* out, int nj, int f, const float* m) {
+  for (int i = 0; i < 9; ++i) out[(f + i) * nj] = m[i];
+}
+DF void anchors(const float* js, const JointBodies& bd, V3& rel_a, V3& rel_b, V3& ga,
+                V3& gb) {
+  rel_a = qrot(bd.qa, ld3(js + 0));
+  rel_b = qrot(bd.qb, ld3(js + 3));
+  ga = add(bd.pa, rel_a);
+  gb = add(bd.pb, rel_b);
+}
+// fixed / slider rotation error q_b * init_inv_rot * conj(q_a), vector part,
+// as a Baumgarte bias
+DF V3 rotation_bias(const float* js, const JointBodies& bd, bool dt_ok, float inv_dt) {
+  Q4 err = quat_mul(quat_mul(bd.qb, ld4(js + 27)), conj(bd.qa));
+  float k = SLIDER_BETA * inv_dt * 2.0f;
+  return dt_ok ? mk(err.x * k, err.y * k, err.z * k) : mk(0.0f, 0.0f, 0.0f);
+}
+
+// distance row layout: 0 rel_a, 3 rel_b, 6 u, 9 to_wa, 12 to_wb, 15 bias,
+// 16 eff_mass
+DN void distance_prep(const float* js, const JointBodies& bd, float dt, float inv_dt,
+                      float* out, int nj) {
+  V3 rel_a, rel_b, ga, gb;
+  anchors(js, bd, rel_a, rel_b, ga, gb);
+  V3 u = sub(gb, ga);
+  float l = sqrtf(fmaxf(sqlen(u), 0.0f));
+  bool ok = l > 0.001f;
+  float ld = fmaxf(l, 1e-12f);
+  u = ok ? mk(u.x / ld, u.y / ld, u.z / ld) : mk(0.0f, 0.0f, 0.0f);
+  V3 cr_a = cross(rel_a, u), cr_b = cross(rel_b, u);
+  V3 to_wa = matvec(bd.ia, cr_a), to_wb = matvec(bd.ib, cr_b);
+  float im = bd.inv_ma + dot(cr_a, to_wa) + bd.inv_mb + dot(cr_b, to_wb);
+  bool dt_ok = dt > DT_THRESHOLD;
+  float bias = dt_ok ? (l - js[26]) * (DISTANCE_BETA * inv_dt) : 0.0f;
+  st3(out, nj, 0, rel_a); st3(out, nj, 3, rel_b); st3(out, nj, 6, u);
+  st3(out, nj, 9, to_wa); st3(out, nj, 12, to_wb);
+  out[15 * nj] = bias;
+  out[16 * nj] = inv_nz(im);
+}
+
+// ball row layout: 0 rel_a, 3 rel_b, 6 bias, 9 m(9)
+DN void ball_prep(const float* js, const JointBodies& bd, float dt, float inv_dt,
+                  float* out, int nj) {
+  V3 rel_a, rel_b, ga, gb;
+  anchors(js, bd, rel_a, rel_b, ga, gb);
+  float m[9];
+  point_inv_eff_mass(bd, rel_a, rel_b, m);
+  float kb = BALL_BETA * inv_dt;
+  V3 bias = dt > DT_THRESHOLD ? muls(sub(gb, ga), kb) : mk(0.0f, 0.0f, 0.0f);
+  st3(out, nj, 0, rel_a); st3(out, nj, 3, rel_b); st3(out, nj, 6, bias);
+  st9(out, nj, 9, m);
+}
+
+// fixed row layout: 0 rel_a, 3 rel_b, 6 translation_bias, 9 rotation_bias,
+// 12 mt(9), 21 mr(9)
+DN void fixed_prep(const float* js, const JointBodies& bd, float dt, float inv_dt,
+                   float* out, int nj) {
+  V3 rel_a, rel_b, ga, gb;
+  anchors(js, bd, rel_a, rel_b, ga, gb);
+  float mt[9], mr[9];
+  point_inv_eff_mass(bd, rel_a, rel_b, mt);
+  for (int i = 0; i < 9; ++i) mr[i] = bd.ia[i] + bd.ib[i];
+  bool dt_ok = dt > DT_THRESHOLD;
+  float kb = BALL_BETA * inv_dt;
+  V3 t_bias = dt_ok ? muls(sub(gb, ga), kb) : mk(0.0f, 0.0f, 0.0f);
+  V3 r_bias = rotation_bias(js, bd, dt_ok, inv_dt);
+  st3(out, nj, 0, rel_a); st3(out, nj, 3, rel_b); st3(out, nj, 6, t_bias);
+  st3(out, nj, 9, r_bias);
+  st9(out, nj, 12, mt); st9(out, nj, 21, mr);
 }
 
 // hinge row layout ([field][joint]): 0 rel_a, 3 rel_b, 6 translation_bias,
@@ -911,6 +1004,76 @@ DN void cone_twist_prep(const float* js, const float* ctl, const JointBodies& bd
   out[58 * nj] = fmaxf(tw_max, 0.0f) * dt;
 }
 
+// slider row layout: 0 r_au_x_t, 3 r_au_x_b, 6 r_b_x_t, 9 r_b_x_b, 12 tangent,
+// 15 bitangent, 18 axis, 21 r_au_x_s, 24 r_b_x_s, 27 l_to_wa, 30 l_to_wb,
+// 33 rotation_bias, 36 mt(2x2), 40 tb(2), 42 mr(9), 51 solve_limit,
+// 52 eff_axial_mass, 53 limit_bias, 54 limit_sign, 55 solve_motor,
+// 56 motor_velocity, 57 max_motor_impulse
+DN void slider_prep(const float* js, const float* ctl, const JointBodies& bd, float dt,
+                    float inv_dt, float* out, int nj) {
+  V3 rel_a, rel_b, ga, gb;
+  anchors(js, bd, rel_a, rel_b, ga, gb);
+  V3 axis = qrot(bd.qa, ld3(js + 6));
+  V3 tangent = get_tangent(axis);
+  V3 bitangent = cross(axis, tangent);
+  V3 u = sub(gb, ga);
+  V3 r_au = add(rel_a, u);
+  V3 rbxt = cross(rel_b, tangent), rbxb = cross(rel_b, bitangent);
+  V3 rauxt = cross(r_au, tangent), rauxb = cross(r_au, bitangent);
+  V3 ia_rauxt = matvec(bd.ia, rauxt), ia_rauxb = matvec(bd.ia, rauxb);
+  V3 ib_rbxt = matvec(bd.ib, rbxt), ib_rbxb = matvec(bd.ib, rbxb);
+  float ims = bd.inv_ma + bd.inv_mb;
+  float m00 = dot(rauxt, ia_rauxt) + dot(rbxt, ib_rbxt) + ims;
+  float m01 = dot(rauxt, ia_rauxb) + dot(rbxt, ib_rbxb);
+  float m10 = dot(rauxb, ia_rauxt) + dot(rbxb, ib_rbxt);
+  float m11 = dot(rauxb, ia_rauxb) + dot(rbxb, ib_rbxb) + ims;
+  float mr[9];
+  for (int i = 0; i < 9; ++i) mr[i] = bd.ia[i] + bd.ib[i];
+  bool dt_ok = dt > DT_THRESHOLD;
+  float ks = SLIDER_BETA * inv_dt;
+  float tb0 = dt_ok ? dot(u, tangent) * ks : 0.0f;
+  float tb1 = dt_ok ? dot(u, bitangent) * ks : 0.0f;
+  V3 r_bias = rotation_bias(js, bd, dt_ok, inv_dt);
+
+  // limit
+  float lmin = js[21], lmax = js[22];
+  float dist = dot(u, axis);
+  bool min_v = lmin <= 0.0f && dist < lmin;
+  bool max_v = lmax >= 0.0f && dist > lmax;
+  bool solve_limit = min_v || max_v;
+  V3 rauxs = cross(r_au, axis), rbxs = cross(rel_b, axis);
+  V3 ia_rauxs = matvec(bd.ia, rauxs), ib_rbxs = matvec(bd.ib, rbxs);
+  float im_ax = ims + dot(rauxs, ia_rauxs) + dot(rbxs, ib_rbxs);
+  float eff_ax = inv_nz(im_ax);
+  float limit_sign = min_v ? 1.0f : -1.0f;
+  float err = min_v ? dist - lmin : lmax - dist;
+  float limit_bias = dt_ok ? err * (SLIDER_LIMIT_BETA * inv_dt) : 0.0f;
+
+  // motor; a disabled limit leaves the target unclamped
+  float motor_type = ctl[0], target_c = ctl[1], max_force = ctl[2];
+  bool solve_motor = max_force > 0.0f;
+  float min_l = lmin <= 0.0f ? lmin : -3.4e38f;
+  float max_l = lmax >= 0.0f ? lmax : 3.4e38f;
+  float target = clipf(target_c, min_l, max_l);
+  float vel_p = dt_ok ? (target - dist) * inv_dt : 0.0f;
+  float motor_vel = motor_type == 1.0f ? vel_p : target_c;
+
+  st3(out, nj, 0, rauxt); st3(out, nj, 3, rauxb); st3(out, nj, 6, rbxt);
+  st3(out, nj, 9, rbxb); st3(out, nj, 12, tangent); st3(out, nj, 15, bitangent);
+  st3(out, nj, 18, axis); st3(out, nj, 21, rauxs); st3(out, nj, 24, rbxs);
+  st3(out, nj, 27, ia_rauxs); st3(out, nj, 30, ib_rbxs); st3(out, nj, 33, r_bias);
+  out[36 * nj] = m00; out[37 * nj] = m01; out[38 * nj] = m10; out[39 * nj] = m11;
+  out[40 * nj] = tb0; out[41 * nj] = tb1;
+  st9(out, nj, 42, mr);
+  out[51 * nj] = solve_limit ? 1.0f : 0.0f;
+  out[52 * nj] = eff_ax;
+  out[53 * nj] = limit_bias;
+  out[54 * nj] = limit_sign;
+  out[55 * nj] = solve_motor ? 1.0f : 0.0f;
+  out[56 * nj] = motor_vel;
+  out[57 * nj] = fmaxf(max_force, 0.0f) * dt;
+}
+
 // ---- per-constraint solves (ops/kernels/batched_solver.py) ------------------
 
 DF void solve_2x2(float a11, float a12, float a21, float a22, float b0, float b1,
@@ -933,6 +1096,106 @@ DF V3 solve_3x3(const float* m, int st, V3 b) {
 }
 
 struct Vel { V3 va, wa, vb, wb; };
+
+// P = solve_3x3(m, -cdot3) applied at the anchors rel_a / rel_b (ball, fixed,
+// hinge, cone-twist position parts)
+DF void point_impulse(const float* m, int st, V3 rel_a, V3 rel_b, V3 bias, float inv_ma,
+                      float inv_mb, const float* ia, const float* ib, Vel& u) {
+  V3 av = add(u.va, cross(u.wa, rel_a));
+  V3 bv = add(u.vb, cross(u.wb, rel_b));
+  V3 cdot3 = add(sub(bv, av), bias);
+  V3 P = solve_3x3(m, st, neg(cdot3));
+  u.va = sub(u.va, muls(P, inv_ma));
+  u.wa = sub(u.wa, matvec(ia, cross(rel_a, P)));
+  u.vb = add(u.vb, muls(P, inv_mb));
+  u.wb = add(u.wb, matvec(ib, cross(rel_b, P)));
+}
+
+// lam3 = solve_3x3(mr, -(wb - wa + rotation_bias)) (fixed, slider rotation parts)
+DF void rotation_impulse(const float* mr, int st, V3 rbias, const float* ia,
+                         const float* ib, Vel& u) {
+  V3 cdot = sub(u.wb, u.wa);
+  V3 rhs = mk(-(cdot.x + rbias.x), -(cdot.y + rbias.y), -(cdot.z + rbias.z));
+  V3 lam = solve_3x3(mr, st, rhs);
+  u.wa = sub(u.wa, matvec(ia, lam));
+  u.wb = add(u.wb, matvec(ib, lam));
+}
+
+DF void distance_solve(const float* f, int nj, float inv_ma, float inv_mb, Vel& u) {
+  V3 rel_a = ldf3(f, nj, 0), rel_b = ldf3(f, nj, 3), dir = ldf3(f, nj, 6);
+  V3 av = add(u.va, cross(u.wa, rel_a));
+  V3 bv = add(u.vb, cross(u.wb, rel_b));
+  float cdot = dot(dir, sub(bv, av)) + f[15 * nj];
+  float lam = -f[16 * nj] * cdot;
+  u.va = sub(u.va, muls(dir, inv_ma * lam));
+  u.wa = sub(u.wa, muls(ldf3(f, nj, 9), lam));
+  u.vb = add(u.vb, muls(dir, inv_mb * lam));
+  u.wb = add(u.wb, muls(ldf3(f, nj, 12), lam));
+}
+
+DF void ball_solve(const float* f, int nj, float inv_ma, float inv_mb, const float* ia,
+                   const float* ib, Vel& u) {
+  point_impulse(f + 9 * nj, nj, ldf3(f, nj, 0), ldf3(f, nj, 3), ldf3(f, nj, 6), inv_ma,
+                inv_mb, ia, ib, u);
+}
+
+// rotation then position
+DF void fixed_solve(const float* f, int nj, float inv_ma, float inv_mb, const float* ia,
+                    const float* ib, Vel& u) {
+  rotation_impulse(f + 21 * nj, nj, ldf3(f, nj, 9), ia, ib, u);
+  point_impulse(f + 12 * nj, nj, ldf3(f, nj, 0), ldf3(f, nj, 3), ldf3(f, nj, 6), inv_ma,
+                inv_mb, ia, ib, u);
+}
+
+// motor -> limit -> rotation -> position (2D, normal to the axis)
+DF void slider_solve(const float* f, int nj, float inv_ma, float inv_mb, const float* ia,
+                     const float* ib, Vel& u, float* imps) {
+  float limit_imp = imps[0], motor_imp = imps[1];
+  V3 axis = ldf3(f, nj, 18);
+  // motor (pure linear along the axis)
+  float cdot = dot(u.vb, axis) - dot(u.va, axis) - f[56 * nj];
+  float mass = inv_nz(inv_ma + inv_mb);
+  float lam = -mass * cdot;
+  float mx = f[57 * nj];
+  float nw = clipf(motor_imp + lam, -mx, mx);
+  bool on = f[55 * nj] > 0.5f;
+  lam = on ? nw - motor_imp : 0.0f;
+  motor_imp = on ? nw : motor_imp;
+  u.va = sub(u.va, muls(axis, inv_ma * lam));
+  u.vb = add(u.vb, muls(axis, inv_mb * lam));
+  // limit
+  float lsign = f[54 * nj];
+  cdot = dot(u.vb, axis) + dot(u.wb, ldf3(f, nj, 24)) - dot(u.va, axis)
+         - dot(u.wa, ldf3(f, nj, 21));
+  lam = -f[52 * nj] * (lsign * cdot + f[53 * nj]);
+  float imp = fmaxf(limit_imp + lam, 0.0f);
+  on = f[51 * nj] > 0.5f;
+  lam = on ? imp - limit_imp : 0.0f;
+  limit_imp = on ? imp : limit_imp;
+  lam = lam * lsign;
+  u.va = sub(u.va, muls(axis, inv_ma * lam));
+  u.wa = sub(u.wa, muls(ldf3(f, nj, 27), lam));
+  u.vb = add(u.vb, muls(axis, inv_mb * lam));
+  u.wb = add(u.wb, muls(ldf3(f, nj, 30), lam));
+  // rotation (3D)
+  rotation_impulse(f + 42 * nj, nj, ldf3(f, nj, 33), ia, ib, u);
+  // position (2D)
+  V3 tan = ldf3(f, nj, 12), bitan = ldf3(f, nj, 15);
+  V3 rauxt = ldf3(f, nj, 0), rauxb = ldf3(f, nj, 3);
+  V3 rbxt = ldf3(f, nj, 6), rbxb = ldf3(f, nj, 9);
+  float cx = dot(tan, u.vb) + dot(rbxt, u.wb) - dot(tan, u.va) - dot(rauxt, u.wa);
+  float cy = dot(bitan, u.vb) + dot(rbxb, u.wb) - dot(bitan, u.va) - dot(rauxb, u.wa);
+  float l0, l1;
+  solve_2x2(f[36 * nj], f[37 * nj], f[38 * nj], f[39 * nj], -(cx + f[40 * nj]),
+            -(cy + f[41 * nj]), l0, l1);
+  V3 tbv = add(muls(tan, l0), muls(bitan, l1));
+  u.va = sub(u.va, muls(tbv, inv_ma));
+  u.wa = sub(u.wa, matvec(ia, add(muls(rauxt, l0), muls(rauxb, l1))));
+  u.vb = add(u.vb, muls(tbv, inv_mb));
+  u.wb = add(u.wb, matvec(ib, add(muls(rbxt, l0), muls(rbxb, l1))));
+  imps[0] = limit_imp;
+  imps[1] = motor_imp;
+}
 
 // friction then normal, against the running velocities of the row
 DF void contact_point(float* pf, int np, float inv_ma, float inv_mb, Vel& u) {
@@ -1009,15 +1272,8 @@ DF void hinge_solve(const float* f, int nj, float inv_ma, float inv_mb, const fl
   u.wa = sub(u.wa, matvec(ia, rot_p));
   u.wb = add(u.wb, matvec(ib, rot_p));
   // position (3D)
-  V3 rel_a = ldf3(f, nj, 0), rel_b = ldf3(f, nj, 3);
-  V3 av = add(u.va, cross(u.wa, rel_a));
-  V3 bv = add(u.vb, cross(u.wb, rel_b));
-  V3 cdot3 = add(sub(bv, av), ldf3(f, nj, 6));
-  V3 P = solve_3x3(f + 24 * nj, nj, neg(cdot3));
-  u.va = sub(u.va, muls(P, inv_ma));
-  u.wa = sub(u.wa, matvec(ia, cross(rel_a, P)));
-  u.vb = add(u.vb, muls(P, inv_mb));
-  u.wb = add(u.wb, matvec(ib, cross(rel_b, P)));
+  point_impulse(f + 24 * nj, nj, ldf3(f, nj, 0), ldf3(f, nj, 3), ldf3(f, nj, 6), inv_ma,
+                inv_mb, ia, ib, u);
   imps[0] = limit_imp;
   imps[1] = motor_imp;
 }
@@ -1074,15 +1330,8 @@ DF void cone_twist_solve(const float* f, int nj, float inv_ma, float inv_mb,
   u.wa = add(u.wa, muls(ldf3(f, nj, 12), lam));
   u.wb = sub(u.wb, muls(ldf3(f, nj, 15), lam));
   // position
-  V3 rel_a = ldf3(f, nj, 0), rel_b = ldf3(f, nj, 3);
-  V3 av = add(u.va, cross(u.wa, rel_a));
-  V3 bv = add(u.vb, cross(u.wb, rel_b));
-  V3 cdot3 = add(sub(bv, av), ldf3(f, nj, 6));
-  V3 P = solve_3x3(f + 36 * nj, nj, neg(cdot3));
-  u.va = sub(u.va, muls(P, inv_ma));
-  u.wa = sub(u.wa, matvec(ia, cross(rel_a, P)));
-  u.vb = add(u.vb, muls(P, inv_mb));
-  u.wb = add(u.wb, matvec(ib, cross(rel_b, P)));
+  point_impulse(f + 36 * nj, nj, ldf3(f, nj, 0), ldf3(f, nj, 3), ldf3(f, nj, 6), inv_ma,
+                inv_mb, ia, ib, u);
   imps[0] = swing_imp; imps[1] = twist_imp; imps[2] = sm_imp; imps[3] = tm_imp;
 }
 
@@ -1110,11 +1359,73 @@ DF void apply_deltas(float* vw, const float* delta, const int* ptr, const int* i
   }
 }
 
+// one joint type: its joint count; offsets of its rows, accumulated impulses and
+// controls in shared memory (floats); index of its first joint in the wiring and
+// static tables; offsets of its incidence lists (itab) and inverse degrees (ftab)
+struct JointDesc { int n, row, acc, ctl, base, ptr, idx, idg; };
+
 struct Dims {
-  int B, nb, C, P, nphase, nH, nC, R1, npts, iters;
-  int io[9];    // itab: rows, phase_rows, con_ptr, con_idx, jab, jh_ptr, jh_idx, jc_ptr, jc_idx
-  int fo[5];    // ftab: col_r, row fric/rest, joint static, hinge inv deg, cone-twist inv deg
+  int B, nb, C, P, nphase, R1, npts, iters;
+  int io[5];    // itab: rows, phase_rows, con_ptr, con_idx, jab
+  int fo[3];    // ftab: col_r, row fric/rest, joint static
+  JointDesc jd[NJT];   // in JOINT_ORDER
 };
+
+// prep of joint j of type T (all joint bodies' data staged in shared memory)
+template <int T>
+DF void joint_prep(const JointDesc& d, int j, const int* jab,
+                   const float* jstat, const float* rot, const float* pos,
+                   const float* invI, const float* invm, const float* ctl, float dt,
+                   float inv_dt, float* jrow) {
+  JointBodies bd;
+  int a = jab[2 * (d.base + j)], b = jab[2 * (d.base + j) + 1];
+  bd.qa = ld4(rot + 4 * a); bd.qb = ld4(rot + 4 * b);
+  bd.pa = ld3(pos + 3 * a); bd.pb = ld3(pos + 3 * b);
+  bd.ia = invI + 9 * a; bd.ib = invI + 9 * b;
+  bd.inv_ma = invm[a]; bd.inv_mb = invm[b];
+  const float* js = jstat + (d.base + j) * STATIC_WIDTH;
+  const float* c = ctl + d.ctl + joint_ctls(T) * j;
+  float* out = jrow + d.row + j;
+  if (T == J_DISTANCE) distance_prep(js, bd, dt, inv_dt, out, d.n);
+  if (T == J_BALL) ball_prep(js, bd, dt, inv_dt, out, d.n);
+  if (T == J_FIXED) fixed_prep(js, bd, dt, inv_dt, out, d.n);
+  if (T == J_HINGE) hinge_prep(js, c, bd, dt, inv_dt, out, d.n);
+  if (T == J_CONE_TWIST) cone_twist_prep(js, c, bd, dt, inv_dt, out, d.n);
+  if (T == J_SLIDER) slider_prep(js, c, bd, dt, inv_dt, out, d.n);
+}
+
+// one averaged pass over the joints of type T: each joint of the joint warp
+// solves against the pass-start velocities and writes its deltas; then all
+// threads apply the degree-averaged per-body sums
+template <int T>
+DF void joint_pass(const JointDesc& d, bool joint_warp, int lane, const int* jab,
+                   const int* itab, const float* ftab, const float* jrow, float* jimp,
+                   float* jdelta, float* vw, const float* invm, const float* invI,
+                   float omega, int nb, int tid, int nthreads) {
+  if (d.n == 0) return;
+  if (joint_warp) {
+    for (int j = lane; j < d.n; j += 32) {
+      int a = jab[2 * (d.base + j)], b = jab[2 * (d.base + j) + 1];
+      Vel u0, u;
+      ld_vel(vw, a, b, u0);
+      u = u0;
+      const float* f = jrow + d.row + j;
+      float* imps = jimp + d.acc + joint_accs(T) * j;
+      const float *ia = invI + 9 * a, *ib = invI + 9 * b;
+      if (T == J_DISTANCE) distance_solve(f, d.n, invm[a], invm[b], u);
+      if (T == J_BALL) ball_solve(f, d.n, invm[a], invm[b], ia, ib, u);
+      if (T == J_FIXED) fixed_solve(f, d.n, invm[a], invm[b], ia, ib, u);
+      if (T == J_HINGE) hinge_solve(f, d.n, invm[a], invm[b], ia, ib, u, imps);
+      if (T == J_CONE_TWIST) cone_twist_solve(f, d.n, invm[a], invm[b], ia, ib, u, imps);
+      if (T == J_SLIDER) slider_solve(f, d.n, invm[a], invm[b], ia, ib, u, imps);
+      st_delta(jdelta + 12 * j, u, u0);
+    }
+  }
+  __syncthreads();
+  apply_deltas(vw, jdelta, itab + d.ptr, itab + d.idx, ftab + d.idg, omega, nb, tid,
+               nthreads);
+  __syncthreads();
+}
 
 }  // namespace
 
@@ -1132,22 +1443,24 @@ __global__ void fused_step_kernel(
   const int env = blockIdx.x;
   const int tid = threadIdx.x, T = blockDim.x;
   const int RT = T - 32;              // row threads; the last warp owns the joints
-  const int nb = D.nb, C = D.C, P = D.P, nH = D.nH, nC = D.nC, np = D.npts;
+  const int nb = D.nb, C = D.C, P = D.P, np = D.npts;
+  const bool joint_warp = tid >= RT;
 
   const int* rows_i = itab + D.io[0];
   const int* phase_rows = itab + D.io[1];
   const int* con_ptr = itab + D.io[2];
   const int* con_idx = itab + D.io[3];
   const int* jab = itab + D.io[4];
-  const int* jh_ptr = itab + D.io[5];
-  const int* jh_idx = itab + D.io[6];
-  const int* jc_ptr = itab + D.io[7];
-  const int* jc_idx = itab + D.io[8];
   const float* col_r = ftab + D.fo[0];
   const float* rows_f = ftab + D.fo[1];
   const float* jstat = ftab + D.fo[2];
-  const float* idg_h = ftab + D.fo[3];
-  const float* idg_c = ftab + D.fo[4];
+  int nJmax = 1, nrow_f = 0, nacc_f = 0;
+  #pragma unroll
+  for (int t = 0; t < NJT; ++t) {
+    nJmax = D.jd[t].n > nJmax ? D.jd[t].n : nJmax;
+    nrow_f += joint_rows(t) * D.jd[t].n;
+    nacc_f += joint_accs(t) * D.jd[t].n;
+  }
 
   // ---- shared memory carve-up (floats) --------------------------------------
   float* vw = smem;                         // nb*6
@@ -1157,12 +1470,9 @@ __global__ void fused_step_kernel(
   float* rot = pos + nb * 3;                // nb*4
   float* col = rot + nb * 4;                // C*10: a3 b3 rot4
   float* ctl = col + C * 10;                // R1
-  float* hrow = ctl + D.R1;                 // HINGE_ROWS*nH
-  float* crow = hrow + HINGE_ROWS * nH;     // CT_ROWS*nC
-  float* jimp = crow + CT_ROWS * nC;        // nH*2 + nC*4
-  int nJmax = nH > nC ? nH : nC;
-  if (nJmax < 1) nJmax = 1;
-  float* jdelta = jimp + nH * 2 + nC * 4;   // nJmax*12
+  float* jrow = ctl + D.R1;                 // sum of joint_rows*n, per type at jd.row
+  float* jimp = jrow + nrow_f;              // sum of joint_accs*n, per type at jd.acc
+  float* jdelta = jimp + nacc_f;            // nJmax*12
   float* pts = jdelta + nJmax * 12;         // POINT_FIELDS*np, [field][slot]
   float* rdelta = pts + POINT_FIELDS * np;  // P*12
   float* idg_con = rdelta + P * 12;         // nphase*nb
@@ -1189,7 +1499,7 @@ __global__ void fused_step_kernel(
   }
   for (int i = tid; i < D.R1; i += T) ctl[i] = g_ctl[(size_t)env * D.R1 + i];
   for (int i = tid; i < P * 12; i += T) rdelta[i] = 0.0f;
-  for (int i = tid; i < nH * 2 + nC * 4; i += T) jimp[i] = 0.0f;
+  for (int i = tid; i < nacc_f; i += T) jimp[i] = 0.0f;
   __syncthreads();
 
   // ---- narrowphase + contact prep (row threads), joint prep (last warp) ------
@@ -1226,22 +1536,14 @@ __global__ void fused_step_kernel(
       }
     }
   } else {
-    int jt = tid - RT;
+    int lane = tid - RT;
     float dt = ctl[D.R1 - 1];
-    for (int j = jt; j < nH + nC; j += 32) {
-      JointBodies bd;
-      int a = jab[2 * j], b = jab[2 * j + 1];
-      bd.qa = ld4(rot + 4 * a); bd.qb = ld4(rot + 4 * b);
-      bd.pa = ld3(pos + 3 * a); bd.pb = ld3(pos + 3 * b);
-      bd.ia = invI + 9 * a; bd.ib = invI + 9 * b;
-      bd.inv_ma = invm[a]; bd.inv_mb = invm[b];
-      const float* js = jstat + j * STATIC_WIDTH;
-      if (j < nH)
-        hinge_prep(js, ctl + 3 * j, bd, dt, inv_dt, hrow + j, nH);
-      else
-        cone_twist_prep(js, ctl + 3 * nH + 7 * (j - nH), bd, dt, inv_dt,
-                        crow + (j - nH), nC);
-    }
+#define DXK_PREP(JT)                                                                   \
+  for (int j = lane; j < D.jd[JT].n; j += 32)                                         \
+    joint_prep<JT>(D.jd[JT], j, jab, jstat, rot, pos, invI, invm, ctl, dt, inv_dt, jrow);
+    DXK_PREP(J_DISTANCE) DXK_PREP(J_BALL) DXK_PREP(J_FIXED)
+    DXK_PREP(J_HINGE) DXK_PREP(J_CONE_TWIST) DXK_PREP(J_SLIDER)
+#undef DXK_PREP
   }
   __syncthreads();
 
@@ -1256,38 +1558,13 @@ __global__ void fused_step_kernel(
 
   // ---- the solve ---------------------------------------------------------------
   for (int it = 0; it < D.iters; ++it) {
-    if (nH > 0) {
-      if (tid >= RT) {
-        for (int j = tid - RT; j < nH; j += 32) {
-          int a = jab[2 * j], b = jab[2 * j + 1];
-          Vel u0, u;
-          ld_vel(vw, a, b, u0);
-          u = u0;
-          hinge_solve(hrow + j, nH, invm[a], invm[b], invI + 9 * a, invI + 9 * b, u,
-                      jimp + 2 * j);
-          st_delta(jdelta + 12 * j, u, u0);
-        }
-      }
-      __syncthreads();
-      apply_deltas(vw, jdelta, jh_ptr, jh_idx, idg_h, omega, nb, tid, T);
-      __syncthreads();
-    }
-    if (nC > 0) {
-      if (tid >= RT) {
-        for (int j = tid - RT; j < nC; j += 32) {
-          int a = jab[2 * (nH + j)], b = jab[2 * (nH + j) + 1];
-          Vel u0, u;
-          ld_vel(vw, a, b, u0);
-          u = u0;
-          cone_twist_solve(crow + j, nC, invm[a], invm[b], invI + 9 * a, invI + 9 * b, u,
-                           jimp + 2 * nH + 4 * j);
-          st_delta(jdelta + 12 * j, u, u0);
-        }
-      }
-      __syncthreads();
-      apply_deltas(vw, jdelta, jc_ptr, jc_idx, idg_c, omega, nb, tid, T);
-      __syncthreads();
-    }
+    // joint passes in JOINT_ORDER; a type with no joints is skipped
+#define DXK_PASS(JT)                                                                   \
+  joint_pass<JT>(D.jd[JT], joint_warp, tid - RT, jab, itab, ftab, jrow, jimp, jdelta,  \
+                 vw, invm, invI, omega, nb, tid, T);
+    DXK_PASS(J_DISTANCE) DXK_PASS(J_BALL) DXK_PASS(J_FIXED)
+    DXK_PASS(J_HINGE) DXK_PASS(J_CONE_TWIST) DXK_PASS(J_SLIDER)
+#undef DXK_PASS
     // contact phase slices: every row reads the slice-start velocities and
     // solves its live points in order; the summed deltas are degree-averaged
     for (int ph = 0; ph < D.nphase; ++ph) {
@@ -1338,9 +1615,15 @@ extern "C" int dxk_fused_step_launch(
     int threads, int smem_bytes, void* stream) {
   Dims D;
   D.B = dims[0]; D.nb = dims[1]; D.C = dims[2]; D.P = dims[3]; D.nphase = dims[4];
-  D.nH = dims[5]; D.nC = dims[6]; D.R1 = dims[7]; D.npts = dims[8]; D.iters = dims[9];
-  for (int i = 0; i < 9; ++i) D.io[i] = dims[10 + i];
-  for (int i = 0; i < 5; ++i) D.fo[i] = dims[19 + i];
+  D.R1 = dims[5]; D.npts = dims[6]; D.iters = dims[7];
+  for (int i = 0; i < 5; ++i) D.io[i] = dims[8 + i];
+  for (int i = 0; i < 3; ++i) D.fo[i] = dims[13 + i];
+  for (int t = 0; t < NJT; ++t) {
+    const int* q = dims + 16 + 8 * t;
+    JointDesc& d = D.jd[t];
+    d.n = q[0]; d.row = q[1]; d.acc = q[2]; d.ctl = q[3];
+    d.base = q[4]; d.ptr = q[5]; d.idx = q[6]; d.idg = q[7];
+  }
   if (D.B <= 0) return 0;
   cudaError_t err = cudaFuncSetAttribute(
       fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);

@@ -8,8 +8,9 @@ Pallas TPU kernel behind ``solver_mode="fused"``). It holds
 
   - the scene-static tables (`FusedTables`) both versions index directly —
     pair -> collider and body indices, per-row friction/restitution, joint
-    wiring and static joint parameters, per-type inverse degrees, and the
-    per-body incidence lists the kernel sums deltas over;
+    wiring and static joint parameters, per-type inverse degrees, the
+    per-body incidence lists the kernel sums deltas over, and one
+    descriptor per joint type that the kernel walks in JOINT_ORDER;
   - `_fused_core`, the **plain PyTorch version**: the same pipeline on
     (B, rows) lanes, calling the plain recipes of cm_narrowphase,
     cm_joint_prep and batched_solver;
@@ -37,10 +38,11 @@ version.
 Solve semantics = the JAX package's averaged ("jacobi") mode; see
 batched_solver.py.
 
-Ported so far: capsule-capsule, capsule-box and box-box pair groups, hinge
-and cone-twist joints, one contact phase or several, joint prep in the
-kernel. Other recipes, joint types, the sequential (``fused_seq``) mode and
-prep-passed groups (heightfield) raise NotImplementedError.
+Ported so far: capsule-capsule, capsule-box and box-box pair groups, all six
+joint types (distance, ball, fixed, hinge, cone-twist, slider), one contact
+phase or several, joint prep in the kernel. Other recipes, the sequential
+(``fused_seq``) mode and prep-passed groups (heightfield) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -55,8 +57,8 @@ import torch
 from dxk_tpu_torch.ops.kernels import build
 from dxk_tpu_torch.ops.kernels import cm_narrowphase as cm
 from dxk_tpu_torch.ops.kernels.batched_solver import (
-    CT_ROWS, HINGE_ROWS, JOINT_ORDER, JOINT_SPECS, TYPE_MAX_POINTS,
-    _contact_point, _solve_joint_type, _sub, phase_partition, scene_joint_ab,
+    JOINT_ORDER, JOINT_SPECS, TYPE_MAX_POINTS, _contact_point,
+    _solve_joint_type, _sub, phase_partition, scene_joint_ab,
     static_joint_invdeg)
 from dxk_tpu_torch.ops.kernels.cm_joint_prep import (CTL_FIELDS, ROW_BUILDERS,
                                                      STATIC_FIELDS,
@@ -73,6 +75,11 @@ _RECIPE_NAMES = {(1, 1): "capsule-capsule", (1, 3): "capsule-box",
 # fields + eff_n, eff_t, bias, friction + the two accumulated impulses
 POINT_FIELDS = 30
 ROW_INTS = 8      # type, k, col_a, col_b, body_a, body_b, pt_base, pt_stride
+# ints of one joint type's descriptor in the kernel's launch dims: joint
+# count, offsets of its rows, accumulated impulses and controls in shared
+# memory, index of its first joint in the joint wiring / static table, and
+# offsets of its incidence lists (itab) and inverse degrees (ftab)
+DESC_INTS = 8
 
 
 def fused2_eligible(scene) -> bool:
@@ -166,11 +173,6 @@ class FusedTables:
         metas = _group_static(scene)
         self.metas = metas
         joints = scene_joint_ab(scene)
-        for name, _ab in joints:
-            if name not in ROW_BUILDERS:
-                raise NotImplementedError(
-                    f"joint type {name!r} is not ported to the fused step "
-                    "yet")
         dev = self.device
         nb = self.num_bodies
 
@@ -187,11 +189,13 @@ class FusedTables:
         # ---- joints ---------------------------------------------------
         idg = static_joint_invdeg(scene, nb)
         self.joint_types: List[_JointType] = []
+        self.joint_counts = {name: 0 for name in JOINT_ORDER}
         self.ctl_rows = 0
         stat_tabs, ab_all = {}, {}
         for name, ab in joints:
             fields = CTL_FIELDS[name]
             J = len(ab)
+            self.joint_counts[name] = J
             base = self.ctl_rows
             cols = {f: t(base + np.arange(J) * len(fields) + i)
                     for i, f in enumerate(fields)}
@@ -242,39 +246,53 @@ class FusedTables:
             off += len(idx)
         con_ptr.append(np.array([off], np.int32))
 
-        nH = len(ab_all.get("hinge", ()))
-        nC = len(ab_all.get("cone_twist", ()))
-        self.num_hinge, self.num_cone_twist = nH, nC
+        # joints of all types in JOINT_ORDER (the order `joints` comes in):
+        # one wiring table, one static table; per type its incidence lists,
+        # inverse degrees and a descriptor (DESC_INTS) the kernel walks
         jab = np.concatenate(
-            [ab_all[n] for n in ("hinge", "cone_twist") if n in ab_all]
+            list(ab_all.values())
             or [np.zeros((0, 2), np.int64)]).astype(np.int32)
         jstat = np.concatenate(
-            [stat_tabs[n] for n in ("hinge", "cone_twist") if n in stat_tabs]
+            list(stat_tabs.values())
             or [np.zeros((0, STATIC_WIDTH), np.float32)])
-
-        def joint_csr(name):
-            ab = ab_all.get(name, np.zeros((0, 2), np.int64))
-            ent = []
-            for j, (a, b) in enumerate(ab):
-                ent.append((int(a), 2 * j))
-                ent.append((int(b), 2 * j + 1))
-            return _csr(nb, ent)
-
-        jh_ptr, jh_idx = joint_csr("hinge")
-        jc_ptr, jc_idx = joint_csr("cone_twist")
-
         itabs = [np.asarray(rows_i, np.int32).reshape(-1),
                  np.asarray(phase_rows, np.int32),
                  np.concatenate(con_ptr).astype(np.int32),
                  np.concatenate(con_idx).astype(np.int32),
-                 jab.reshape(-1), jh_ptr, jh_idx, jc_ptr, jc_idx]
+                 jab.reshape(-1)]
         ftabs = [self.col_r.cpu().numpy(),
                  np.asarray(rows_f, np.float32).reshape(-1),
-                 jstat.astype(np.float32).reshape(-1),
-                 idg[JOINT_ORDER.index("hinge")],
-                 idg[JOINT_ORDER.index("cone_twist")]]
-        self.ioffs = np.cumsum([0] + [len(x) for x in itabs])[:-1].tolist()
-        self.foffs = np.cumsum([0] + [len(x) for x in ftabs])[:-1].tolist()
+                 jstat.astype(np.float32).reshape(-1)]
+        ilen = sum(len(x) for x in itabs)
+        flen = sum(len(x) for x in ftabs)
+        desc = []
+        row_off = acc_off = ctl_off = jbase = 0
+        for ti, name in enumerate(JOINT_ORDER):
+            J = self.joint_counts[name]
+            ptr_off = idx_off = idg_off = 0
+            if J:
+                ent = []
+                for j, (a, b) in enumerate(ab_all[name]):
+                    ent.append((int(a), 2 * j))
+                    ent.append((int(b), 2 * j + 1))
+                ptr, idx = _csr(nb, ent)
+                ptr_off, idx_off = ilen, ilen + len(ptr)
+                itabs += [ptr, idx]
+                ilen += len(ptr) + len(idx)
+                idg_off = flen
+                ftabs.append(idg[ti])
+                flen += nb
+            desc += [J, row_off, acc_off, ctl_off, jbase, ptr_off, idx_off,
+                     idg_off]
+            row_off += J * JOINT_SPECS[name][0]
+            acc_off += J * JOINT_SPECS[name][3]
+            ctl_off += J * len(CTL_FIELDS[name])
+            jbase += J
+        self.joint_desc = desc
+        self.joint_row_floats = row_off
+        self.joint_acc_floats = acc_off
+        self.ioffs = np.cumsum([0] + [len(x) for x in itabs[:5]])[:-1].tolist()
+        self.foffs = np.cumsum([0] + [len(x) for x in ftabs[:3]])[:-1].tolist()
         self.itab = t(np.concatenate(itabs).astype(np.int32))
         self.ftab = t(np.concatenate(ftabs).astype(np.float32))
 
@@ -286,11 +304,15 @@ class FusedTables:
         return int(min(224, -(-self.num_rows // 32) * 32)) + 32
 
     def shared_floats(self) -> int:
+        """Floats of shared memory one block carves up: body state,
+        collider params, controls, joint rows and impulses, one joint
+        pass's deltas, contact point fields, row deltas, contact inverse
+        degrees and row masks (csrc/fused_step.cu, same order)."""
         nb, C = self.num_bodies, self.num_colliders
-        nH, nC = self.num_hinge, self.num_cone_twist
         return (nb * (6 + 1 + 9 + 3 + 4) + C * 10 + (self.ctl_rows + 1)
-                + nH * HINGE_ROWS + nC * CT_ROWS + nH * 2 + nC * 4
-                + max(nH, nC, 1) * 12 + POINT_FIELDS * self.num_points
+                + self.joint_row_floats + self.joint_acc_floats
+                + max(max(self.joint_counts.values()), 1) * 12
+                + POINT_FIELDS * self.num_points
                 + self.num_rows * 12 + self.num_phases * nb + self.num_rows)
 
 
@@ -541,11 +563,12 @@ def load_library(verbose: bool = False):
     global _LIB, BUILD_LOG
     if _LIB is not None:
         return _LIB
-    if (HINGE_ROWS, CT_ROWS, STATIC_WIDTH, POINT_FIELDS, ROW_INTS) != (
-            46, 59, 26, 30, 8):
+    rows = tuple(JOINT_SPECS[n][0] for n in JOINT_ORDER)
+    if (rows, STATIC_WIDTH, POINT_FIELDS, ROW_INTS, DESC_INTS) != (
+            (17, 18, 30, 46, 59, 58), 31, 30, 8, 8):
         raise RuntimeError("row layouts changed: csrc/fused_step.cu hard-"
-                           "codes HINGE_ROWS, CT_ROWS, STATIC_WIDTH, "
-                           "POINT_FIELDS and ROW_INTS")
+                           "codes the joint row widths, STATIC_WIDTH, "
+                           "POINT_FIELDS, ROW_INTS and DESC_INTS")
     lib, BUILD_LOG = build.compile_library("fused_step.cu", NVCC_FLAGS,
                                            verbose)
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -592,8 +615,8 @@ def _launch(tab: FusedTables, num_iterations, omega, inv_dt, v, w, inv_mass,
     w_out = torch.empty_like(w)
     imp = torch.empty((B, P, 4), dtype=torch.float32, device=v.device)
     live = torch.empty((B, P), dtype=torch.uint8, device=v.device)
-    dims = [B, nb, C, P, tab.num_phases, tab.num_hinge, tab.num_cone_twist,
-            R1, tab.num_points, int(num_iterations)] + tab.ioffs + tab.foffs
+    dims = ([B, nb, C, P, tab.num_phases, R1, tab.num_points,
+             int(num_iterations)] + tab.ioffs + tab.foffs + tab.joint_desc)
     dims_c = (ctypes.c_int * len(dims))(*dims)
     build.raise_on_error("fused_step", lib.dxk_fused_step_launch(
         dims_c, float(omega), float(inv_dt),

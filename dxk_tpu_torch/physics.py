@@ -49,17 +49,19 @@ class PhysicsSettings:
 
 def controls_pack(scene: Scene, controls, dt) -> torch.Tensor:
     """(B, R+1) controls pack for the fused step: per joint type in solve
-    order, per joint, the type's control fields as float32; dt last."""
+    order, per joint, the type's control fields as float32 (distance, ball
+    and fixed joints have none); dt last."""
     from dxk_tpu_torch.ops.kernels.batched_solver import scene_joint_ab
     from dxk_tpu_torch.ops.kernels.cm_joint_prep import CTL_ATTRS, CTL_FIELDS
+    like = controls.hinge_target                            # (B, Jh)
     cols = []
     for name, _ab in scene_joint_ab(scene):
         per_field = [getattr(controls, CTL_ATTRS[name][f]).to(torch.float32)
                      for f in CTL_FIELDS[name]]             # each (B, J)
-        cols.append(torch.stack(per_field, dim=-1).flatten(1))
-    B = cols[0].shape[0]
-    cols.append(torch.full((B, 1), float(np.float32(dt)),
-                           dtype=torch.float32, device=cols[0].device))
+        if per_field:
+            cols.append(torch.stack(per_field, dim=-1).flatten(1))
+    cols.append(torch.full((like.shape[0], 1), float(np.float32(dt)),
+                           dtype=torch.float32, device=like.device))
     return torch.cat(cols, dim=1).contiguous()
 
 

@@ -7,10 +7,11 @@ parameter arrays. Everything up to `finalize` is plain numpy (float64, as
 in the JAX package, so both builders round the same values to float32);
 `finalize(device=...)` converts to tensors on the requested device.
 
-Ported so far: rigid bodies, statics, sphere/capsule/box colliders, hinge
-and cone-twist joints, static pair tables (capped or not, in contact
-phases or not) and the K-select / sort-and-sweep broadphase settings.
-Everything else raises NotImplementedError naming what is missing.
+Ported so far: rigid bodies, statics, sphere/capsule/box colliders, all
+six joint types, static pair tables (capped or not, in contact phases or
+not, pruned by `candidate_margin` or not) and the K-select /
+sort-and-sweep broadphase settings. Everything else raises
+NotImplementedError naming what is missing.
 """
 
 from __future__ import annotations
@@ -238,14 +239,36 @@ class SceneBuilder:
         return sum(1 for j in self._joints if j.kind == kind) - 1
 
 
-    def add_distance_constraint(self, *a, **k):
-        raise _later("distance constraints")
+    def add_distance_constraint(self, a, b, global_anchor_a, global_anchor_b,
+                                distance=None):
+        """physics.cpp:128-156."""
+        if distance is None:
+            distance = float(np.linalg.norm(
+                np.asarray(global_anchor_a, np.float64)
+                - np.asarray(global_anchor_b, np.float64)))
+        self._joints.append(_Joint("distance", a, b, dict(
+            local_anchor_a=self._inv_tp(a, global_anchor_a),
+            local_anchor_b=self._inv_tp(b, global_anchor_b),
+            length=distance)))
+        return self._joint_index("distance")
 
-    def add_ball_constraint(self, *a, **k):
-        raise _later("ball constraints")
+    def add_ball_constraint(self, a, b, global_anchor):
+        """physics.cpp:158-184."""
+        self._joints.append(_Joint("ball", a, b, dict(
+            local_anchor_a=self._inv_tp(a, global_anchor),
+            local_anchor_b=self._inv_tp(b, global_anchor))))
+        return self._joint_index("ball")
 
-    def add_fixed_constraint(self, *a, **k):
-        raise _later("fixed constraints")
+    def add_fixed_constraint(self, a, b, global_anchor):
+        """physics.cpp:204-225."""
+        ra = self._bodies[a].rotation
+        rb = self._bodies[b].rotation
+        self._joints.append(_Joint("fixed", a, b, dict(
+            local_anchor_a=self._inv_tp(a, global_anchor),
+            local_anchor_b=self._inv_tp(b, global_anchor),
+            initial_inv_rotation_difference=_np_quat_mul(_np_quat_conj(rb),
+                                                         ra))))
+        return self._joint_index("fixed")
 
     def add_hinge_constraint(self, a, b, global_anchor, global_axis,
                              min_limit=1.0, max_limit=-1.0):
@@ -282,8 +305,19 @@ class SceneBuilder:
             limit_min=float(swing_limit), limit_max=float(twist_limit))))
         return self._joint_index("cone_twist")
 
-    def add_slider_constraint(self, *a, **k):
-        raise _later("slider constraints")
+    def add_slider_constraint(self, a, b, global_anchor, global_axis,
+                              min_limit=1.0, max_limit=-1.0):
+        """physics.cpp:304-333. min_limit <= 0 / max_limit >= 0 enable."""
+        ra = self._bodies[a].rotation
+        rb = self._bodies[b].rotation
+        self._joints.append(_Joint("slider", a, b, dict(
+            local_anchor_a=self._inv_tp(a, global_anchor),
+            local_anchor_b=self._inv_tp(b, global_anchor),
+            local_axis_a=self._inv_td(a, global_axis),
+            initial_inv_rotation_difference=_np_quat_mul(_np_quat_conj(rb),
+                                                         ra),
+            limit_min=float(min_limit), limit_max=float(max_limit))))
+        return self._joint_index("slider")
 
     def set_heightfield(self, *a, **k):
         raise _later("heightfield terrain")
@@ -363,7 +397,8 @@ class SceneBuilder:
 
     def _collider_bounding_spheres(self, col, init_pos, init_rot, nb):
         """Initial-pose world bounding sphere per collider (conservative):
-        picks the broad statics of the sort-and-sweep broadphase."""
+        picks the broad statics of the sort-and-sweep broadphase and prunes
+        the pair tables under candidate_margin."""
         C = len(self._colliders)
         centers = np.zeros((C, 3))
         brads = np.zeros(C)
@@ -402,12 +437,14 @@ class SceneBuilder:
         masked tables by the K-select kernel (broadphase_k partners per
         collider); broadphase='sap' by the sort-and-sweep kernel, with the
         statics whose initial bounding radius exceeds sap_broad_extent
-        paired by a dense side pass. Build-time pruning margins
-        (candidate_margin / orbit_margin) raise NotImplementedError."""
+        paired by a dense side pass. candidate_margin=M keeps a static
+        candidate pair only if the colliders' initial bounding spheres
+        come within M of each other (the scene promises that pruned pairs
+        never touch). orbit_margin raises NotImplementedError."""
         if broadphase not in ("table", "kselect", "sap"):
             raise ValueError(f"unknown broadphase {broadphase!r}")
-        if candidate_margin is not None or orbit_margin is not None:
-            raise _later("candidate_margin / orbit_margin pruning")
+        if orbit_margin is not None:
+            raise _later("orbit_margin pruning")
         device = resolve_device(device)
 
         def tens(x):
@@ -484,15 +521,29 @@ class SceneBuilder:
             col["ctype"], col["owner_type"], col["body"])
         overlap_pairs = [tuple(p) for p in overlap_np]
 
+        sphs = None                      # computed at most once per finalize
         if broadphase == "sap":
-            _centers, brads = self._collider_bounding_spheres(
-                col, init_pos, init_rot, nb)
+            sphs = self._collider_bounding_spheres(col, init_pos, init_rot,
+                                                   nb)
             sap_broad = tuple(
                 int(i) for i in range(C)
                 if col["owner_type"][i] == OWNER_STATIC
-                and brads[i] > sap_broad_extent)
+                and sphs[1][i] > sap_broad_extent)
         else:
             sap_broad = ()
+
+        if candidate_margin is not None:
+            centers, brads = sphs or self._collider_bounding_spheres(
+                col, init_pos, init_rot, nb)
+            for key, pairs in list(coll_buckets.items()):
+                p = np.asarray(pairs, np.int32).reshape(-1, 2)
+                if len(p) == 0:
+                    continue
+                d = np.linalg.norm(centers[p[:, 0]] - centers[p[:, 1]],
+                                   axis=-1)
+                keep = d <= (brads[p[:, 0]] + brads[p[:, 1]]
+                             + candidate_margin)
+                coll_buckets[key] = [tuple(q) for q in p[keep]]
 
         cap = max_narrow_pairs_per_group or self.max_narrow_pairs_per_group
         groups = []
@@ -540,6 +591,11 @@ class SceneBuilder:
                 data[f] = tens(arr.astype(dtype))
             return JointsOfType(**data), len(js)
 
+        distance, _ = bake("distance", ["local_anchor_a", "local_anchor_b",
+                                        "length"])
+        ball, _ = bake("ball", ["local_anchor_a", "local_anchor_b"])
+        fixed, _ = bake("fixed", ["local_anchor_a", "local_anchor_b",
+                                  "initial_inv_rotation_difference"])
         hinge, n_hinge = bake("hinge", ["local_anchor_a", "local_anchor_b",
                                         "local_axis_a", "local_axis_b",
                                         "local_tangent_a", "local_bitangent_a",
@@ -548,9 +604,13 @@ class SceneBuilder:
                                                "local_axis_a", "local_axis_b",
                                                "local_tangent_a", "local_bitangent_a",
                                                "local_tangent_b", "limit_min", "limit_max"])
-        n_sl = 0
+        slider, n_sl = bake("slider", ["local_anchor_a", "local_anchor_b",
+                                       "local_axis_a",
+                                       "initial_inv_rotation_difference",
+                                       "limit_min", "limit_max"])
 
-        # default controls: all motors disabled (max torque = -1)
+        # default controls: all motors disabled (max torque = -1,
+        # physics.cpp:255, 291-296, 327)
         z = lambda n: torch.zeros((n,), dtype=torch.float32, device=device)
         zi = lambda n: torch.zeros((n,), dtype=torch.int32, device=device)
         neg = lambda n: torch.full((n,), -1.0, dtype=torch.float32,
@@ -593,7 +653,8 @@ class SceneBuilder:
             sap_broad=sap_broad,
             overlap_groups=(),
             overlap_pairs=tens(np.zeros((0, 2), np.int32)),
-            hinge=hinge, cone_twist=cone_twist,
+            distance=distance, ball=ball, fixed=fixed, hinge=hinge,
+            cone_twist=cone_twist, slider=slider,
             default_controls=controls,
             global_ff_force=f32(np.zeros(3)),
             ff_forces=f32(np.zeros((1, 3))),

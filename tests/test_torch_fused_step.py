@@ -228,7 +228,9 @@ def test_tables_and_launch_geometry(envs):
     assert fs.fused2_eligible(tenv.scene)
     tab = fs.fused_tables(tenv.scene, "cpu")
     assert (tab.num_rows, tab.num_points) == (147, 300)
-    assert (tab.num_hinge, tab.num_cone_twist, tab.ctl_rows) == (6, 7, 67)
+    assert tab.joint_counts == dict(distance=0, ball=0, fixed=0, hinge=6,
+                                    cone_twist=7, slider=0)
+    assert tab.ctl_rows == 67
     assert tab.threads() % 32 == 0 and 64 <= tab.threads() <= 256
     assert tab.shared_floats() * 4 <= 227 * 1024
     rows = tab.itab[tab.ioffs[0]:tab.ioffs[1]].view(-1, fs.ROW_INTS)

@@ -100,7 +100,7 @@ def test_ragdoll_tables():
 
 @pytest.mark.parametrize("call", [
     lambda b: b.add_cylinder_collider(b.add_body(), (0, 0, 0), (0, 1, 0), 0.2),
-    lambda b: b.finalize(candidate_margin=0.25, device="cpu"),
+    lambda b: b.set_heightfield(np.zeros((4, 4)), 1.0),
     lambda b: b.finalize(orbit_margin=0.25, device="cpu"),
 ])
 def test_unported_builder_features_raise(call):

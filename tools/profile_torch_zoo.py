@@ -1,0 +1,88 @@
+"""Where a step of the constraint zoo on the port's fused step spends its
+time on the GPU, at each of chip_smoke.py's zoo batches.
+
+Builds chip_smoke.py's zoo (bench.py's BASELINE config 2: 16 chains, 112
+bodies, 96 joints, 30 solver iterations, "fused"), steps it `--warm` steps,
+then per batch prints one JSON line: host time per step over `--steps`
+steps, and from torch.profiler over `--profile-steps` steps, device busy
+time per step, the device's idle share, the fused-step kernel's device time
+per step, device kernel launches per step and the top device kernels by
+time.
+
+    python3 tools/profile_torch_zoo.py [--steps 50] [--profile-steps 3]
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+from dxk_tpu_torch.physics import PhysicsSettings, physics_step  # noqa: E402
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--profile-steps", type=int, default=3)
+    ap.add_argument("--warm", type=int, default=60)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_zoo: no CUDA device")
+
+    scene = cs.zoo_scene()
+    settings = PhysicsSettings(num_rigid_solver_iterations=cs.ITERATIONS,
+                               solver_mode="fused")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    n = args.profile_steps
+    for batch in cs.ZOO_BATCHES:
+        st = cs.zoo_initial_state(scene, batch, 0)
+        for _ in range(args.warm):
+            st, _info = physics_step(scene, st, settings, cs.ZOO_DT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            st, _info = physics_step(scene, st, settings, cs.ZOO_DT)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                st, _info = physics_step(scene, st, settings, cs.ZOO_DT)
+            torch.cuda.synchronize()
+        rows = []
+        for ev in prof.key_averages():
+            # device-side events only: an operator's row repeats the time
+            # of the kernels it launched
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            dev_us = getattr(ev, "self_device_time_total", 0) or 0
+            if dev_us > 0:
+                rows.append((ev.key, dev_us, ev.count))
+        rows.sort(key=lambda r: -r[1])
+        busy_ms = sum(r[1] for r in rows) / 1e3 / n
+        kern_ms = sum(r[1] for r in rows
+                      if "fused_step_kernel" in r[0]) / 1e3 / n
+        print(json.dumps({
+            "device": torch.cuda.get_device_name(0), "envs": batch,
+            "bodies": scene.num_bodies, "host_steps": args.steps,
+            "profiled_steps": n, "host_step_ms": step_ms,
+            "body_steps_per_s": scene.num_bodies * batch / step_ms * 1e3,
+            "device_busy_ms_per_step": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / step_ms,
+            "fused_kernel_ms_per_step": kern_ms,
+            "device_launches_per_step": sum(r[2] for r in rows) / n,
+            "top_device_kernels": [
+                {"name": r[0][:80], "ms_per_step": r[1] / 1e3 / n,
+                 "calls_per_step": r[2] / n} for r in rows[:8]],
+        }), flush=True)
+
+
+if __name__ == "__main__":
+    main()
