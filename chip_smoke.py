@@ -7,6 +7,8 @@ checkout and holding each against its plain PyTorch version on the card:
     trained walking policy (the fused step);
   - bench.py's constraint zoo (BASELINE config 2: 16 chains with one link
     per joint type, 256 and 4096 envs) on the fused step;
+  - bench.py's ragdoll drop-and-settle with its convex-hull debris
+    (BASELINE config 3, 256 and 4096 envs) on the fused step;
   - bench.py's 1k-box stack (64 towers of 16 boxes, 32 envs) on the
     reference step under each of the three broadphases (table, K-select,
     sort-and-sweep).
@@ -25,13 +27,20 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
              60 steps, limit poses), live joint limits and motors by type,
              then 600 steps at each batch: launches, finiteness, anchor gaps,
              body-steps/s, the kernel's times and bound
+  settle     fused-step kernel vs plain version on settle states (initial,
+             after 60 steps, hull poses), on a three-hull pile and after each
+             main-path run; live rows of the hull recipes and their branches;
+             the pile stepped 120 steps; then 600 steps at each batch:
+             launches, finiteness, the debris' height, body-steps/s, the
+             kernel's times and bound
   box_stack  the three broadphase kernels vs their plain versions (equal
              integers) on the initial and a rolled-out state, pair sets equal
              across the broadphases, then the box stack stepped in each
              broadphase: launches per step, overflow, agreement with the
              table broadphase, body-steps/s
 The line before the last is the card's name and power limit; the line before
-that lists every kernel (the fused step twice: loco and zoo). The last line
+that lists every kernel (the fused step three times: loco, zoo and settle).
+The last line
 is {"ok": true, "device": {...}}.
 
 Imports torch and the port only; nothing of JAX.
@@ -57,7 +66,6 @@ TOL_REASON = ("kernel and plain version run the same float32 operations "
               "delta sums (fixed lists vs index_add_ atomics) and by libm "
               "sin/cos ulps, amplified over 30 solver iterations; impulses "
               "are held to the same tolerance relative to the largest one")
-RECIPES = {0: "capsule_capsule", 1: "capsule_box", 2: "box_box"}
 
 # H100 SXM data-sheet peaks: float32 outside the tensor cores, HBM3
 PEAK_FLOPS = 67e12
@@ -70,6 +78,14 @@ FLOPS_ROW_DELTA = 24             # 12 subtractions + 12 adds into body sums
 FLOPS_BODY_APPLY = 3             # per body component and pass: scale, add
 FLOPS_PREP_POINT = 183
 FLOPS_NARROW = {0: 170, 1: 380, 2: 1600}   # capsule-capsule, capsule-box, box-box
+# hull recipes, whose work follows the hull sizes and this run's data (see
+# hull_flops): capsule-hull per row and per distance-GJK iteration (plus
+# 5 * V for the hull support), the deep branch per face plane; a polytope
+# side's vertex transform, per face and vertex of the face scans, per edge
+# pair and vertex of the edge scan, the clip per loop point and slot
+FLOPS_CAPSULE_HULL = dict(row=210, gjk_iteration=460, deep=45, deep_plane=7)
+FLOPS_POLYTOPE = dict(vertex=33, face=35, face_vertex=5, edge_pair=60,
+                      edge_pair_vertex=5, clip_point_slot=25, reduce_slot=160)
 # per joint type: (prep once a step, solve per iteration incl. the 24
 # operations of its velocity deltas), all counted the same way
 FLOPS_JOINT = {"distance": (143, 60 + 24), "ball": (266, 156 + 24),
@@ -164,11 +180,41 @@ def time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def bound_ms(tab, live, batch):
+def polytope_flops(nv_a, nf_a, ne_a, nv_b, nf_b, ne_b, lm):
+    """Operations of one box-hull or hull-hull row (csrc/fused_step.cu,
+    polytope), counted by hand: both sides' vertices, the two face scans,
+    the edge scan and a face-case clip of the incident loop on 2 lm slots."""
+    f, nv = FLOPS_POLYTOPE, nv_a + nv_b
+    return (f["vertex"] * nv + (nf_a + nf_b) * (f["face"] + f["face_vertex"] * nv)
+            + ne_a * ne_b * (f["edge_pair"] + f["edge_pair_vertex"] * nv)
+            + lm * 2 * lm * f["clip_point_slot"] + 2 * lm * f["reduce_slot"])
+
+
+def hull_flops(tab, branches, batch):
+    """Operations of the hull rows of `batch` envs, from the hull sizes and
+    this run's branches (GJK iterations, deep rows)."""
+    from dxk_tpu_torch.ops.kernels import fused_step as fs
+    V, F, FU, LM, EU = tab.hull_dims
+    rows = {fs.RECIPE_NAMES[fs.CM_RECIPES[m["key"]]]: 0 for m in tab.metas}
+    for m in tab.metas:
+        rows[fs.RECIPE_NAMES[fs.CM_RECIPES[m["key"]]]] += m["pg"]
+    c = FLOPS_CAPSULE_HULL
+    b = branches.get("capsule_hull", {})
+    flops = (batch * rows.get("capsule_hull", 0) * c["row"]
+             + b.get("gjk_iterations", 0) * (c["gjk_iteration"] + 5 * V)
+             + b.get("overlap", 0) * (c["deep"] + 5 * F * c["deep_plane"]))
+    flops += batch * rows.get("box_hull", 0) * polytope_flops(
+        8, 6, 3, V, FU, EU, max(4, LM))
+    flops += batch * rows.get("hull_hull", 0) * polytope_flops(
+        V, FU, EU, V, FU, EU, LM)
+    return flops
+
+
+def bound_ms(tab, live, batch, hull_work=0):
     """Least time the card could take for this call: the larger of compulsory
     bytes over the memory rate and counted operations over the float32 peak.
     The operation count follows this run's data: live pair rows and live
-    manifold points only."""
+    manifold points only; `hull_work` is the hull rows' count (hull_flops)."""
     nb, C, P = tab.num_bodies, tab.num_colliders, tab.num_rows
     floats_in = nb * (3 + 3 + 9 + 3 + 4) + C * 10 + tab.ctl_rows + 1
     floats_out = nb * 6 + P * 4
@@ -178,14 +224,14 @@ def bound_ms(tab, live, batch):
     live_rows = int((lv != 0).sum())
     live_points = int(sum(((lv >> k) & 1).sum() for k in range(4)))
     types = tab.itab[tab.ioffs[0]:tab.ioffs[0] + 8 * P].view(P, 8)[:, 0].tolist()
-    narrow = sum(FLOPS_NARROW[t] for t in types)
+    narrow = sum(FLOPS_NARROW.get(t, 0) for t in types)
     counts = tab.joint_counts
     per_env_once = narrow + sum(n * FLOPS_JOINT[t][0]
                                 for t, n in counts.items())
     passes = sum(n > 0 for n in counts.values()) + tab.num_phases
     per_env_iter = (sum(n * FLOPS_JOINT[t][1] for t, n in counts.items())
                     + passes * nb * 6 * FLOPS_BODY_APPLY)
-    flops = (batch * (per_env_once + ITERATIONS * per_env_iter)
+    flops = (batch * (per_env_once + ITERATIONS * per_env_iter) + hull_work
              + live_points * (FLOPS_PREP_POINT
                               + ITERATIONS * FLOPS_CONTACT_POINT)
              + live_rows * ITERATIONS * FLOPS_ROW_DELTA)
@@ -255,7 +301,8 @@ def compare_kernel(scene, state, batch, dt):
         P, fs.ROW_INTS)[:, 0].to(klive.device)
     rows_live = (klive != 0).sum(dim=0)
     live_by_recipe = {name: int(rows_live[types == t].sum())
-                      for t, name in RECIPES.items()}
+                      for t, name in fs.RECIPE_NAMES.items()
+                      if bool((types == t).any())}
     dt = float(np.float32(dt))
     ks = integrate_velocities(scene, bodies.replace(v=kv, w=kw), sub, dt)
     ps = integrate_velocities(
@@ -269,16 +316,24 @@ def compare_kernel(scene, state, batch, dt):
                                 (kw - bodies.w).abs().max()))
     out = dict(batch=batch, solve_moved_velocities_by=moved, err_v=err_v,
                err_w=err_w, err_pos=err_pos, err_rot=err_rot, err_imp=err_imp,
-               imp_scale=imp_scale, mask_mismatch=mask_mismatch,
+               imp_scale=imp_scale,
+               v_scale=max(1.0, float(pvw[..., :3].abs().max())),
+               w_scale=max(1.0, float(pvw[..., 3:].abs().max())),
+               mask_mismatch=mask_mismatch,
                finite=finite, live_rows_by_recipe=live_by_recipe,
                live_rows_per_env=float((klive != 0).sum()) / batch,
                joints_on=joint_flags(tab, bodies, ctl, inv_dt))
+    if tab.hull_dims[0]:
+        out["hull_branches"] = fs.hull_branches(tab, wcol.a, wcol.b, wcol.rot)
     return out, run_kernel, run_plain, tab, klive
 
 
-def hold_fused(c):
-    """Raise unless the fused kernel agreed with its plain version."""
-    worst = max(c["err_v"], c["err_w"], c["err_pos"], c["err_rot"],
+def hold_fused(c, relative=False):
+    """Raise unless the fused kernel agreed with its plain version. With
+    `relative`, velocities are held, like impulses, relative to the largest
+    one (see SETTLE_TOL_REASON)."""
+    vs, ws = (c["v_scale"], c["w_scale"]) if relative else (1.0, 1.0)
+    worst = max(c["err_v"] / vs, c["err_w"] / ws, c["err_pos"], c["err_rot"],
                 c["err_imp"] / c["imp_scale"])
     if not c["finite"] or c["mask_mismatch"] or not worst <= KERNEL_TOL:
         raise RuntimeError(f"fused_step kernel disagrees with its plain "
@@ -707,14 +762,19 @@ def zoo_scene(n_chains=ZOO_CHAINS, device=DEVICE):
     return scene.replace(default_controls=c.replace(**motors))
 
 
+def _axis_quat(axis, angle):
+    """float64 quaternion (x, y, z, w) turning by `angle` about `axis`."""
+    axis = torch.tensor(axis, dtype=torch.float64)
+    axis = axis / axis.norm()
+    return torch.cat([axis * np.sin(angle / 2),
+                      torch.tensor([np.cos(angle / 2)], dtype=torch.float64)])
+
+
 def _turn(pos, rot, env, bodies, pivot, axis, angle):
     """Rigidly turn `bodies` of env `env` about `pivot` (in place)."""
-    axis = torch.tensor(axis, dtype=torch.float64)
-    q = torch.cat([axis * np.sin(angle / 2), torch.tensor([np.cos(angle / 2)],
-                                                          dtype=torch.float64)])
     from dxk_tpu_torch.core.maths import quat_mul, quat_rotate
     piv = torch.tensor(pivot, dtype=torch.float64)
-    qb = q.expand(len(bodies), 4)
+    qb = _axis_quat(axis, angle).expand(len(bodies), 4)
     pos[env, bodies] = piv + quat_rotate(qb, pos[env, bodies] - piv)
     rot[env, bodies] = quat_mul(qb, rot[env, bodies])
 
@@ -886,6 +946,316 @@ def zoo_phase(seed):
         "bound_by": timing[big]["bound_by"], "library_ms": None}
 
 
+# ---------------------------------------------------------------------------
+# the ragdoll drop-and-settle (BASELINE config 3) on the fused step
+
+SETTLE_BATCHES = (256, 4096)              # bench.py's on-chip 4 * aux_batch; 4096
+SETTLE_RAGGED = 1000
+SETTLE_STEPS = 600
+SETTLE_WARM = 60
+SETTLE_DT = 1.0 / 120.0
+SETTLE_BODIES = 15                        # bench.py counts 15 per env
+DEBRIS_HALF = 0.12                        # the hull debris: a 0.24 m cube
+PILE_STEPS = 120
+SETTLE_TOL_REASON = (
+    "velocities held relative to the largest one: the limp ragdoll's toes "
+    "keep bouncing on the ground at up to hundreds of rad/s in some of the "
+    "4096 envs, in the plain version as in the kernel (and in the JAX "
+    "package, which the plain version follows step for step on the CPU), "
+    "and on the card the plain version sums per-body deltas with "
+    "index_add_ atomics in no fixed order, so the two differ by float "
+    "rounding of such values")
+
+
+def settle_builder(builder, add_ragdoll):
+    """bench.py:333-345 (bench_ragdoll_settle), copied: the ragdoll dropped
+    from a hip height of 1.6 m onto a 40 x 8 x 40 ground box, beside a
+    convex-hull debris cube of 0.24 m. `builder` is a SceneBuilder class and
+    `add_ragdoll` its package's ragdoll; the result is finalized by the
+    caller with no arguments (uncapped static tables)."""
+    b = builder()
+    ground = b.add_static(position=(0, -4.0, 0))
+    b.add_box_collider(ground, (0, 0, 0), (20, 4, 20), friction=1.0)
+    add_ragdoll(b, initial_hip_position=(0.0, 1.6, 0.0))
+    h = DEBRIS_HALF
+    cube = np.array([[x, y, z] for x in (-h, h) for y in (-h, h)
+                     for z in (-h, h)])
+    hid = b.add_hull_geometry_from_mesh(cube)
+    debris = b.add_body(position=(0.45, 1.2, 0.1))
+    b.add_hull_collider(debris, hid, friction=0.8)
+    return b
+
+
+def settle_scene(device=DEVICE):
+    from dxk_tpu_torch.models.ragdoll import add_ragdoll
+    from dxk_tpu_torch.scene import SceneBuilder
+    return settle_builder(SceneBuilder, add_ragdoll).finalize(device=device)
+
+
+def settle_initial_state(scene, batch, seed):
+    """`batch` envs of the drop, each with a seeded normal perturbation of
+    0.01 m/s on every body's linear velocity, so that the envs differ."""
+    return zoo_initial_state(scene, batch, seed)
+
+
+def settle_hull_poses(scene, batch, seed):
+    """`batch` envs of the settle scene with the debris (the last body) put
+    where the hull recipes branch: env e (mod 4) sets it face-down,
+    edge-down or vertex-down into the ground by 0-8 mm with a seeded
+    yaw and tilt of up to 3 degrees, or centred 0-0.2 m from the middle of
+    a seeded capsule of the ragdoll (the segment deep inside the hull or
+    near its faces). The ragdoll keeps its initial pose; velocities get the
+    seeded noise of settle_initial_state."""
+    from dxk_tpu_torch.core.maths import quat_mul, quat_rotate
+    st = settle_initial_state(scene, batch, seed)
+    rng = np.random.default_rng(seed)
+    pos = st.pos.double().cpu()
+    rot = st.rot.double().cpu()
+    deb = scene.num_bodies - 1
+    col = scene.colliders.to("cpu")
+    caps = (col.ctype == 1).nonzero()[:, 0].tolist()
+    h = DEBRIS_HALF
+    down = {0: (_axis_quat((0, 1, 0), 0.0), h),
+            1: (_axis_quat((1, 0, 0), np.pi / 4), h * np.sqrt(2.0)),
+            2: (quat_mul(_axis_quat((1, 0, 0), np.arctan(np.sqrt(0.5))),
+                         _axis_quat((0, 0, 1), np.pi / 4)), h * np.sqrt(3.0))}
+    for e in range(batch):
+        kind = e % 4
+        yaw = _axis_quat((0, 1, 0), rng.uniform(0, 2 * np.pi))
+        tilt = _axis_quat(rng.normal(size=3), np.radians(rng.uniform(0, 3)))
+        if kind < 3:
+            q0, lowest = down[kind]
+            rot[e, deb] = quat_mul(tilt, quat_mul(yaw, q0))
+            pos[e, deb] = torch.tensor(
+                (rng.uniform(-2, 2), lowest - rng.uniform(0, 0.008),
+                 rng.uniform(-2, 2)), dtype=torch.float64)
+        else:
+            c = caps[rng.integers(len(caps))]
+            body = int(col.body[c])
+            ends = [pos[e, body] + quat_rotate(rot[e, body], x[c].double())
+                    for x in (col.a, col.b)]
+            d = torch.from_numpy(rng.normal(size=3))
+            rot[e, deb] = quat_mul(tilt, yaw)
+            pos[e, deb] = ((ends[0] + ends[1]) / 2
+                           + d / d.norm() * rng.uniform(0, 0.2))
+    return st.replace(pos=pos.float().to(st.pos.device),
+                      rot=rot.float().to(st.rot.device))
+
+
+def pile_builder(builder):
+    """A check scene for the polytope recipes: three convex hulls stacked on
+    a ground box (40 x 2 x 40, top at y = 0): the 0.24 m debris cube, a
+    hull of 16 seeded points and a tetrahedron, each resting a few
+    millimetres into the one below. Gives box-hull and hull-hull rows."""
+    b = builder()
+    ground = b.add_static()
+    b.add_box_collider(ground, (0, -1, 0), (20, 1, 20))
+    h = DEBRIS_HALF
+    cube = np.array([[x, y, z] for x in (-h, h) for y in (-h, h)
+                     for z in (-h, h)])
+    rng = np.random.default_rng(16)
+    blob = rng.normal(size=(16, 3)) * 0.08
+    tet = np.array([[1, 1, 1], [1, -1, -1], [-1, 1, -1], [-1, -1, 1]]) * 0.1
+    y = 0.0
+    for pts in (cube, blob, tet):
+        hid = b.add_hull_geometry_from_mesh(pts)
+        y += -pts[:, 1].min() - 0.003
+        body = b.add_body(position=(0.0, y, 0.0))
+        b.add_hull_collider(body, hid)
+        y += pts[:, 1].max()
+    return b
+
+
+def pile_scene(device=DEVICE):
+    from dxk_tpu_torch.scene import SceneBuilder
+    return pile_builder(SceneBuilder).finalize(device=device)
+
+
+def pile_poses(scene, batch, seed):
+    """`batch` envs of the pile: each hull turned by a seeded random
+    rotation (odd envs) or by up to 5 degrees (even envs), then set down
+    with its lowest vertex 0-6 mm below the highest vertex of the hull
+    under it (the ground's top for the first), so that each pair below
+    touches."""
+    from dxk_tpu_torch.core.maths import quat_rotate
+    st = scene.initial_state(batch)
+    rng = np.random.default_rng(seed)
+    pos = st.pos.double().cpu()
+    rot = st.rot.double().cpu()
+    hv = scene.hulls.vertices.double().cpu()
+    hm = scene.hulls.vertex_mask.cpu()
+    for e in range(batch):
+        top = torch.tensor((rng.uniform(-0.03, 0.03), 0.0,
+                            rng.uniform(-0.03, 0.03)), dtype=torch.float64)
+        for k in range(3):
+            ang = rng.uniform(0, 2 * np.pi) if e % 2 else np.radians(
+                rng.uniform(0, 5))
+            q = _axis_quat(rng.normal(size=3), ang)
+            verts = hv[k][hm[k]]
+            v = quat_rotate(q.expand(len(verts), 4), verts)
+            rot[e, k + 1] = q                    # body 0 owns the ground
+            pos[e, k + 1] = top - v[v[:, 1].argmin()] - torch.tensor(
+                (0.0, rng.uniform(0, 0.006), 0.0), dtype=torch.float64)
+            top = pos[e, k + 1] + v[v[:, 1].argmax()]
+    return st.replace(pos=pos.float().to(st.pos.device),
+                      rot=rot.float().to(st.rot.device))
+
+
+def debris_height(scene, state):
+    """Height above the ground's top (y = 0) of the debris hull's lowest
+    vertex in each env."""
+    from dxk_tpu_torch.core.maths import quat_rotate
+    from dxk_tpu_torch.ops.shapes import world_colliders
+    col = int((scene.colliders.ctype == 4).nonzero()[0, 0])
+    hv = scene.hulls.vertices[int(scene.colliders.hull_id[col])]
+    w = world_colliders(scene, state.pos, state.rot)
+    rot = w.rot[:, col][:, None].expand(-1, hv.shape[0], 4)
+    world = w.a[:, col][:, None] + quat_rotate(rot, hv.expand(
+        rot.shape[0], -1, -1))
+    return world[..., 1].amin(dim=1)
+
+
+def settle_phase(seed):
+    """bench.py's ragdoll settle with its hull debris on the fused step:
+    kernel vs plain version on the card (settle states, hull poses, the
+    hull pile), every hull recipe and branch live, then the main path at
+    each batch."""
+    from dxk_tpu_torch.ops.kernels import broadphase_kernel as bk
+    from dxk_tpu_torch.ops.kernels import fused_step as fs
+    from dxk_tpu_torch.ops.kernels import kselect_broadphase as ks
+    from dxk_tpu_torch.ops.kernels import sap_broadphase as sp
+    from dxk_tpu_torch.physics import PhysicsSettings, physics_step
+
+    counters = {"fused_step": fs, "aabb_overlap_matrix": bk,
+                "kselect_broadphase": ks, "sap_broadphase": sp}
+    scene = settle_scene()
+    tab = fs.fused_tables(scene, DEVICE)
+    settings = PhysicsSettings(num_rigid_solver_iterations=ITERATIONS,
+                               solver_mode="fused")
+
+    # ---- kernel vs plain version: bench's batch and a ragged one, on the
+    # initial state and after SETTLE_WARM steps; the hull poses; the pile
+    checks = {}
+    for batch in (SETTLE_BATCHES[0], SETTLE_RAGGED):
+        st0 = settle_initial_state(scene, batch, seed)
+        st = st0
+        for _ in range(SETTLE_WARM):
+            st, _info = physics_step(scene, st, settings, SETTLE_DT)
+        checks[f"B{batch}_initial"] = compare_kernel(scene, st0, batch,
+                                                     SETTLE_DT)[0]
+        checks[f"B{batch}_after_{SETTLE_WARM}_steps"] = compare_kernel(
+            scene, st, batch, SETTLE_DT)[0]
+    checks["hull_poses"] = compare_kernel(
+        scene, settle_hull_poses(scene, SETTLE_BATCHES[0], seed),
+        SETTLE_BATCHES[0], SETTLE_DT)[0]
+    pile = pile_scene()
+    pile_st = pile_poses(pile, SETTLE_BATCHES[0], seed)
+    checks["pile_poses"] = compare_kernel(pile, pile_st, SETTLE_BATCHES[0],
+                                          SETTLE_DT)[0]
+    live, branches = {}, {}
+    for c in checks.values():
+        for r, n in c["live_rows_by_recipe"].items():
+            live[r] = live.get(r, 0) + n
+        for r, br in c.get("hull_branches", {}).items():
+            for k, n in br.items():
+                if k != "gjk_iterations":
+                    key = "sat" if r in ("box_hull", "hull_hull") else r
+                    branches.setdefault(key, {})
+                    branches[key][k] = branches[key].get(k, 0) + n
+
+    # ---- the pile stepped PILE_STEPS steps: state finite
+    st = pile_st
+    pile_finite = torch.ones((), dtype=torch.bool, device=DEVICE)
+    for _ in range(PILE_STEPS):
+        st, _info = physics_step(pile, st, settings, SETTLE_DT)
+        pile_finite &= torch.isfinite(st.pos).all() & torch.isfinite(
+            st.lin_vel).all() & torch.isfinite(st.ang_vel).all()
+
+    # ---- the main path at each batch, counts from zero just before it
+    runs, timing = {}, {}
+    for batch in SETTLE_BATCHES:
+        st = settle_initial_state(scene, batch, seed + 1)
+        finite = torch.ones((), dtype=torch.bool, device=DEVICE)
+        for mod in counters.values():
+            mod.reset_launch_count()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SETTLE_STEPS):
+            st, _info = physics_step(scene, st, settings, SETTLE_DT)
+            finite &= torch.isfinite(st.pos).all() & torch.isfinite(
+                st.lin_vel).all() & torch.isfinite(st.ang_vel).all()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {n: mod.launch_count() for n, mod in counters.items()}
+        h = debris_height(scene, st)
+        runs[batch] = dict(
+            steps=SETTLE_STEPS, seconds=secs,
+            body_steps_per_s=SETTLE_BODIES * batch * SETTLE_STEPS / secs,
+            ms_per_step=secs / SETTLE_STEPS * 1e3, launches=launches,
+            finite=bool(finite),
+            debris_lowest_vertex_height_m=dict(
+                min=float(h.min()), mean=float(h.mean()), max=float(h.max())),
+            torso_height_m_mean=float(st.pos[:, 2, 1].mean()))
+        # the kernel at this batch on the settled state (held below)
+        cmp, run_kernel, run_plain, _tab, klive = compare_kernel(
+            scene, st, batch, SETTLE_DT)
+        checks[f"B{batch}_after_{SETTLE_STEPS}_steps"] = cmp
+        for _ in range(3):
+            run_kernel()
+        work = hull_flops(tab, cmp["hull_branches"], batch)
+        b_ms, b_by, b_detail = bound_ms(tab, klive, batch, work)
+        timing[batch] = dict(ms=time_ms(run_kernel, 20),
+                             plain_ms=time_ms(run_plain, 2), bound_ms=b_ms,
+                             bound_by=b_by, bound_detail=b_detail,
+                             hull_flops=work, err_v=cmp["err_v"],
+                             err_w=cmp["err_w"],
+                             live_rows_by_recipe=cmp["live_rows_by_recipe"],
+                             hull_branches=cmp["hull_branches"])
+    emit("settle", bodies=scene.num_bodies, body_steps_counted=SETTLE_BODIES,
+         colliders=tab.num_colliders, pair_rows=tab.num_rows,
+         joints=tab.joint_counts, hull_dims=dict(zip(
+             ("V", "F", "FU", "LM", "EU"), tab.hull_dims)),
+         iterations=ITERATIONS, dt=SETTLE_DT, threads=tab.threads(),
+         smem_bytes=tab.shared_floats() * 4, tolerance=KERNEL_TOL,
+         tolerance_reason=SETTLE_TOL_REASON,
+         checks=checks, live_rows_by_recipe=live, branches=branches,
+         pile=dict(steps=PILE_STEPS, finite=bool(pile_finite),
+                   pair_rows=fs.fused_tables(pile, DEVICE).num_rows,
+                   hull_dims=fs.fused_tables(pile, DEVICE).hull_dims),
+         runs=runs, kernel=timing)
+    for c in checks.values():
+        hold_fused(c, relative=True)
+    dead = [r for r in ("capsule_hull", "box_hull", "hull_hull")
+            if live.get(r, 0) == 0]
+    dead += [f"{r}.{k}" for r, ks_ in (("capsule_hull", ("separated",
+                                                          "overlap")),
+                                       ("sat", ("face_a", "face_b", "edge")))
+             for k in ks_ if branches.get(r, {}).get(k, 0) == 0]
+    if dead:
+        raise RuntimeError(f"settle: hull recipes or branches never live in "
+                           f"the compared states: {dead}")
+    if not bool(pile_finite):
+        raise RuntimeError("settle: the hull pile went non-finite")
+    for batch, r in runs.items():
+        want = {n: (SETTLE_STEPS if n == "fused_step" else 0)
+                for n in counters}
+        if r["launches"] != want or not r["finite"]:
+            raise RuntimeError(f"settle B={batch}: launches {r['launches']} "
+                               f"(expected {want}), finite {r['finite']}")
+    big = SETTLE_BATCHES[-1]
+    return {
+        "name": "fused_step_settle", "route": "cuda",
+        "source": "dxk_tpu_torch/ops/kernels/csrc/fused_step.cu",
+        "replaces": "dxk_tpu/ops/pallas/fused_step.py:1177",
+        "launches": runs[big]["launches"]["fused_step"],
+        "max_abs_err": max(max(c["err_v"], c["err_w"], c["err_pos"],
+                               c["err_rot"], c["err_imp"])
+                           for c in checks.values()),
+        "ms": timing[big]["ms"], "plain_ms": timing[big]["plain_ms"],
+        "bound_ms": timing[big]["bound_ms"],
+        "bound_by": timing[big]["bound_by"], "library_ms": None}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=600,
@@ -962,6 +1332,9 @@ def main():
     # ---- the constraint zoo on the fused step
     zoo_kernel = zoo_phase(args.seed + 4)
 
+    # ---- the ragdoll settle with its hull debris on the fused step
+    settle_kernel = settle_phase(args.seed + 5)
+
     # ---- the box stack on the reference step, each broadphase
     box_kernels = box_stack_phase(args.seed + 3)
 
@@ -973,7 +1346,8 @@ def main():
             cmp_full[k] for k in ("err_v", "err_w", "err_pos", "err_rot",
                                   "err_imp")),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": None}, zoo_kernel] + box_kernels}),
+        "bound_by": b_by, "library_ms": None}, zoo_kernel, settle_kernel]
+        + box_kernels}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,10 @@
 //
 // Replaces the JAX package's TPU kernel
 //   dxk_tpu/ops/pallas/fused_step.py::_fused_step_batched (body _fused_core)
-// for scenes whose pair groups are capsule-capsule, capsule-box and box-box,
-// with joints of all six types (distance, ball, fixed, hinge, cone-twist,
-// slider), in the averaged ("jacobi") solve mode with joint prep in the kernel.
+// for scenes whose pair groups are capsule-capsule, capsule-box, box-box,
+// capsule-hull, box-hull and hull-hull, with joints of all six types
+// (distance, ball, fixed, hinge, cone-twist, slider), in the averaged
+// ("jacobi") solve mode with joint prep in the kernel.
 // The plain PyTorch version of the same function is
 // ops/kernels/fused_step.py::_fused_core; this file follows it operation for
 // operation, so the two agree to rounding.
@@ -31,8 +32,13 @@
 //   * per-body delta sums walk static incidence lists in a fixed order - no
 //     atomics, results are reproducible from run to run;
 //   * static scene data (pair -> collider/body indices, friction/restitution,
-//     joint wiring and parameters, inverse degrees) comes in as two small device
-//     tables, so one compiled library serves any scene of these types.
+//     joint wiring and parameters, inverse degrees, each hull geometry's local
+//     vertices, planes and merged-face topology) comes in as two small device
+//     tables, so one compiled library serves any scene of these types;
+//   * the hull recipes (a 24-iteration distance GJK, an exact polytope SAT and
+//     a reference-face clip) run one thread per pair row, out of line, with a
+//     polytope side's world vertices and the clip slots in per-thread local
+//     memory.
 // The file is compiled with -fmad=false: the box-box SAT and manifold reduction
 // break ties within 1e-4 relative, and a fused multiply-add can put a value on
 // the other side of a tie than the plain version's separately rounded ops.
@@ -375,11 +381,12 @@ DF V3 get_tangent(V3 n) {
   return muls(t, 1.0f / fmaxf(ln, 1e-30f));
 }
 
-// Sutherland-Hodgman against one plane on an 8-slot polygon; returns the new
+// Sutherland-Hodgman against one plane on an S-slot polygon; returns the new
 // vertex count (manifold._clip_one_plane semantics: emit the crossing point,
-// then the end vertex when it is inside).
+// then the end vertex when it is inside; points past slot S are dropped, but
+// counted, as in _clip_one_plane_cm).
 DF int clip_one_plane(const V3* verts, const float* depths, int n, V3 pn, float pd,
-                      V3* out_v, float* out_d) {
+                      V3* out_v, float* out_d, int S) {
   int o = 0;
   int n_safe = n > 1 ? n : 1;
   for (int k = 0; k < n; ++k) {
@@ -391,14 +398,14 @@ DF int clip_one_plane(const V3* verts, const float* depths, int n, V3 pn, float 
     float a_abs = fabsf(sdk);
     float t = a_abs / fmaxf(a_abs + fabsf(esd), 1e-12f);
     if (s_in != e_in) {
-      if (o < 8) {
+      if (o < S) {
         out_v[o] = add(sv, muls(sub(ev, sv), t));
         out_d[o] = sdep + (ed - sdep) * t;
       }
       ++o;
     }
     if (e_in) {
-      if (o < 8) { out_v[o] = ev; out_d[o] = ed; }
+      if (o < S) { out_v[o] = ev; out_d[o] = ed; }
       ++o;
     }
   }
@@ -414,6 +421,42 @@ DF int masked_best(const float* scores, int n) {
     if (sk > bs + (REDUCE_TIE_TOL * (fabsf(bs) + fabsf(sk)) + 1e-9f)) { bs = sk; best = k; }
   }
   return best;
+}
+
+// keep at most 4 of the nf clipped points (_reduce_manifold_cm): extreme along
+// a tangent, farthest from it, largest triangle, largest added area; returns
+// the count kept
+DF int reduce_manifold(const V3* verts, const float* depths, int nf, V3 normal,
+                       Manifold& o) {
+  if (nf <= 4) {
+    for (int k = 0; k < nf; ++k) { o.pt[k] = verts[k]; o.dp[k] = depths[k]; }
+    return nf;
+  }
+  float sc[32];
+  V3 search = get_tangent(normal);
+  for (int k = 0; k < nf; ++k) sc[k] = dot(verts[k], search);
+  int i0 = masked_best(sc, nf);
+  V3 p0 = verts[i0];
+  for (int k = 0; k < nf; ++k) sc[k] = sqlen(sub(verts[k], p0));
+  int i1 = masked_best(sc, nf);
+  V3 p1 = verts[i1];
+  for (int k = 0; k < nf; ++k)
+    sc[k] = 0.5f * dot(cross(sub(p0, verts[k]), sub(p1, verts[k])), normal);
+  int i2 = masked_best(sc, nf);
+  V3 p2 = verts[i2];
+  for (int k = 0; k < nf; ++k) {
+    V3 qa = sub(p0, verts[k]), qb = sub(p1, verts[k]), qc = sub(p2, verts[k]);
+    float a1 = 0.5f * dot(cross(qa, qb), normal);
+    float a2 = 0.5f * dot(cross(qb, qc), normal);
+    float a3 = 0.5f * dot(cross(qc, qa), normal);
+    sc[k] = fmaxf(fmaxf(a1, a2), a3);
+  }
+  int i3 = masked_best(sc, nf);
+  o.pt[0] = p0; o.dp[0] = depths[i0];
+  o.pt[1] = p1; o.dp[1] = depths[i1];
+  o.pt[2] = p2; o.dp[2] = depths[i2];
+  o.pt[3] = verts[i3]; o.dp[3] = depths[i3];
+  return 4;
 }
 
 DF void incident_edge_local(V3 h, V3 nl, V3& oa, V3& ob) {
@@ -566,7 +609,7 @@ DN void box_box(V3 ac, V3 ah, Q4 aq, V3 bc, V3 bh, Q4 bq, Manifold& o) {
   for (int p = 0; p < 4; ++p) {
     V3 nw = qrot(ref_q, plane_n[p]);
     V3 pw = add(qrot(ref_q, plane_p[p]), ref_c);
-    int no = clip_one_plane(vin, din, nn, nw, -dot(nw, pw), vout, dout);
+    int no = clip_one_plane(vin, din, nn, nw, -dot(nw, pw), vout, dout, 8);
     nn = no < 8 ? no : 8;
     V3* tv = vin; vin = vout; vout = tv;
     float* td = din; din = dout; dout = td;
@@ -580,43 +623,472 @@ DN void box_box(V3 ac, V3 ah, Q4 aq, V3 bc, V3 bh, Q4 bq, Manifold& o) {
       ++nf;
     }
   }
-  const V3* verts = vout;
-  const float* depths = dout;
-  int count = nf;
-  if (nf > 4) {
-    // keep 4: extreme along a tangent, farthest from it, largest triangle,
-    // largest added area
-    float sc[8];
-    V3 search = get_tangent(normal);
-    for (int k = 0; k < nf; ++k) sc[k] = dot(verts[k], search);
-    int i0 = masked_best(sc, nf);
-    V3 p0 = verts[i0];
-    for (int k = 0; k < nf; ++k) sc[k] = sqlen(sub(verts[k], p0));
-    int i1 = masked_best(sc, nf);
-    V3 p1 = verts[i1];
-    for (int k = 0; k < nf; ++k)
-      sc[k] = 0.5f * dot(cross(sub(p0, verts[k]), sub(p1, verts[k])), normal);
-    int i2 = masked_best(sc, nf);
-    V3 p2 = verts[i2];
-    for (int k = 0; k < nf; ++k) {
-      V3 qa = sub(p0, verts[k]), qb = sub(p1, verts[k]), qc = sub(p2, verts[k]);
-      float a1 = 0.5f * dot(cross(qa, qb), normal);
-      float a2 = 0.5f * dot(cross(qb, qc), normal);
-      float a3 = 0.5f * dot(cross(qc, qa), normal);
-      sc[k] = fmaxf(fmaxf(a1, a2), a3);
-    }
-    int i3 = masked_best(sc, nf);
-    o.pt[0] = p0; o.dp[0] = depths[i0];
-    o.pt[1] = p1; o.dp[1] = depths[i1];
-    o.pt[2] = p2; o.dp[2] = depths[i2];
-    o.pt[3] = verts[i3]; o.dp[3] = depths[i3];
-    count = 4;
-  } else {
-    for (int k = 0; k < nf; ++k) { o.pt[k] = verts[k]; o.dp[k] = depths[k]; }
-  }
+  int count = reduce_manifold(vout, dout, nf, normal, o);
   hit = hit && nf > 0;
   if (!hit) count = 0;
   o.mask = (1 << count) - 1;
+}
+
+// ---- hull recipes (ops/kernels/cm_hull.py, gjk_distance.py, cm_polytope.py) -----
+// Static hull data comes once per hull geometry from ftab, in one block per
+// hull (FusedTables, "hull block"), floats:
+//   vertices 3V | triangle planes 5F (normal, offset, mask) | merged-face
+//   normals 3FU | merged-face mask FU | loop points 3 FU LM | edge directions
+//   3EU | edge mask EU
+// (V, F, FU, LM, EU padded to the scene's largest hull, as the plain version
+// iterates them); merged-face loop lengths come from itab. One thread per pair
+// row; the recipes are out of line so the other recipes and the solve keep
+// their register allocation.
+
+constexpr float BIG = 3.4e38f;
+constexpr int VCAP = 32;     // hull vertices of one polytope side held per thread
+constexpr int SCAP = 32;     // clip slots 2 LM, LM <= 16
+
+struct HullDims { int V, F, FU, LM, EU; };
+
+DF int hb_planes(const HullDims& h) { return 3 * h.V; }
+DF int hb_pn(const HullDims& h) { return 3 * h.V + 5 * h.F; }
+DF int hb_pm(const HullDims& h) { return hb_pn(h) + 3 * h.FU; }
+DF int hb_loops(const HullDims& h) { return hb_pm(h) + h.FU; }
+DF int hb_ed(const HullDims& h) { return hb_loops(h) + 3 * h.FU * h.LM; }
+DF int hb_em(const HullDims& h) { return hb_ed(h) + 3 * h.EU; }
+DF int hb_size(const HullDims& h) { return hb_em(h) + h.EU; }
+
+// support over the hull's local vertices, first maximum wins
+DF V3 sup_verts(const float* hv, int V, V3 d) {
+  V3 best = ld3(hv);
+  float bs = dot(best, d);
+  for (int i = 1; i < V; ++i) {
+    V3 v = ld3(hv + 3 * i);
+    float s = dot(v, d);
+    if (s > bs) { bs = s; best = v; }
+  }
+  return best;
+}
+
+DF float nz30(float x) { return fabsf(x) > 1e-30f ? x : 1e-30f; }
+
+// closest point to the origin on triangle abc (Ericson 5.1.5, first region
+// wins); u, v, w are the barycentric weights. The plain version sums the
+// selected weight with zeros, hence the 0.0f + (which turns -0 into +0).
+DF void closest_pt_triangle(V3 a, V3 b, V3 c, V3& q, float& u, float& v, float& w) {
+  V3 z = mk(0.0f, 0.0f, 0.0f);
+  V3 ab = sub(b, a), ac = sub(c, a);
+  V3 ap = sub(z, a);
+  float d1 = dot(ab, ap), d2 = dot(ac, ap);
+  V3 bp = sub(z, b);
+  float d3 = dot(ab, bp), d4 = dot(ac, bp);
+  V3 cp = sub(z, c);
+  float d5 = dot(ab, cp), d6 = dot(ac, cp);
+  bool in_a = d1 <= 0.0f && d2 <= 0.0f;
+  bool in_b = d3 >= 0.0f && d4 <= d3;
+  float vc = d1 * d4 - d3 * d2;
+  bool on_ab = vc <= 0.0f && d1 >= 0.0f && d3 <= 0.0f;
+  bool in_c = d6 >= 0.0f && d5 <= d6;
+  float vb = d5 * d2 - d1 * d6;
+  bool on_ac = vb <= 0.0f && d2 >= 0.0f && d6 <= 0.0f;
+  float va = d3 * d6 - d5 * d4;
+  bool on_bc = va <= 0.0f && d4 - d3 >= 0.0f && d5 - d6 >= 0.0f;
+  float su, sv, sw;
+  if (in_a) { su = 1.0f; sv = 0.0f; sw = 0.0f; }
+  else if (in_b) { su = 0.0f; sv = 1.0f; sw = 0.0f; }
+  else if (on_ab) {
+    float t = d1 / nz30(d1 - d3);
+    su = 1.0f - t; sv = t; sw = 0.0f;
+  } else if (in_c) { su = 0.0f; sv = 0.0f; sw = 1.0f; }
+  else if (on_ac) {
+    float t = d2 / nz30(d2 - d6);
+    su = 1.0f - t; sv = 0.0f; sw = t;
+  } else if (on_bc) {
+    float t = (d4 - d3) / nz30((d4 - d3) + (d5 - d6));
+    su = 0.0f; sv = 1.0f - t; sw = t;
+  } else {
+    float denom = 1.0f / nz30(va + vb + vc);
+    float v_in = vb * denom, w_in = vc * denom;
+    su = 1.0f - v_in - w_in; sv = v_in; sw = w_in;
+  }
+  u = 0.0f + su; v = 0.0f + sv; w = 0.0f + sw;
+  q = add(add(muls(a, u), muls(b, v)), muls(c, w));
+}
+
+DF bool same_side(V3 p1, V3 p2, V3 p3, V3 p4) {
+  V3 n = cross(sub(p2, p1), sub(p3, p1));
+  float s4 = dot(n, sub(p4, p1));
+  float s0 = -dot(n, p1);
+  return s4 * s0 >= 0.0f;
+}
+
+// closest point to the origin on the simplex of the 4 slots; lam its weights
+DF void simplex_closest(const V3* ws, V3& q, float* lam) {
+  const int tri[4][3] = {{0, 1, 2}, {0, 1, 3}, {0, 2, 3}, {1, 2, 3}};
+  float best_d = BIG;
+  q = mk(0.0f, 0.0f, 0.0f);
+  for (int k = 0; k < 4; ++k) lam[k] = 0.0f;
+  for (int t = 0; t < 4; ++t) {
+    int i = tri[t][0], j = tri[t][1], k = tri[t][2];
+    V3 qq; float u, v, w;
+    closest_pt_triangle(ws[i], ws[j], ws[k], qq, u, v, w);
+    float d = sqlen(qq);
+    if (d < best_d) {
+      best_d = d; q = qq;
+      for (int m = 0; m < 4; ++m) lam[m] = 0.0f;
+      lam[i] = u; lam[j] = v; lam[k] = w;
+    }
+  }
+  float ext2 = fmaxf(fmaxf(sqlen(ws[0]), sqlen(ws[1])), fmaxf(sqlen(ws[2]), sqlen(ws[3])));
+  V3 a = ws[0], b = ws[1], c = ws[2], d = ws[3];
+  float vol = dot(cross(sub(b, a), sub(c, a)), sub(d, a));
+  bool nondeg = vol * vol > 1e-10f * ext2 * ext2 * ext2;
+  bool inside = nondeg && same_side(a, b, c, d) && same_side(a, b, d, c)
+                && same_side(a, c, d, b) && same_side(b, c, d, a);
+  if (inside) q = mk(0.0f, 0.0f, 0.0f);
+}
+
+// distance GJK, segment (ca, cb) vs the hull's local vertices
+// (gjk_distance.py, 24 iterations). Once a lane is done, the plain version's
+// later iterations change no slot and recompute the same closest point; only
+// ext2 keeps growing, and it feeds nothing but `done` and `overlap`, both
+// frozen by then. So the loop stops there with the same bits.
+DF void gjk_segment_hull(V3 ca, V3 cb, const float* hv, int V, float& dist, V3& qa,
+                         V3& qb, bool& overlap) {
+  V3 dir0 = mk(1.0f, 0.1f, -0.2f);
+  V3 pa0 = dot(dir0, ca) > dot(dir0, cb) ? ca : cb;
+  V3 pb0 = sup_verts(hv, V, neg(dir0));
+  V3 w0 = sub(pa0, pb0);
+  V3 was[4] = {pa0, pa0, pa0, pa0}, wbs[4] = {pb0, pb0, pb0, pb0}, ws[4] = {w0, w0, w0, w0};
+  bool valid[4] = {true, false, false, false};
+  V3 q = w0;
+  float lams[4] = {1.0f, 0.0f, 0.0f, 0.0f};
+  overlap = false;
+  bool done = false;
+  float ext2 = sqlen(w0);
+  for (int it = 0; it < 24; ++it) {
+    float d2q = sqlen(q);
+    bool deg = d2q <= 1e-12f * (ext2 + 1e-12f);
+    overlap = overlap || (!done && deg);
+    done = done || deg;
+    V3 nd = muls(q, -1.0f / sqrtf(fmaxf(d2q, 1e-30f)));
+    V3 pa = dot(nd, ca) > dot(nd, cb) ? ca : cb;
+    V3 pb = sup_verts(hv, V, neg(nd));
+    V3 w = sub(pa, pb);
+    ext2 = fmaxf(ext2, sqlen(w));
+    float prog = d2q - dot(q, w);
+    bool no_prog = prog <= 1e-6f * d2q + 1e-12f * ext2;
+    done = done || no_prog;
+    if (!done) {
+      float sc[4];
+      for (int i = 0; i < 4; ++i) sc[i] = valid[i] ? lams[i] : -1.0f;
+      bool m01 = sc[0] <= sc[1], m23 = sc[2] <= sc[3];
+      int i01 = m01 ? 0 : 1, i23 = m23 ? 2 : 3;
+      float s01 = m01 ? sc[0] : sc[1], s23 = m23 ? sc[2] : sc[3];
+      int repl = s01 <= s23 ? i01 : i23;
+      was[repl] = pa; wbs[repl] = pb; ws[repl] = w; valid[repl] = true;
+    }
+    simplex_closest(ws, q, lams);
+    if (done) break;
+  }
+  dist = sqrtf(fmaxf(sqlen(q), 0.0f));
+  overlap = overlap || dist <= 1e-9f;
+  qa = mk(0.0f, 0.0f, 0.0f);
+  qb = mk(0.0f, 0.0f, 0.0f);
+  for (int i = 0; i < 4; ++i) {
+    qa = add(qa, muls(was[i], lams[i]));
+    qb = add(qb, muls(wbs[i], lams[i]));
+  }
+}
+
+// face with the largest signed distance n.p + off (valid faces only)
+DF void face_mtv(V3 p, const float* planes, int F, float& best_sd, V3& best_n) {
+  best_sd = -BIG;
+  best_n = mk(0.0f, 1.0f, 0.0f);
+  for (int f = 0; f < F; ++f) {
+    const float* pl = planes + 5 * f;
+    V3 n = ld3(pl);
+    float sd = dot(n, p) + pl[3];
+    sd = pl[4] > 0.5f ? sd : -BIG;
+    if (sd > best_sd) { best_sd = sd; best_n = n; }
+  }
+}
+
+// capsule (segment aa-ab, radius r) vs hull at (hp, hq): one contact
+// (cm_hull.capsule_hull_core in the hull's frame, _narrow_native around it)
+DN void capsule_hull(V3 aa, V3 ab, float r, V3 hp, Q4 hq, const float* hb,
+                     const HullDims& hd, Manifold& o) {
+  V3 ca = qirot(hq, sub(aa, hp)), cb = qirot(hq, sub(ab, hp));
+  float dist; V3 qa, qb; bool overlap;
+  gjk_segment_hull(ca, cb, hb, hd.V, dist, qa, qb, overlap);
+  float inv_d = 1.0f / fmaxf(dist, 1e-30f);
+  V3 n_s = muls(sub(qb, qa), inv_d);
+  float depth_s = r - dist;
+  V3 normal, point;
+  float depth;
+  if (overlap) {
+    // the segment reaches into the hull: face-plane minimum translation of the
+    // deepest of 5 segment samples
+    float sd = 0.0f; V3 n_f = mk(0.0f, 0.0f, 0.0f), p_deep = n_f;
+    for (int s = 0; s < 5; ++s) {
+      float t = 0.25f * (float)s;
+      V3 p = add(muls(ca, 1.0f - t), muls(cb, t));
+      float sd_t; V3 n_t;
+      face_mtv(p, hb + hb_planes(hd), hd.F, sd_t, n_t);
+      if (s == 0 || sd_t < sd) { sd = sd_t; n_f = n_t; p_deep = p; }
+    }
+    normal = muls(n_f, -1.0f);
+    depth = r - sd;
+    point = add(p_deep, muls(n_f, -0.5f * sd));
+  } else {
+    normal = n_s;
+    depth = depth_s;
+    point = muls(add(add(qa, muls(n_s, r)), qb), 0.5f);
+  }
+  bool hit = overlap || depth_s >= 0.0f;
+  o.pt[0] = add(qrot(hq, point), hp);
+  o.dp[0] = depth;
+  o.n = qrot(hq, normal);
+  o.mask = hit ? 1 : 0;
+}
+
+// one side of a polytope pair: a box (8 corners, 6 faces, 3 edge directions)
+// or a hull from its block; world vertices are kept, face normals, loop
+// points and edge directions are rotated to world when used (the same
+// operations as the plain version's world lists, so the same bits)
+struct Poly {
+  bool box;
+  int nv, nf, ne, lm;      // vertices, faces, edge directions, points per stored loop
+  V3 c, h;                 // box: center, half extents; hull: position (h unused)
+  Q4 q;
+  const float* hb;         // hull block
+  const int* llen;         // hull loop lengths
+  HullDims hd;
+  V3 v[VCAP];
+};
+
+DF V3 box_axis(Q4 q, int i) {
+  return qrot(q, mk(i == 0 ? 1.0f : 0.0f, i == 1 ? 1.0f : 0.0f, i == 2 ? 1.0f : 0.0f));
+}
+
+DF void poly_box(Poly& P, V3 c, V3 h, Q4 q) {
+  P.box = true; P.nv = 8; P.nf = 6; P.ne = 3; P.lm = 4;
+  P.c = c; P.h = h; P.q = q;
+  int i = 0;
+  for (int sx = -1; sx <= 1; sx += 2)
+    for (int sy = -1; sy <= 1; sy += 2)
+      for (int sz = -1; sz <= 1; sz += 2)
+        P.v[i++] = add(qrot(q, mk((float)sx * h.x, (float)sy * h.y, (float)sz * h.z)), c);
+}
+
+DF void poly_hull(Poly& P, V3 p, Q4 q, const float* hb, const int* llen, const HullDims& hd) {
+  P.box = false; P.nv = hd.V; P.nf = hd.FU; P.ne = hd.EU; P.lm = hd.LM;
+  P.c = p; P.h = mk(0.0f, 0.0f, 0.0f); P.q = q; P.hb = hb; P.llen = llen; P.hd = hd;
+  for (int i = 0; i < hd.V; ++i) P.v[i] = add(qrot(q, ld3(hb + 3 * i)), p);
+}
+
+// faces 2i, 2i+1 of a box: +axis i, -axis i (cm_polytope.box_topology_world)
+DF V3 poly_face_n(const Poly& P, int f) {
+  if (f < 0) return mk(0.0f, 0.0f, 0.0f);
+  if (P.box) {
+    V3 ax = box_axis(P.q, f >> 1);
+    return (f & 1) ? neg(ax) : ax;
+  }
+  return qrot(P.q, ld3(P.hb + hb_pn(P.hd) + 3 * f));
+}
+DF bool poly_face_ok(const Poly& P, int f) {
+  return P.box || P.hb[hb_pm(P.hd) + f] > 0.5f;
+}
+DF int poly_loop_len(const Poly& P, int f) {
+  if (f < 0) return 0;
+  return P.box ? 4 : P.llen[f];
+}
+// point l of face f's loop, padded past the stored points with the last one
+DF V3 poly_loop_pt(const Poly& P, int f, int l) {
+  if (f < 0) return mk(0.0f, 0.0f, 0.0f);
+  int ll = l < P.lm ? l : P.lm - 1;
+  if (P.box) {
+    int i = f >> 1, j = (i + 1) % 3, k = (i + 2) % 3;
+    bool pos = !(f & 1);
+    const float sj_p[4] = {1.0f, 1.0f, -1.0f, -1.0f}, sk_p[4] = {-1.0f, 1.0f, 1.0f, -1.0f};
+    const float sj_n[4] = {-1.0f, -1.0f, 1.0f, 1.0f}, sk_n[4] = {-1.0f, 1.0f, 1.0f, -1.0f};
+    float s[3];
+    s[i] = pos ? 1.0f : -1.0f;
+    s[j] = pos ? sj_p[ll] : sj_n[ll];
+    s[k] = pos ? sk_p[ll] : sk_n[ll];
+    return add(qrot(P.q, mk(s[0] * P.h.x, s[1] * P.h.y, s[2] * P.h.z)), P.c);
+  }
+  return add(qrot(P.q, ld3(P.hb + hb_loops(P.hd) + 3 * (f * P.lm + ll))), P.c);
+}
+DF V3 poly_edge(const Poly& P, int e) {
+  if (P.box) return box_axis(P.q, e);
+  return qrot(P.q, ld3(P.hb + hb_ed(P.hd) + 3 * e));
+}
+DF bool poly_edge_ok(const Poly& P, int e) {
+  return P.box || P.hb[hb_em(P.hd) + e] > 0.5f;
+}
+
+// first-min-wins step within the relative SAT_TIE_TOL margin
+DF bool sat_better(float ov, float best) {
+  float margin = SAT_TIE_TOL * (fabsf(best) + fabsf(ov)) + 1e-9f;
+  return ov < best - margin;
+}
+
+// best face axis of side S against side O: overlap max_S(n) - min_O(n)
+DF void face_scan(const Poly& S, const Poly& O, float& best, int& bf, bool& sep) {
+  best = BIG; bf = -1; sep = false;
+  for (int f = 0; f < S.nf; ++f) {
+    V3 n = poly_face_n(S, f);
+    bool ok = poly_face_ok(S, f);
+    float mx = dot(S.v[0], n);
+    for (int i = 1; i < S.nv; ++i) mx = fmaxf(mx, dot(S.v[i], n));
+    float mn = dot(O.v[0], n);
+    for (int i = 1; i < O.nv; ++i) mn = fminf(mn, dot(O.v[i], n));
+    float ov = mx - mn;
+    sep = sep || (ok && ov < 0.0f);
+    ov = ok ? ov : BIG;
+    if (sat_better(ov, best)) { best = ov; bf = f; }
+  }
+}
+
+DF V3 centroid(const Poly& P) {
+  float inv = 1.0f / (float)P.nv;
+  V3 c = P.v[0];
+  for (int i = 1; i < P.nv; ++i) c = add(c, P.v[i]);
+  return muls(c, inv);
+}
+
+DF V3 support(const Poly& P, V3 n) {
+  V3 best = P.v[0];
+  float bs = dot(best, n);
+  for (int i = 1; i < P.nv; ++i) {
+    float s = dot(P.v[i], n);
+    if (s > bs) { bs = s; best = P.v[i]; }
+  }
+  return best;
+}
+
+// exact SAT + reference-face clip (cm_polytope.polytope_polytope_core); loops
+// of both sides padded to LM, clip on S = 2 LM slots
+DN void polytope(const Poly& A, const Poly& B, int LM, Manifold& o) {
+  V3 ca = centroid(A), cb = centroid(B);
+  float ov_a, ov_b; int fa, fb; bool sep_a, sep_b;
+  face_scan(A, B, ov_a, fa, sep_a);
+  face_scan(B, A, ov_b, fb, sep_b);
+  // edge pairs, oriented A -> B by the centroids
+  float ov_e = BIG; bool sep_e = false;
+  V3 ax_e = mk(0.0f, 0.0f, 0.0f), da_e = ax_e, db_e = ax_e;
+  V3 cab = sub(cb, ca);
+  for (int ea = 0; ea < A.ne; ++ea) {
+    V3 da = poly_edge(A, ea);
+    bool va = poly_edge_ok(A, ea);
+    for (int eb = 0; eb < B.ne; ++eb) {
+      V3 db = poly_edge(B, eb);
+      bool vb = poly_edge_ok(B, eb);
+      V3 ax = cross(da, db);
+      float l2 = sqlen(ax);
+      bool ok = va && vb && l2 > 1e-10f;
+      V3 axn = muls(ax, 1.0f / sqrtf(fmaxf(l2, 1e-30f)));
+      axn = muls(axn, dot(axn, cab) < 0.0f ? -1.0f : 1.0f);
+      float mxa = dot(A.v[0], axn);
+      for (int i = 1; i < A.nv; ++i) mxa = fmaxf(mxa, dot(A.v[i], axn));
+      float mnb = dot(B.v[0], axn);
+      for (int i = 1; i < B.nv; ++i) mnb = fminf(mnb, dot(B.v[i], axn));
+      float ov = mxa - mnb;
+      sep_e = sep_e || (ok && ov < 0.0f);
+      ov = ok ? ov : BIG;
+      if (sat_better(ov, ov_e)) { ov_e = ov; ax_e = axn; da_e = da; db_e = db; }
+    }
+  }
+  bool hit = !(sep_a || sep_b || sep_e);
+
+  // winner: faces of A, then faces of B, then edges; earlier wins ties
+  float best_ov = ov_a;
+  int which = 0;
+  if (sat_better(ov_b, best_ov)) { best_ov = ov_b; which = 1; }
+  if (sat_better(ov_e, best_ov)) { best_ov = ov_e; which = 2; }
+  V3 n_a = poly_face_n(A, fa), n_b = poly_face_n(B, fb);
+  V3 normal = which == 0 ? n_a : (which == 1 ? neg(n_b) : ax_e);
+  o.n = normal;
+
+  if (which == 2) {
+    // closest point between the lines through the supports along the axis
+    V3 a_sup = support(A, ax_e), b_sup = support(B, neg(ax_e));
+    V3 r = sub(b_sup, a_sup);
+    float a11 = sqlen(da_e), a22 = sqlen(db_e), a12 = -dot(da_e, db_e);
+    float b1 = dot(da_e, r), b2 = -dot(db_e, r);
+    float det = a11 * a22 - a12 * a12;
+    bool ok = det > 1e-12f;
+    float inv = 1.0f / (ok ? det : 1.0f);
+    float s = ok ? (b1 * a22 - b2 * a12) * inv : 0.0f;
+    float t = ok ? (a11 * b2 - a12 * b1) * inv : 0.0f;
+    V3 pa = add(a_sup, muls(da_e, s)), pb = add(b_sup, muls(db_e, t));
+    o.pt[0] = muls(add(pa, pb), 0.5f);
+    o.dp[0] = best_ov;
+    o.mask = hit ? 1 : 0;
+    return;
+  }
+
+  // face case: clip the incident face's loop against the reference loop
+  bool face_b = which == 1;
+  const Poly& R = face_b ? B : A;
+  const Poly& I = face_b ? A : B;
+  int rf = face_b ? fb : fa;
+  V3 ref_n = face_b ? n_b : n_a;
+  int ref_len = poly_loop_len(R, rf);
+  float bs = -BIG;
+  int bi = -1;
+  for (int f = 0; f < I.nf; ++f) {
+    float sc = poly_face_ok(I, f) ? -dot(poly_face_n(I, f), ref_n) : -BIG;
+    if (sc > bs) { bs = sc; bi = f; }
+  }
+  V3 ref0 = poly_loop_pt(R, rf, 0);
+  float rp_d = -dot(ref_n, ref0);
+  const int S = 2 * LM;
+  V3 va[SCAP], vb[SCAP];
+  float da[SCAP], db[SCAP];
+  for (int l = 0; l < LM; ++l) {
+    va[l] = poly_loop_pt(I, bi, l);
+    da[l] = -(dot(va[l], ref_n) + rp_d);
+  }
+  int nn = poly_loop_len(I, bi);
+  V3 *vin = va, *vout = vb;
+  float *din = da, *dout = db;
+  for (int i = 0; i < LM && i < ref_len; ++i) {
+    V3 start = poly_loop_pt(R, rf, i);
+    V3 end = i == ref_len - 1 ? ref0 : poly_loop_pt(R, rf, (i + 1) % LM);
+    V3 side_n = cross(ref_n, sub(end, start));
+    int no = clip_one_plane(vin, din, nn, side_n, -dot(side_n, start), vout, dout, S);
+    nn = no < S ? no : S;
+    V3* tv = vin; vin = vout; vout = tv;
+    float* td = din; din = dout; dout = td;
+  }
+  // drop depth < 0, project onto the reference plane, compact
+  int nf = 0;
+  for (int k = 0; k < nn; ++k) {
+    if (din[k] >= 0.0f) {
+      vout[nf] = add(vin[k], muls(ref_n, din[k]));
+      dout[nf] = din[k];
+      ++nf;
+    }
+  }
+  int count = reduce_manifold(vout, dout, nf, normal, o);
+  hit = hit && nf > 0;
+  if (!hit) count = 0;
+  o.mask = (1 << count) - 1;
+}
+
+// box (side a) vs hull (side b); loops padded to max(4, LM of the hulls)
+DN void box_hull(V3 bc, V3 bh, Q4 bq, V3 hp, Q4 hq, const float* hb, const int* llen,
+                 const HullDims& hd, Manifold& o) {
+  Poly A, B;
+  poly_box(A, bc, bh, bq);
+  poly_hull(B, hp, hq, hb, llen, hd);
+  polytope(A, B, hd.LM > 4 ? hd.LM : 4, o);
+}
+
+DN void hull_hull(V3 pa, Q4 qa, const float* hba, const int* lla, V3 pb, Q4 qb,
+                  const float* hbb, const int* llb, const HullDims& hd, Manifold& o) {
+  Poly A, B;
+  poly_hull(A, pa, qa, hba, lla, hd);
+  poly_hull(B, pb, qb, hbb, llb, hd);
+  polytope(A, B, hd.LM, o);
 }
 
 // ---- contact prep (fused_step.py::_prep_points) -----------------------------
@@ -1369,6 +1841,9 @@ struct Dims {
   int io[5];    // itab: rows, phase_rows, con_ptr, con_idx, jab
   int fo[3];    // ftab: col_r, row fric/rest, joint static
   JointDesc jd[NJT];   // in JOINT_ORDER
+  int hull_col, hull_llen, hull_base;   // itab: collider -> hull id, loop lengths;
+                                        // ftab: first hull block
+  HullDims hd;                          // padded hull counts (0 without hulls)
 };
 
 // prep of joint j of type T (all joint bodies' data staged in shared memory)
@@ -1429,7 +1904,13 @@ DF void joint_pass(const JointDesc& d, bool joint_warp, int lane, const int* jab
 
 }  // namespace
 
-__global__ void fused_step_kernel(
+// At most 256 threads (224 row threads + the joint warp) and at least two
+// blocks per SM: caps the kernel at 128 registers. The register count is one
+// number for the whole call graph, so without the cap the out-of-line hull
+// recipes (163 registers) would set it for every scene and leave one
+// 224-thread block per SM where two fit (the constraint zoo's kernel took
+// 1.8x as long).
+__global__ void __launch_bounds__(256, 2) fused_step_kernel(
     Dims D, float omega, float inv_dt,
     const float* __restrict__ g_v, const float* __restrict__ g_w,
     const float* __restrict__ g_inv_mass, const float* __restrict__ g_inv_inertia,
@@ -1451,6 +1932,8 @@ __global__ void fused_step_kernel(
   const int* con_ptr = itab + D.io[2];
   const int* con_idx = itab + D.io[3];
   const int* jab = itab + D.io[4];
+  const int* hull_id = itab + D.hull_col;
+  const int* hull_llen = itab + D.hull_llen;
   const float* col_r = ftab + D.fo[0];
   const float* rows_f = ftab + D.fo[1];
   const float* jstat = ftab + D.fo[2];
@@ -1512,12 +1995,32 @@ __global__ void fused_step_kernel(
       const float* Bc = col + 10 * cb;
       Manifold mf;
       mf.mask = 0;
-      if (type == 0)
-        capsule_capsule(ld3(A), ld3(A + 3), col_r[ca], ld3(Bc), ld3(Bc + 3), col_r[cb], mf);
-      else if (type == 1)
-        capsule_box(ld3(A), ld3(A + 3), col_r[ca], ld3(Bc), ld3(Bc + 3), ld4(Bc + 6), mf);
-      else
-        box_box(ld3(A), ld3(A + 3), ld4(A + 6), ld3(Bc), ld3(Bc + 3), ld4(Bc + 6), mf);
+      // the recipe of the row's shape pair (fused_step.CM_RECIPES)
+      switch (type) {
+        case 0:
+          capsule_capsule(ld3(A), ld3(A + 3), col_r[ca], ld3(Bc), ld3(Bc + 3), col_r[cb], mf);
+          break;
+        case 1:
+          capsule_box(ld3(A), ld3(A + 3), col_r[ca], ld3(Bc), ld3(Bc + 3), ld4(Bc + 6), mf);
+          break;
+        case 2:
+          box_box(ld3(A), ld3(A + 3), ld4(A + 6), ld3(Bc), ld3(Bc + 3), ld4(Bc + 6), mf);
+          break;
+        case 3:
+          capsule_hull(ld3(A), ld3(A + 3), col_r[ca], ld3(Bc), ld4(Bc + 6),
+                       ftab + D.hull_base + hb_size(D.hd) * hull_id[cb], D.hd, mf);
+          break;
+        case 4:
+          box_hull(ld3(A), ld3(A + 3), ld4(A + 6), ld3(Bc), ld4(Bc + 6),
+                   ftab + D.hull_base + hb_size(D.hd) * hull_id[cb],
+                   hull_llen + D.hd.FU * hull_id[cb], D.hd, mf);
+          break;
+        default:
+          hull_hull(ld3(A), ld4(A + 6), ftab + D.hull_base + hb_size(D.hd) * hull_id[ca],
+                    hull_llen + D.hd.FU * hull_id[ca], ld3(Bc), ld4(Bc + 6),
+                    ftab + D.hull_base + hb_size(D.hd) * hull_id[cb],
+                    hull_llen + D.hd.FU * hull_id[cb], D.hd, mf);
+      }
       rmask[r] = mf.mask;
       o_live[(size_t)env * P + r] = (unsigned char)mf.mask;
       float fric = rows_f[2 * r], rest = rows_f[2 * r + 1];
@@ -1624,6 +2127,9 @@ extern "C" int dxk_fused_step_launch(
     d.n = q[0]; d.row = q[1]; d.acc = q[2]; d.ctl = q[3];
     d.base = q[4]; d.ptr = q[5]; d.idx = q[6]; d.idg = q[7];
   }
+  const int* h = dims + 16 + 8 * NJT;
+  D.hull_col = h[0]; D.hull_llen = h[1]; D.hull_base = h[2];
+  D.hd.V = h[3]; D.hd.F = h[4]; D.hd.FU = h[5]; D.hd.LM = h[6]; D.hd.EU = h[7];
   if (D.B <= 0) return 0;
   cudaError_t err = cudaFuncSetAttribute(
       fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);

@@ -38,11 +38,12 @@ version.
 Solve semantics = the JAX package's averaged ("jacobi") mode; see
 batched_solver.py.
 
-Ported so far: capsule-capsule, capsule-box and box-box pair groups, all six
-joint types (distance, ball, fixed, hinge, cone-twist, slider), one contact
-phase or several, joint prep in the kernel. Other recipes, the sequential
-(``fused_seq``) mode and prep-passed groups (heightfield) raise
-NotImplementedError.
+Ported so far: capsule-capsule, capsule-box, box-box, capsule-hull
+(distance GJK, cm_hull.py), box-hull and hull-hull (polytope SAT + clip,
+cm_polytope.py) pair groups, all six joint types (distance, ball, fixed,
+hinge, cone-twist, slider), one contact phase or several, joint prep in
+the kernel. Other recipes, the sequential (``fused_seq``) mode and
+prep-passed groups (heightfield) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -55,7 +56,9 @@ import numpy as np
 import torch
 
 from dxk_tpu_torch.ops.kernels import build
+from dxk_tpu_torch.ops.kernels import cm_hull as ch
 from dxk_tpu_torch.ops.kernels import cm_narrowphase as cm
+from dxk_tpu_torch.ops.kernels import cm_polytope as cp
 from dxk_tpu_torch.ops.kernels.batched_solver import (
     JOINT_ORDER, JOINT_SPECS, TYPE_MAX_POINTS, _contact_point,
     _solve_joint_type, _sub, phase_partition, scene_joint_ab,
@@ -67,9 +70,15 @@ from dxk_tpu_torch.ops.kernels.cm_joint_prep import (CTL_FIELDS, ROW_BUILDERS,
 
 # shape-type pairs with a recipe in both the plain version and the kernel,
 # and the recipe id the kernel switches on
-CM_RECIPES = {(1, 1): 0, (1, 3): 1, (3, 3): 2}
-_RECIPE_NAMES = {(1, 1): "capsule-capsule", (1, 3): "capsule-box",
-                 (3, 3): "box-box"}
+CM_RECIPES = {(1, 1): 0, (1, 3): 1, (3, 3): 2, (1, 4): 3, (3, 4): 4,
+              (4, 4): 5}
+RECIPE_NAMES = {0: "capsule_capsule", 1: "capsule_box", 2: "box_box",
+                3: "capsule_hull", 4: "box_hull", 5: "hull_hull"}
+HULL_RECIPES = {(1, 4), (3, 4), (4, 4)}
+# largest padded hull the kernel's polytope recipes hold per thread: world
+# vertices of each side, and clip slots 2 * LM (csrc/fused_step.cu)
+MAX_HULL_VERTS = 32
+MAX_HULL_LOOP = 16
 
 # floats one contact point keeps in the kernel's shared memory: 8 vec3
 # fields + eff_n, eff_t, bias, friction + the two accumulated impulses
@@ -106,6 +115,7 @@ def _group_static(scene):
     body_of = scene.colliders.body.cpu().numpy()
     fric = scene.colliders.friction.cpu().numpy()
     rest = scene.colliders.restitution.cpu().numpy()
+    hull_id = scene.colliders.hull_id.cpu().numpy().astype(np.int64)
     out = []
     for gi in sorted(range(len(scene.pair_groups)),
                      key=lambda i: scene.pair_groups[i].phase):
@@ -121,6 +131,7 @@ def _group_static(scene):
         pf = np.clip(np.sqrt(fric[ca] * fric[cb2]), 0.0, 1.0)
         pr = np.clip(np.maximum(rest[ca], rest[cb2]), 0.0, 1.0)
         out.append(dict(
+            hull_a=hull_id[ca], hull_b=hull_id[cb2],
             pg=pairs.shape[0], k=TYPE_MAX_POINTS[key], ta=ta, tb=tb, key=key,
             col_a=ca.astype(np.int64), col_b=cb2.astype(np.int64),
             body_a=body_of[ca].astype(np.int64),
@@ -160,6 +171,17 @@ class _Group:
     body_b: torch.Tensor
     fric: torch.Tensor
     rest: torch.Tensor
+    hull_a: dict = None       # per-row hull-local tables of side a / b
+    hull_b: dict = None
+
+
+def _hull_rows(h, hid):
+    """The hull-local tables of each row's hull, (Pg, ...) tensors."""
+    return dict(verts=h.vertices[hid], fn=h.face_normals[hid],
+                fo=h.face_offsets[hid], fm=h.face_mask[hid],
+                pn=h.poly_normals[hid], pm=h.poly_mask[hid],
+                loops=h.loop_pts[hid], llen=h.loop_len[hid],
+                ed=h.edge_dirs[hid], em=h.edge_mask[hid])
 
 
 class FusedTables:
@@ -179,9 +201,16 @@ class FusedTables:
         def t(x):
             return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
-        self.groups: List[_Group] = [
-            _Group(m, t(m["col_a"]), t(m["col_b"]), t(m["body_a"]),
-                   t(m["body_b"]), t(m["fric"]), t(m["rest"])) for m in metas]
+        hulls = scene.hulls.to(dev) if scene.hulls is not None else None
+        self.groups: List[_Group] = []
+        for m in metas:
+            g = _Group(m, t(m["col_a"]), t(m["col_b"]), t(m["body_a"]),
+                       t(m["body_b"]), t(m["fric"]), t(m["rest"]))
+            if m["key"] in HULL_RECIPES:
+                g.hull_b = _hull_rows(hulls, t(m["hull_b"]))
+                if m["key"] == (4, 4):
+                    g.hull_a = _hull_rows(hulls, t(m["hull_a"]))
+            self.groups.append(g)
         self.phase_groups = phase_partition([m["phase"] for m in metas])
         self.num_rows = sum(m["pg"] for m in metas)
         self.col_r = scene.colliders.r.to(dev).float().contiguous()
@@ -293,10 +322,45 @@ class FusedTables:
         self.joint_acc_floats = acc_off
         self.ioffs = np.cumsum([0] + [len(x) for x in itabs[:5]])[:-1].tolist()
         self.foffs = np.cumsum([0] + [len(x) for x in ftabs[:3]])[:-1].tolist()
+
+        # ---- hulls: each hull geometry's local tables once, in one block
+        # per hull (csrc/fused_step.cu, "hull block"), the collider ->
+        # hull id map and the merged faces' loop lengths
+        self.hull_dims = (0, 0, 0, 0, 0)                 # V, F, FU, LM, EU
+        hull_offs = [0, 0, 0]
+        if scene.hulls is not None:
+            h = {k: getattr(scene.hulls, k).cpu().numpy() for k in (
+                "vertices", "face_normals", "face_offsets", "face_mask",
+                "poly_normals", "poly_mask", "loop_pts", "loop_len",
+                "edge_dirs", "edge_mask")}
+            H, V = h["vertices"].shape[:2]
+            F, FU = h["face_normals"].shape[1], h["poly_normals"].shape[1]
+            LM, EU = h["loop_pts"].shape[2], h["edge_dirs"].shape[1]
+            self.hull_dims = (V, F, FU, LM, EU)
+            planes = np.concatenate(
+                [h["face_normals"], h["face_offsets"][..., None],
+                 h["face_mask"][..., None]], axis=2)
+            block = np.concatenate([
+                x.reshape(H, -1).astype(np.float32) for x in (
+                    h["vertices"], planes, h["poly_normals"], h["poly_mask"],
+                    h["loop_pts"], h["edge_dirs"], h["edge_mask"])], axis=1)
+            hull_offs = [ilen, ilen + self.num_colliders, flen]
+            itabs += [scene.colliders.hull_id.cpu().numpy(),
+                      h["loop_len"].reshape(-1)]
+            ftabs.append(block.reshape(-1))
+        self.hull_offs = hull_offs
         self.itab = t(np.concatenate(itabs).astype(np.int32))
         self.ftab = t(np.concatenate(ftabs).astype(np.float32))
 
     # -- launch geometry -------------------------------------------------
+
+    def dims(self, batch, num_iterations):
+        """The int launch parameters of the kernel, in the order
+        dxk_fused_step_launch reads them."""
+        return ([batch, self.num_bodies, self.num_colliders, self.num_rows,
+                 self.num_phases, self.ctl_rows + 1, self.num_points,
+                 int(num_iterations)] + self.ioffs + self.foffs
+                + self.joint_desc + self.hull_offs + list(self.hull_dims))
 
     def threads(self) -> int:
         """Block size: one thread per pair row (rounded up to a warp, at
@@ -325,18 +389,67 @@ def _lanes(x, n):
     return tuple(x[..., i] for i in range(n))
 
 
-def _narrow_native(meta, pa, pb):
+def _v3_rows(x):
+    """(Pg, n, 3) static rows -> list of n v3 tuples of (Pg,) lanes."""
+    return [tuple(x[:, i, c] for c in range(3)) for i in range(x.shape[1])]
+
+
+def _hull_local(h):
+    """A hull side's local lists for the recipes: vertices, triangle
+    planes and their validity (the distance-GJK recipes), and the merged
+    faces, loops, loop lengths and edge directions (the SAT recipes)."""
+    planes = list(zip(_v3_rows(h["fn"]),
+                      [h["fo"][:, f] for f in range(h["fo"].shape[1])]))
+    pvalid = [h["fm"][:, f] for f in range(h["fm"].shape[1])]
+    faces = list(zip(_v3_rows(h["pn"]),
+                     [h["pm"][:, f] for f in range(h["pm"].shape[1])]))
+    loops = [_v3_rows(h["loops"][:, f]) for f in range(h["loops"].shape[1])]
+    llens = [h["llen"][:, f] for f in range(h["llen"].shape[1])]
+    edges = list(zip(_v3_rows(h["ed"]),
+                     [h["em"][:, e] for e in range(h["em"].shape[1])]))
+    return _v3_rows(h["verts"]), planes, pvalid, faces, loops, llens, edges
+
+
+def _hull_world(h, pos, quat, LM):
+    """World-space polytope lists of a hull side, loops padded to LM by
+    repeating their last point."""
+    verts, _pl, _pv, faces, loops, llens, edges = _hull_local(h)
+    loops = [tuple(lp) + (lp[-1],) * (LM - len(lp)) for lp in loops]
+    return cp.hull_topology_world(pos, quat, verts, faces, loops, llens,
+                                  edges)
+
+
+def _narrow_native(group, pa, pb, stats=None):
     """Dispatch a contact recipe. pa/pb: (a3, b3, r, q4) per side, side a
-    the lower shape type. Returns (pts[K] v3, dps[K], normal, mask[K])."""
+    the lower shape type. Returns (pts[K] v3, dps[K], normal, mask[K]).
+    `stats` (a dict or None) collects the hull recipes' branch data."""
     a3, b3a, ra, qa = pa
     a3b, b3b, rb, qb = pb
-    key = meta["key"]
+    key = group.meta["key"]
     if key == (1, 1):
         return cm.capsule_capsule_cm(a3, b3a, ra, a3b, b3b, rb)
     if key == (1, 3):
         return cm.capsule_box_cm(a3, b3a, ra, a3b, b3b, qb)
     if key == (3, 3):
         return cm.box_box_cm(a3, b3a, qa, a3b, b3b, qb)
+    if key == (1, 4):
+        # hull-local frame (hull = side b: position a3b, rotation qb)
+        verts, planes, pvalid = _hull_local(group.hull_b)[:3]
+
+        def to_local(p):
+            return cm.quat_inv_rotate_cm(qb, cm._sub(p, a3b))
+        pt, dp, nrm, hit = ch.capsule_hull_core(
+            to_local(a3), to_local(b3a), ra, verts, planes, pvalid, stats)
+        return ([cm._add(cm.quat_rotate_cm(qb, pt), a3b)], [dp],
+                cm.quat_rotate_cm(qb, nrm), [hit])
+    if key == (3, 4):
+        LM = max(4, group.hull_b["loops"].shape[2])
+        hwb = _hull_world(group.hull_b, a3b, qb, LM)
+        return cp.box_hull_cm(a3, b3a, qa, hwb, LM, stats)
+    if key == (4, 4):
+        LM = group.hull_b["loops"].shape[2]
+        return cp.hull_hull_cm(_hull_world(group.hull_a, a3, qa, LM),
+                               _hull_world(group.hull_b, a3b, qb, LM), stats)
     raise NotImplementedError(f"no contact recipe for {key}")
 
 
@@ -431,6 +544,44 @@ def _joint_rows(tab, jt, rot, pos_cog, inv_inertia, inv_mass, ctl, inv_dt):
     return [r.expand(shape) for r in rows]
 
 
+def _side(tab, cols, col_a, col_b, col_rot):
+    """One side's recipe params (a3, b3, r, q4) of a group's rows."""
+    return (_lanes(col_a[:, cols], 3), _lanes(col_b[:, cols], 3),
+            tab.col_r[cols], _lanes(col_rot[:, cols], 4))
+
+
+def hull_branches(tab: FusedTables, col_a, col_b, col_rot):
+    """Which branch each hull recipe takes on these world collider params,
+    from the plain version, per recipe: live rows by branch (capsule-hull:
+    the distance GJK's shallow "separated" or deep "overlap" case; box-hull
+    and hull-hull: the SAT winner "face_a", "face_b" or "edge") and, for
+    capsule-hull, the GJK iterations of all rows (what the kernel runs)."""
+    out = {}
+    for grp in tab.groups:
+        key = grp.meta["key"]
+        if key not in HULL_RECIPES:
+            continue
+        stats = {}
+        _pts, _dps, _n, masks = _narrow_native(
+            grp, _side(tab, grp.col_a, col_a, col_b, col_rot),
+            _side(tab, grp.col_b, col_a, col_b, col_rot), stats)
+        live = masks[0].expand(col_a.shape[0], grp.meta["pg"])
+        name = RECIPE_NAMES[CM_RECIPES[key]]
+        acc = out.setdefault(name, {})
+        if key == (1, 4):
+            ov = stats["overlap"]
+            cnt = {"separated": live & ~ov, "overlap": live & ov}
+            acc["gjk_iterations"] = acc.get("gjk_iterations", 0) + int(
+                stats["iterations"].sum())
+        else:
+            w = stats["which"]
+            cnt = {"face_a": live & (w == 0), "face_b": live & (w == 1),
+                   "edge": live & (w == 2)}
+        for k, m in cnt.items():
+            acc[k] = acc.get(k, 0) + int(m.sum())
+    return out
+
+
 def _fused_core(tab: FusedTables, num_iterations, omega, inv_dt,
                 vw0, inv_mass, inv_inertia, pos_cog, rot, ctl,
                 col_a, col_b, col_rot):
@@ -454,11 +605,9 @@ def _fused_core(tab: FusedTables, num_iterations, omega, inv_dt,
     # ---- narrowphase + prep per group -----------------------------------
     group_fields, group_live = [], []
     for grp in tab.groups:
-        def side(cols):
-            return (_lanes(col_a[:, cols], 3), _lanes(col_b[:, cols], 3),
-                    tab.col_r[cols], _lanes(col_rot[:, cols], 4))
         pts, dps, normal, masks = _narrow_native(
-            grp.meta, side(grp.col_a), side(grp.col_b))
+            grp, _side(tab, grp.col_a, col_a, col_b, col_rot),
+            _side(tab, grp.col_b, col_a, col_b, col_rot))
         shape = (B, grp.meta["pg"])
         masks = [m.expand(shape) for m in masks]
         fields, inv_ma, inv_mb = _prep_points(
@@ -564,11 +713,13 @@ def load_library(verbose: bool = False):
     if _LIB is not None:
         return _LIB
     rows = tuple(JOINT_SPECS[n][0] for n in JOINT_ORDER)
-    if (rows, STATIC_WIDTH, POINT_FIELDS, ROW_INTS, DESC_INTS) != (
-            (17, 18, 30, 46, 59, 58), 31, 30, 8, 8):
+    if (rows, STATIC_WIDTH, POINT_FIELDS, ROW_INTS, DESC_INTS,
+            MAX_HULL_VERTS, MAX_HULL_LOOP) != (
+            (17, 18, 30, 46, 59, 58), 31, 30, 8, 8, 32, 16):
         raise RuntimeError("row layouts changed: csrc/fused_step.cu hard-"
                            "codes the joint row widths, STATIC_WIDTH, "
-                           "POINT_FIELDS, ROW_INTS and DESC_INTS")
+                           "POINT_FIELDS, ROW_INTS, DESC_INTS and the hull "
+                           "caps (VCAP, SCAP = 2 * MAX_HULL_LOOP)")
     lib, BUILD_LOG = build.compile_library("fused_step.cu", NVCC_FLAGS,
                                            verbose)
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -588,6 +739,13 @@ def _launch(tab: FusedTables, num_iterations, omega, inv_dt, v, w, inv_mass,
     """Check the inputs, allocate the outputs, launch the kernel on the
     current stream. No synchronisation."""
     global _LAUNCHES
+    V, _F, _FU, LM, _EU = tab.hull_dims
+    if any(m["key"] in HULL_RECIPES for m in tab.metas) and (
+            V > MAX_HULL_VERTS or LM > MAX_HULL_LOOP):
+        raise NotImplementedError(
+            f"fused_step: hulls of {V} vertices and {LM} points per face "
+            f"loop; the kernel holds at most {MAX_HULL_VERTS} and "
+            f"{MAX_HULL_LOOP}")
     lib = load_library()
     B, nb, C = v.shape[0], tab.num_bodies, tab.num_colliders
     P, R1 = tab.num_rows, tab.ctl_rows + 1
@@ -615,8 +773,7 @@ def _launch(tab: FusedTables, num_iterations, omega, inv_dt, v, w, inv_mass,
     w_out = torch.empty_like(w)
     imp = torch.empty((B, P, 4), dtype=torch.float32, device=v.device)
     live = torch.empty((B, P), dtype=torch.uint8, device=v.device)
-    dims = ([B, nb, C, P, tab.num_phases, R1, tab.num_points,
-             int(num_iterations)] + tab.ioffs + tab.foffs + tab.joint_desc)
+    dims = tab.dims(B, num_iterations)
     dims_c = (ctypes.c_int * len(dims))(*dims)
     build.raise_on_error("fused_step", lib.dxk_fused_step_launch(
         dims_c, float(omega), float(inv_dt),

@@ -54,8 +54,6 @@ def world_colliders(scene: Scene, pos, rot) -> WorldColliders:
 
 def collider_aabbs(scene: Scene, w: WorldColliders):
     """Per-collider world AABBs. Returns (min (B, C, 3), max (B, C, 3))."""
-    if scene.hulls is not None:
-        raise NotImplementedError("hull collider AABBs are not ported yet")
     r = w.r[:, None]
 
     sph_min = w.a - r
@@ -75,13 +73,25 @@ def collider_aabbs(scene: Scene, w: WorldColliders):
     box_min = w.a - ext
     box_max = w.a + ext
 
+    # hull: the rotated padded vertices, masked min/max
+    if scene.hulls is not None:
+        hid = w.hull_id.long()
+        verts = scene.hulls.vertices[hid]                # (C, V, 3)
+        mask = scene.hulls.vertex_mask[hid][..., None]   # (C, V, 1)
+        vw = quat_rotate(w.rot[:, :, None], verts) + w.a[:, :, None]
+        big = 3.4e38
+        hull_min = torch.amin(torch.where(mask, vw, big), dim=2)
+        hull_max = torch.amax(torch.where(mask, vw, -big), dim=2)
+    else:
+        hull_min, hull_max = sph_min, sph_max
+
     t = w.ctype[:, None]
     mn = torch.where(t == SHAPE_SPHERE, sph_min,
          torch.where(t == SHAPE_CAPSULE, cap_min,
          torch.where(t == SHAPE_CYLINDER, cyl_min,
-         torch.where(t == SHAPE_BOX, box_min, sph_min))))
+         torch.where(t == SHAPE_BOX, box_min, hull_min))))
     mx = torch.where(t == SHAPE_SPHERE, sph_max,
          torch.where(t == SHAPE_CAPSULE, cap_max,
          torch.where(t == SHAPE_CYLINDER, cyl_max,
-         torch.where(t == SHAPE_BOX, box_max, sph_max))))
+         torch.where(t == SHAPE_BOX, box_max, hull_max))))
     return mn, mx

@@ -7,8 +7,9 @@ parameter arrays. Everything up to `finalize` is plain numpy (float64, as
 in the JAX package, so both builders round the same values to float32);
 `finalize(device=...)` converts to tensors on the requested device.
 
-Ported so far: rigid bodies, statics, sphere/capsule/box colliders, all
-six joint types, static pair tables (capped or not, in contact phases or
+Ported so far: rigid bodies, statics, sphere/capsule/box colliders,
+convex hull geometry (from triangle faces or a point cloud) and hull
+colliders, all six joint types, static pair tables (capped or not, in contact phases or
 not, pruned by `candidate_margin` or not) and the K-select /
 sort-and-sweep broadphase settings. Everything else raises
 NotImplementedError naming what is missing.
@@ -24,10 +25,10 @@ import numpy as np
 import torch
 
 from dxk_tpu_torch.scene.scene import (
-    SHAPE_SPHERE, SHAPE_CAPSULE, SHAPE_CYLINDER, SHAPE_BOX,
+    SHAPE_SPHERE, SHAPE_CAPSULE, SHAPE_CYLINDER, SHAPE_BOX, SHAPE_HULL,
     OWNER_RIGID_BODY, OWNER_STATIC, OWNER_FORCE_FIELD, OWNER_TRIGGER,
-    BodyParams, Colliders, JointsOfType, MotorControls, PairGroup, Scene,
-    resolve_device,
+    BodyParams, Colliders, HullGeometry, JointsOfType, MotorControls,
+    PairGroup, Scene, resolve_device,
 )
 
 GRAVITY = -9.81
@@ -145,6 +146,9 @@ class SceneBuilder:
         self._bodies: List[_Body] = []
         self._colliders: List[_Collider] = []
         self._joints: List[_Joint] = []
+        self._hull_geoms: List[np.ndarray] = []
+        self._hull_props: list = []     # (mass, cog, inertia) per density
+        self._hull_faces: list = []     # (normals, offsets) per hull
         self.max_narrow_pairs_per_group: Optional[int] = None
 
     # -- bodies --------------------------------------------------------
@@ -204,14 +208,72 @@ class SceneBuilder:
             np.asarray(rotation, np.float64),
             friction, restitution, density, owner, OWNER_RIGID_BODY, 0, -1))
 
-    def add_hull_geometry(self, *a, **k):
-        raise _later("convex hull geometry")
+    def add_hull_geometry(self, vertices: np.ndarray,
+                          faces: Optional[np.ndarray] = None) -> int:
+        """Register convex hull geometry. `faces` (T, 3), outward wound,
+        give the mass, centre of gravity and inertia per unit density by
+        the covariance method over the triangles, and the face planes.
+        Returns the hull id."""
+        vertices = np.asarray(vertices, np.float64)
+        if faces is None:
+            raise ValueError("hull geometry requires triangle faces for "
+                             "inertia")
+        s60, s120 = 1.0 / 60.0, 1.0 / 120.0
+        Cc = np.array([[s60, s120, s120], [s120, s60, s120],
+                       [s120, s120, s60]])
+        total_mass = 0.0
+        total_cov = np.zeros((3, 3))
+        total_cog = np.zeros(3)
+        for (ia, ib, ic) in np.asarray(faces, np.int64):
+            w1, w2, w3 = vertices[ia], vertices[ib], vertices[ic]
+            A = np.stack([w1, w2, w3], axis=1)
+            detA = np.linalg.det(A)
+            total_cov += detA * A @ Cc @ A.T
+            m = detA / 6.0
+            total_mass += m
+            total_cog += (w1 + w2 + w3) * 0.25 * m
+        total_cog /= total_mass
+        Cp = total_cov - total_mass * np.outer(total_cog, total_cog)
+        inertia_per_density = np.eye(3) * np.trace(Cp) - Cp
+        self._hull_geoms.append(vertices)
+        self._hull_props.append((total_mass, total_cog, inertia_per_density))
+        fa = np.asarray(faces, np.int64)
+        n = np.cross(vertices[fa[:, 1]] - vertices[fa[:, 0]],
+                     vertices[fa[:, 2]] - vertices[fa[:, 0]])
+        n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
+        d = -np.sum(n * vertices[fa[:, 0]], axis=-1)
+        self._hull_faces.append((n, d))
+        return len(self._hull_geoms) - 1
 
-    def add_hull_geometry_from_mesh(self, *a, **k):
-        raise _later("convex hull geometry")
+    def add_hull_geometry_from_mesh(self, vertices: np.ndarray) -> int:
+        """Convex hull geometry of a point cloud or mesh vertex set: the
+        hull's vertices and outward-wound triangles from qhull
+        (scipy.spatial.ConvexHull). Returns the hull id."""
+        from scipy.spatial import ConvexHull
+        pts = np.asarray(vertices, np.float64).reshape(-1, 3)
+        hull = ConvexHull(pts)
+        used = hull.vertices                      # indices of hull vertices
+        remap = -np.ones(len(pts), np.int64)
+        remap[used] = np.arange(len(used))
+        verts = pts[used]
+        faces = []
+        for simplex, eq in zip(hull.simplices, hull.equations):
+            a, b, c = (remap[i] for i in simplex)
+            n = np.cross(verts[b] - verts[a], verts[c] - verts[a])
+            # orient outward using qhull's facet equation normal
+            if np.dot(n, eq[:3]) < 0.0:
+                b, c = c, b
+            faces.append((a, b, c))
+        return self.add_hull_geometry(verts, np.asarray(faces, np.int64))
 
-    def add_hull_collider(self, *a, **k):
-        raise _later("hull colliders")
+    def add_hull_collider(self, owner, hull_id, position=(0, 0, 0),
+                          rotation=(0, 0, 0, 1),
+                          friction=1.0, restitution=0.2, density=1000.0):
+        self._add_collider(owner, _Collider(
+            SHAPE_HULL, np.asarray(position, np.float64), np.zeros(3), 0.0,
+            np.asarray(rotation, np.float64),
+            friction, restitution, density, owner, OWNER_RIGID_BODY, 0,
+            int(hull_id)))
 
     def add_force_field(self, *a, **k):
         raise _later("force fields")
@@ -371,6 +433,14 @@ class SceneBuilder:
             rot = _np_quat_to_mat3(c.rot)
             I = rot.T @ I @ rot  # note: reference applies R^T I R (physics.cpp:1516-1517)
             return mass, c.a.copy(), I
+        if c.ctype == SHAPE_HULL:
+            m_per_rho, cog, I_per_rho = self._hull_props[c.hull_id]
+            # the collider's local pose transforms the hull's own mass
+            # properties; the parallel-axis shift happens in _aggregate_body
+            rot = _np_quat_to_mat3(c.rot)
+            I = rot @ I_per_rho @ rot.T * rho
+            cog_l = _np_quat_rotate(c.rot, cog) + c.a
+            return m_per_rho * rho, cog_l, I
         raise _later(f"mass properties of shape type {c.ctype}")
 
     def _aggregate_body(self, body: _Body):
@@ -395,6 +465,42 @@ class SceneBuilder:
 
     # -- finalize ----------------------------------------------------------
 
+    def _bake_hulls(self, dtype, tens) -> Optional[HullGeometry]:
+        """Every hull padded to the largest vertex, face, merged-face, loop
+        and edge counts (padded vertices repeat vertex 0), with the merged
+        topology derived here from the vertices and face planes."""
+        if not self._hull_geoms:
+            return None
+        from dxk_tpu_torch.scene.hull_topology import (bake_topologies,
+                                                       derive_hull_topology)
+        H = len(self._hull_geoms)
+        vmax = max(len(v) for v in self._hull_geoms)
+        verts = np.zeros((H, vmax, 3))
+        mask = np.zeros((H, vmax), bool)
+        for i, v in enumerate(self._hull_geoms):
+            verts[i, :len(v)] = v
+            verts[i, len(v):] = v[0]
+            mask[i, :len(v)] = True
+        fmax = max(len(n) for n, _ in self._hull_faces)
+        fnorm = np.zeros((H, fmax, 3))
+        foff = np.zeros((H, fmax))
+        fmask = np.zeros((H, fmax), bool)
+        for i, (n, d) in enumerate(self._hull_faces):
+            fnorm[i, :len(n)] = n
+            foff[i, :len(n)] = d
+            fmask[i, :len(n)] = True
+        topos = []
+        for v, (fn_, fd_) in zip(self._hull_geoms, self._hull_faces):
+            t = derive_hull_topology(v, fn_, fd_)
+            t["vertices"] = v
+            topos.append(t)
+        topo = bake_topologies(topos)
+        return HullGeometry(
+            vertices=tens(verts.astype(dtype)), vertex_mask=tens(mask),
+            face_normals=tens(fnorm.astype(dtype)),
+            face_offsets=tens(foff.astype(dtype)), face_mask=tens(fmask),
+            **{k: tens(x) for k, x in topo.items()})
+
     def _collider_bounding_spheres(self, col, init_pos, init_rot, nb):
         """Initial-pose world bounding sphere per collider (conservative):
         picks the broad statics of the sort-and-sweep broadphase and prunes
@@ -410,6 +516,9 @@ class SceneBuilder:
                 br = 0.5 * np.linalg.norm(bb - a) + r
             elif ct == SHAPE_BOX:
                 lc, br = a, np.linalg.norm(bb)
+            elif ct == SHAPE_HULL:
+                verts = self._hull_geoms[col["hull_id"][i]]
+                lc, br = a, float(np.linalg.norm(verts, axis=-1).max())
             else:   # sphere
                 lc, br = a, r
             body = col["body"][i]
@@ -643,7 +752,7 @@ class SceneBuilder:
                 owner_index=tens(col["owner_index"]),
                 hull_id=tens(col["hull_id"]),
             ),
-            hulls=None,
+            hulls=self._bake_hulls(dtype, tens),
             pair_groups=tuple(groups),
             num_contact_phases=int(contact_phases),
             broadphase_k=(int(broadphase_k)

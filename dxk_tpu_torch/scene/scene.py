@@ -94,10 +94,24 @@ class Colliders(_Struct):
 
 @dataclass
 class HullGeometry(_Struct):
-    """Placeholder: convex hulls are not ported yet (Scene.hulls is None)."""
+    """Padded convex hull geometry shared by hull colliders: vertices,
+    triangle face planes (outward unit normals, offsets in n.x + d = 0
+    form), and the merged-polygon topology of the SAT/clip contact recipes
+    (scene/hull_topology.py): unique face normals, ordered vertex loops as
+    local positions, unique edge directions."""
 
-    vertices: Any = None
-    vertex_mask: Any = None
+    vertices: torch.Tensor          # (H, Vmax, 3) f32, padded with vertex 0
+    vertex_mask: torch.Tensor       # (H, Vmax) bool
+    face_normals: torch.Tensor = None   # (H, Fmax, 3) outward unit normals
+    face_offsets: torch.Tensor = None   # (H, Fmax) plane d: n.x + d = 0
+    face_mask: torch.Tensor = None      # (H, Fmax) bool
+    poly_normals: torch.Tensor = None   # (H, FU, 3)
+    poly_offsets: torch.Tensor = None   # (H, FU)
+    poly_mask: torch.Tensor = None      # (H, FU) bool
+    loop_pts: torch.Tensor = None       # (H, FU, LM, 3) local positions
+    loop_len: torch.Tensor = None       # (H, FU) int32
+    edge_dirs: torch.Tensor = None      # (H, EU, 3) unit, sign-deduped
+    edge_mask: torch.Tensor = None      # (H, EU) bool
 
 
 @dataclass

@@ -7,8 +7,11 @@ __syncthreads() becomes a std::barrier, so the kernel's shared-memory
 layout, indexing and per-type joint passes run as written (blocks one after
 another). Built with -ffp-contract=off, like the card's -fmad=false. It
 prints, per scene, the largest differences between the emulated kernel and
-the plain version `_fused_core`. sin/cos come from the C library, so the
-ragdoll (whose cone-twist prep calls them) may differ by float rounding.
+the plain version `_fused_core`: on the constraint zoo, on bench.py's
+ragdoll settle (initial state and hull poses that send every hull recipe
+down each of its branches), on the hull pile and on the locomotion scene.
+sin/cos come from the C library, so scenes with the ragdoll (whose
+cone-twist prep calls them) may differ by float rounding.
 
     python3 tools/emulate_fused_step_cpu.py [--chains 2] [--batch 5]
 
@@ -46,6 +49,7 @@ SHIM = r"""
 #define __forceinline__ inline
 #define __noinline__
 #define __restrict__
+#define __launch_bounds__(...)
 #define __shared__
 struct dim3_ { unsigned x, y, z; };
 inline thread_local dim3_ threadIdx;
@@ -114,9 +118,7 @@ def compare(dll, scene, state, dt):
     v, wv = torch.empty_like(b.v), torch.empty_like(b.w)
     imp = torch.empty((B, P, 4))
     live = torch.empty((B, P), dtype=torch.uint8)
-    dims = ([B, tab.num_bodies, tab.num_colliders, P, tab.num_phases,
-             tab.ctl_rows + 1, tab.num_points, cs.ITERATIONS]
-            + tab.ioffs + tab.foffs + tab.joint_desc)
+    dims = tab.dims(B, cs.ITERATIONS)
     ins = [b.v, b.w, b.inv_mass, b.inv_inertia, b.pos_cog, b.rot, ctl, w.a,
            w.b, w.rot]
     ins = [x.contiguous() for x in ins]
@@ -149,6 +151,17 @@ def main():
             ("zoo_limit_poses", cs.zoo_limit_state(zoo, args.batch, 0))):
         print(json.dumps({"scene": name, "chains": args.chains,
                           **compare(dll, zoo, st, cs.ZOO_DT)}), flush=True)
+    settle = cs.settle_scene("cpu")
+    pile = cs.pile_scene("cpu")
+    for name, scene, st in (
+            ("settle_initial", settle,
+             cs.settle_initial_state(settle, args.batch, 0)),
+            ("settle_hull_poses", settle,
+             cs.settle_hull_poses(settle, 4 * args.batch, 0)),
+            ("pile_poses", pile, cs.pile_poses(pile, 2 * args.batch, 0))):
+        print(json.dumps({"scene": name, **compare(dll, scene, st,
+                                                   cs.SETTLE_DT)}),
+              flush=True)
     from dxk_tpu_torch.envs.loco_env import DT, LocoEnv
     env = LocoEnv(solver_mode="fused", device="cpu", enable_pokes=False)
     gen = torch.Generator().manual_seed(0)
