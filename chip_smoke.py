@@ -9,6 +9,9 @@ checkout and holding each against its plain PyTorch version on the card:
     per joint type, 256 and 4096 envs) on the fused step;
   - bench.py's ragdoll drop-and-settle with its convex-hull debris
     (BASELINE config 3, 256 and 4096 envs) on the fused step;
+  - the golden mixed-shape drop (a hull, a cylinder and a capsule onto a
+    box ramp) and sphere bounce of tests/test_golden_trajectories.py, 256
+    and 4096 envs x 1000 steps, on the fused step;
   - bench.py's 1k-box stack (64 towers of 16 boxes, 32 envs) on the
     reference step under each of the three broadphases (table, K-select,
     sort-and-sweep).
@@ -18,8 +21,9 @@ checkout and holding each against its plain PyTorch version on the card:
 
 Phases, one JSON line each; any failure raises and the exit code is non-zero:
   device     a CUDA device is present; its name and power limit
-  build      nvcc compiles csrc/fused_step.cu and csrc/broadphase.cu, side
-             by side
+  build      nvcc compiles csrc/fused_step.cu (twice: without and with the
+             sphere and cylinder recipes) and csrc/broadphase.cu, side by
+             side
   kernels    fused-step kernel vs plain version on rolled-out states, times,
              bound
   serve      policy rollout and zero-action rollout, checks on the results
@@ -33,13 +37,20 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
              the pile stepped 120 steps; then 600 steps at each batch:
              launches, finiteness, the debris' height, body-steps/s, the
              kernel's times and bound
+  shapes     fused-step kernel vs plain version on the two golden scenes
+             (initial, after 60 and 150 steps, after each main-path run) and
+             on a sphere and cylinder check pile; live rows of the nine
+             sphere and cylinder recipes and their branches; then 1000 steps
+             of each scene at each batch: launches, finiteness, the lowest
+             point of any body, body-steps/s, the kernel's times and bound
   box_stack  the three broadphase kernels vs their plain versions (equal
              integers) on the initial and a rolled-out state, pair sets equal
              across the broadphases, then the box stack stepped in each
              broadphase: launches per step, overflow, agreement with the
              table broadphase, body-steps/s
 The line before the last is the card's name and power limit; the line before
-that lists every kernel (the fused step three times: loco, zoo and settle).
+that lists every kernel (the fused step four times: loco, zoo, settle and
+shapes).
 The last line
 is {"ok": true, "device": {...}}.
 
@@ -77,13 +88,26 @@ FLOPS_CONTACT_POINT = 124        # friction + normal update of one live point
 FLOPS_ROW_DELTA = 24             # 12 subtractions + 12 adds into body sums
 FLOPS_BODY_APPLY = 3             # per body component and pass: scale, add
 FLOPS_PREP_POINT = 183
-FLOPS_NARROW = {0: 170, 1: 380, 2: 1600}   # capsule-capsule, capsule-box, box-box
-# hull recipes, whose work follows the hull sizes and this run's data (see
-# hull_flops): capsule-hull per row and per distance-GJK iteration (plus
-# 5 * V for the hull support), the deep branch per face plane; a polytope
-# side's vertex transform, per face and vertex of the face scans, per edge
-# pair and vertex of the edge scan, the clip per loop point and slot
+# per row of the recipes whose work does not depend on the data, by recipe id
+# (fused_step.RECIPE_NAMES): capsule-capsule, capsule-box, box-box,
+# sphere-sphere, sphere-capsule, sphere-cylinder, sphere-box, capsule-cylinder
+FLOPS_NARROW = {0: 170, 1: 380, 2: 1600, 6: 35, 7: 60, 8: 110, 9: 125,
+                11: 220}
+# recipes whose work follows the hull sizes and this run's data (see
+# recipe_flops): capsule-hull and sphere-hull per row and per distance-GJK
+# iteration (plus 5 * V for the hull support), the deep branch per face
+# plane; a polytope side's vertex transform, per face and vertex of the face
+# scans, per edge pair and vertex of the edge scan, the clip per loop point
+# and slot; cylinder-hull per row, per candidate axis and vertex, per descent
+# round, per GJK iteration; cylinder-box and cylinder-cylinder per row and
+# per round of their alternating projections
 FLOPS_CAPSULE_HULL = dict(row=210, gjk_iteration=460, deep=45, deep_plane=7)
+FLOPS_SPHERE_HULL = dict(row=130, gjk_iteration=460, deep=25, deep_plane=7)
+FLOPS_CYLINDER_HULL = dict(row=60, vertex=33, axis=45, axis_vertex=5,
+                           descent_round=60, descent_vertex=10,
+                           gjk_iteration=480)
+FLOPS_CYLINDER_BOX = dict(row=850, projection_round=30)
+FLOPS_CYLINDER_CYLINDER = dict(row=400, projection_round=60)
 FLOPS_POLYTOPE = dict(vertex=33, face=35, face_vertex=5, edge_pair=60,
                       edge_pair_vertex=5, clip_point_slot=25, reduce_slot=160)
 # per joint type: (prep once a step, solve per iteration incl. the 24
@@ -117,26 +141,36 @@ def device_phase():
 
 
 def build_phase():
-    """Both CUDA sources, one nvcc each, started together."""
+    """The CUDA sources, one nvcc each, started together: csrc/fused_step.cu
+    twice (without and with the sphere and cylinder recipes) and
+    csrc/broadphase.cu."""
     from dxk_tpu_torch.ops.kernels import broadphase_kernel as bk
     from dxk_tpu_torch.ops.kernels import fused_step as fs
 
-    def timed(mod):
+    builds = {
+        "fused_step": (lambda: fs.load_library(verbose=True),
+                       lambda: fs.BUILD_LOGS["base"], fs.NVCC_FLAGS),
+        "fused_step_shapes": (
+            lambda: fs.load_library(verbose=True, shapes=True),
+            lambda: fs.BUILD_LOGS["shapes"], fs.NVCC_FLAGS + fs.SHAPES_FLAGS),
+        "broadphase": (lambda: bk.load_library(verbose=True),
+                       lambda: bk.BUILD_LOG, bk.NVCC_FLAGS)}
+
+    def timed(name):
         t0 = time.perf_counter()
-        mod.load_library(verbose=True)
+        builds[name][0]()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(2) as pool:
-        secs = list(pool.map(timed, (fs, bk)))
+    with ThreadPoolExecutor(len(builds)) as pool:
+        secs = dict(zip(builds, pool.map(timed, builds)))
     out = {}
-    for name, mod, sec in (("fused_step", fs, secs[0]),
-                           ("broadphase", bk, secs[1])):
+    for name, (_load, log, flags) in builds.items():
         # each kernel's registers, and any stack frame or spill at all
-        ptxas = [ln.strip() for ln in mod.BUILD_LOG.splitlines()
+        ptxas = [ln.strip() for ln in log().splitlines()
                  if "entry function" in ln or "Used" in ln
                  or ("spill" in ln and "0 bytes stack frame, 0 bytes spill "
                      "stores, 0 bytes spill loads" not in ln)]
-        out[name] = dict(seconds=round(sec, 2), flags=" ".join(mod.NVCC_FLAGS),
+        out[name] = dict(seconds=round(secs[name], 2), flags=" ".join(flags),
                          ptxas=ptxas)
     emit("build", **out)
 
@@ -190,19 +224,34 @@ def polytope_flops(nv_a, nf_a, ne_a, nv_b, nf_b, ne_b, lm):
             + lm * 2 * lm * f["clip_point_slot"] + 2 * lm * f["reduce_slot"])
 
 
-def hull_flops(tab, branches, batch):
-    """Operations of the hull rows of `batch` envs, from the hull sizes and
-    this run's branches (GJK iterations, deep rows)."""
+def recipe_flops(tab, branches, batch):
+    """Operations of the rows of `batch` envs whose work follows the hull
+    sizes and this run's data (fused_step.recipe_branches: GJK iterations,
+    deep rows, projection rounds)."""
     from dxk_tpu_torch.ops.kernels import fused_step as fs
     V, F, FU, LM, EU = tab.hull_dims
     rows = {fs.RECIPE_NAMES[fs.CM_RECIPES[m["key"]]]: 0 for m in tab.metas}
     for m in tab.metas:
         rows[fs.RECIPE_NAMES[fs.CM_RECIPES[m["key"]]]] += m["pg"]
-    c = FLOPS_CAPSULE_HULL
-    b = branches.get("capsule_hull", {})
-    flops = (batch * rows.get("capsule_hull", 0) * c["row"]
-             + b.get("gjk_iterations", 0) * (c["gjk_iteration"] + 5 * V)
-             + b.get("overlap", 0) * (c["deep"] + 5 * F * c["deep_plane"]))
+    flops = 0
+    for name, c, deep in (("capsule_hull", FLOPS_CAPSULE_HULL, "overlap"),
+                          ("sphere_hull", FLOPS_SPHERE_HULL, "inside")):
+        b = branches.get(name, {})
+        flops += (batch * rows.get(name, 0) * c["row"]
+                  + b.get("gjk_iterations", 0) * (c["gjk_iteration"] + 5 * V)
+                  + b.get(deep, 0) * (c["deep"] + F * c["deep_plane"]))
+    c = FLOPS_CYLINDER_HULL
+    axes = FU + 1 + EU + V
+    flops += batch * rows.get("cylinder_hull", 0) * (
+        c["row"] + V * c["vertex"] + axes * (c["axis"] + V * c["axis_vertex"])
+        + 8 * (c["descent_round"] + V * c["descent_vertex"]))
+    flops += branches.get("cylinder_hull", {}).get("gjk_iterations", 0) * (
+        c["gjk_iteration"] + 5 * V)
+    for name, c in (("cylinder_box", FLOPS_CYLINDER_BOX),
+                    ("cylinder_cylinder", FLOPS_CYLINDER_CYLINDER)):
+        flops += (batch * rows.get(name, 0) * c["row"]
+                  + branches.get(name, {}).get("projection_rounds", 0)
+                  * c["projection_round"])
     flops += batch * rows.get("box_hull", 0) * polytope_flops(
         8, 6, 3, V, FU, EU, max(4, LM))
     flops += batch * rows.get("hull_hull", 0) * polytope_flops(
@@ -210,11 +259,12 @@ def hull_flops(tab, branches, batch):
     return flops
 
 
-def bound_ms(tab, live, batch, hull_work=0):
+def bound_ms(tab, live, batch, data_work=0):
     """Least time the card could take for this call: the larger of compulsory
     bytes over the memory rate and counted operations over the float32 peak.
     The operation count follows this run's data: live pair rows and live
-    manifold points only; `hull_work` is the hull rows' count (hull_flops)."""
+    manifold points only; `data_work` is the count of the rows whose work
+    follows the data (recipe_flops)."""
     nb, C, P = tab.num_bodies, tab.num_colliders, tab.num_rows
     floats_in = nb * (3 + 3 + 9 + 3 + 4) + C * 10 + tab.ctl_rows + 1
     floats_out = nb * 6 + P * 4
@@ -231,7 +281,7 @@ def bound_ms(tab, live, batch, hull_work=0):
     passes = sum(n > 0 for n in counts.values()) + tab.num_phases
     per_env_iter = (sum(n * FLOPS_JOINT[t][1] for t, n in counts.items())
                     + passes * nb * 6 * FLOPS_BODY_APPLY)
-    flops = (batch * (per_env_once + ITERATIONS * per_env_iter) + hull_work
+    flops = (batch * (per_env_once + ITERATIONS * per_env_iter) + data_work
              + live_points * (FLOPS_PREP_POINT
                               + ITERATIONS * FLOPS_CONTACT_POINT)
              + live_rows * ITERATIONS * FLOPS_ROW_DELTA)
@@ -323,8 +373,8 @@ def compare_kernel(scene, state, batch, dt):
                finite=finite, live_rows_by_recipe=live_by_recipe,
                live_rows_per_env=float((klive != 0).sum()) / batch,
                joints_on=joint_flags(tab, bodies, ctl, inv_dt))
-    if tab.hull_dims[0]:
-        out["hull_branches"] = fs.hull_branches(tab, wcol.a, wcol.b, wcol.rot)
+    if any(m["key"] in fs.BRANCH_RECIPES for m in tab.metas):
+        out["branches"] = fs.recipe_branches(tab, wcol.a, wcol.b, wcol.rot)
     return out, run_kernel, run_plain, tab, klive
 
 
@@ -1156,7 +1206,7 @@ def settle_phase(seed):
     for c in checks.values():
         for r, n in c["live_rows_by_recipe"].items():
             live[r] = live.get(r, 0) + n
-        for r, br in c.get("hull_branches", {}).items():
+        for r, br in c.get("branches", {}).items():
             for k, n in br.items():
                 if k != "gjk_iterations":
                     key = "sat" if r in ("box_hull", "hull_hull") else r
@@ -1202,15 +1252,15 @@ def settle_phase(seed):
         checks[f"B{batch}_after_{SETTLE_STEPS}_steps"] = cmp
         for _ in range(3):
             run_kernel()
-        work = hull_flops(tab, cmp["hull_branches"], batch)
+        work = recipe_flops(tab, cmp["branches"], batch)
         b_ms, b_by, b_detail = bound_ms(tab, klive, batch, work)
         timing[batch] = dict(ms=time_ms(run_kernel, 20),
                              plain_ms=time_ms(run_plain, 2), bound_ms=b_ms,
                              bound_by=b_by, bound_detail=b_detail,
-                             hull_flops=work, err_v=cmp["err_v"],
+                             recipe_flops=work, err_v=cmp["err_v"],
                              err_w=cmp["err_w"],
                              live_rows_by_recipe=cmp["live_rows_by_recipe"],
-                             hull_branches=cmp["hull_branches"])
+                             branches=cmp["branches"])
     emit("settle", bodies=scene.num_bodies, body_steps_counted=SETTLE_BODIES,
          colliders=tab.num_colliders, pair_rows=tab.num_rows,
          joints=tab.joint_counts, hull_dims=dict(zip(
@@ -1245,6 +1295,401 @@ def settle_phase(seed):
     big = SETTLE_BATCHES[-1]
     return {
         "name": "fused_step_settle", "route": "cuda",
+        "source": "dxk_tpu_torch/ops/kernels/csrc/fused_step.cu",
+        "replaces": "dxk_tpu/ops/pallas/fused_step.py:1177",
+        "launches": runs[big]["launches"]["fused_step"],
+        "max_abs_err": max(max(c["err_v"], c["err_w"], c["err_pos"],
+                               c["err_rot"], c["err_imp"])
+                           for c in checks.values()),
+        "ms": timing[big]["ms"], "plain_ms": timing[big]["plain_ms"],
+        "bound_ms": timing[big]["bound_ms"],
+        "bound_by": timing[big]["bound_by"], "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
+# the golden mixed-shape drop and sphere bounce on the fused step
+
+SHAPES_SCENES = ("mixed_shape_drop", "sphere_bounce")
+SHAPES_BATCHES = (256, 4096)              # bench.py's on-chip aux batch; loco's
+SHAPES_RAGGED = 1000
+SHAPES_STEPS = 1000                       # the golden horizon
+SHAPES_WARM = (60, 150)                   # compared states; at 150 bodies touch
+SHAPES_DT = 1.0 / 120.0
+SHAPES_BODIES = {"mixed_shape_drop": 3, "sphere_bounce": 1}   # dynamic bodies
+SHAPES_SINK_TOL = 0.01                    # no body's lowest point deeper (m)
+SHAPES_EVERY = 25                         # steps between lowest-point reads
+# scenes held to SHAPES_SINK_TOL; every scene is held to keep every dynamic
+# body's centre above the ground (nothing falls through it)
+SHAPES_SINK_GATED = ("sphere_bounce",)
+SHAPES_SINK_REASON = (
+    "mixed_shape_drop is held only to keep every body's centre above the "
+    "ground, and its bodies' depth below the ground is printed: in about 1 % "
+    "of the envs the cylinder comes to rest on the ramp's low edge 4-5 cm "
+    "into the ground with no live cylinder-box row, and the JAX package's "
+    "fused step does the same from such a state, bit for bit "
+    "(tools/replay_shapes_state_cpu.py replays `deepest_env_state` on the "
+    "CPU), so the depth is the recipe's, not the port's")
+SHAPES_TOL_REASON = (
+    "velocities held relative to the largest one, as in the settle phase: "
+    "the plain version sums per-body deltas with index_add_ atomics in no "
+    "fixed order on the card, and a bounce or a tumbling body amplifies "
+    "that rounding over 1000 steps")
+# the hull of the golden mixed-shape drop (tests/test_golden_trajectories.py)
+GOLDEN_HULL = np.array([[0.4, 0, 0], [-0.3, 0.25, 0.1], [0, -0.2, 0.35],
+                        [-0.1, -0.15, -0.3], [0.1, 0.3, -0.2]])
+# the recipes this phase adds to the kernel, each required live somewhere
+SHAPES_RECIPES = ("sphere_sphere", "sphere_capsule", "sphere_cylinder",
+                  "sphere_box", "sphere_hull", "capsule_cylinder",
+                  "cylinder_cylinder", "cylinder_box", "cylinder_hull")
+SHAPES_BRANCHES = {"cylinder_box": ("ring", "tube", "single"),
+                   "cylinder_cylinder": ("ring", "tube", "single"),
+                   "sphere_hull": ("outside", "inside"),
+                   "cylinder_hull": ("gate_separated", "gate_overlap")}
+
+
+def golden_builder(builder, name):
+    """tests/test_golden_trajectories.py:33-40 (sphere_bounce: a sphere
+    dropped from 2 m onto a ground box, restitution 0.3) and :98-114
+    (mixed_shape_drop: a convex hull, a cylinder and a capsule dropped onto a
+    tilted box ramp on a ground box), copied. `builder` is a SceneBuilder
+    class; the result is finalized by the caller with no arguments."""
+    b = builder()
+    g = b.add_static()
+    if name == "sphere_bounce":
+        b.add_box_collider(g, (0, -1, 0), (20, 1, 20), restitution=0.3)
+        s = b.add_body(position=(0.1, 2.0, -0.05))
+        b.add_sphere_collider(s, (0, 0, 0), 0.5, restitution=0.3)
+        return b
+    b.add_box_collider(g, (0, -1, 0), (20, 1, 20))
+    b.add_box_collider(g, (0, 0.3, 0), (2.0, 0.3, 2.0),
+                       rotation=(0.13, 0, 0, 0.9915))
+    hid = b.add_hull_geometry_from_mesh(GOLDEN_HULL)
+    h = b.add_body(position=(0.3, 2.2, 0.1))
+    b.add_hull_collider(h, hid)
+    cy = b.add_body(position=(-0.5, 3.0, -0.3))
+    b.add_cylinder_collider(cy, (0, -0.25, 0), (0, 0.25, 0), 0.3)
+    ca = b.add_body(position=(0.2, 4.0, 0.4))
+    b.add_capsule_collider(ca, (0, -0.2, 0), (0, 0.2, 0), 0.25)
+    return b
+
+
+def shapes_scene(name, device=DEVICE):
+    from dxk_tpu_torch.scene import SceneBuilder
+    return golden_builder(SceneBuilder, name).finalize(device=device)
+
+
+def shapes_initial_state(scene, batch, seed):
+    """`batch` envs at the golden start, each with the seeded 0.01 m/s
+    velocity noise of the zoo and settle phases, so that the envs differ."""
+    return zoo_initial_state(scene, batch, seed)
+
+
+def shapes_pile_builder(builder):
+    """A check scene for the sphere and cylinder recipes that neither golden
+    scene runs: two spheres (r 0.2, 0.15), a capsule (half length 0.2, r
+    0.12), two cylinders (half length 0.25, r 0.3; 0.2, 0.22) and the golden
+    hull on a ground box (top at y = 0); every pair of them has a row.
+    shapes_pile_poses puts them where the recipes branch."""
+    b = builder()
+    ground = b.add_static()
+    b.add_box_collider(ground, (0, -1, 0), (20, 1, 20))
+    s1 = b.add_body(position=(-1.5, 0.2, 0.0))
+    b.add_sphere_collider(s1, (0, 0, 0), 0.2)
+    s2 = b.add_body(position=(-1.0, 0.15, 0.0))
+    b.add_sphere_collider(s2, (0, 0, 0), 0.15)
+    c = b.add_body(position=(-0.5, 0.32, 0.0))
+    b.add_capsule_collider(c, (0, -0.2, 0), (0, 0.2, 0), 0.12)
+    y1 = b.add_body(position=(0.2, 0.25, 0.0))
+    b.add_cylinder_collider(y1, (0, -0.25, 0), (0, 0.25, 0), 0.3)
+    y2 = b.add_body(position=(1.0, 0.2, 0.0))
+    b.add_cylinder_collider(y2, (0, -0.2, 0), (0, 0.2, 0), 0.22)
+    h = b.add_body(position=(1.8, 0.2, 0.0))
+    b.add_hull_collider(h, b.add_hull_geometry_from_mesh(GOLDEN_HULL))
+    return b
+
+
+def shapes_pile_scene(device=DEVICE):
+    from dxk_tpu_torch.scene import SceneBuilder
+    return shapes_pile_builder(SceneBuilder).finalize(device=device)
+
+
+def _np_quat(axis, angle):
+    axis = np.asarray(axis, np.float64)
+    axis = axis / np.linalg.norm(axis)
+    return np.concatenate([axis * np.sin(angle / 2), [np.cos(angle / 2)]])
+
+
+def _np_qmul(a, b):
+    """Hamilton product of (x, y, z, w) quaternions: a then b applied as
+    a * b (b first)."""
+    av, aw, bv, bw = a[:3], a[3], b[:3], b[3]
+    return np.concatenate([aw * bv + bw * av + np.cross(av, bv),
+                           [aw * bw - av @ bv]])
+
+
+def _np_qrot(q, v):
+    qv, w = q[:3], q[3]
+    t = 2.0 * np.cross(qv, v)
+    return v + w * t + np.cross(qv, t)
+
+
+def shapes_pile_poses(scene, batch, seed):
+    """`batch` envs of the check pile (bodies 1-6: spheres S1, S2, capsule
+    C, cylinders Y1, Y2, hull H), each touching by 0-5 mm where it touches.
+    Env e (mod 4):
+      0  a jumble: every body at a seeded rotation within 0.3 m of a point
+         0.1-0.45 m above the ground, S2 within 5 cm of the hull's origin
+         (tilted single-point cylinder contacts, crossing cylinders, spheres
+         against everything, sphere-hull inside);
+      1  upright: Y1 on the ground, Y2 stacked on it (cap rings with the
+         ground and cap to cap), S1 beside Y1 on the ground (sphere-cylinder
+         side, sphere-box), S2 on S1, C lying against S1, H against Y1's
+         side (cylinder-hull);
+      2  lying: Y1 on the ground, Y2 beside it parallel (lying tubes with the
+         ground and tube to tube), S1 on Y1, C on Y2 parallel (two-point
+         capsule-cylinder), S2 inside H;
+      3  tilted: Y1 tilted 15-35 degrees on its rim (single point), Y2 upright
+         with S2 on its cap and C across it (capsule-cylinder, not parallel),
+         S1 on H's top vertex (sphere-hull outside).
+    Velocities get the seeded noise of shapes_initial_state."""
+    st = shapes_initial_state(scene, batch, seed)
+    rng = np.random.default_rng(seed)
+    pos = st.pos.double().cpu().numpy()
+    rot = st.rot.double().cpu().numpy()
+    S1, S2, C, Y1, Y2, H = 1, 2, 3, 4, 5, 6
+    ident = np.array([0.0, 0.0, 0.0, 1.0])
+    rx90 = _np_quat((1, 0, 0), np.pi / 2)          # local y axis -> world z
+    rz90 = _np_quat((0, 0, 1), np.pi / 2)          # local y axis -> world -x
+
+    def pen():
+        return rng.uniform(0.0, 0.005)
+
+    def u(lo, hi, n=None):
+        return rng.uniform(lo, hi, n)
+
+    top_h = GOLDEN_HULL[GOLDEN_HULL[:, 1].argmax()]
+    for e in range(batch):
+        kind = e % 4
+        base = np.array([u(-1, 1), 0.0, u(-1, 1)])
+        psi = u(0, 2 * np.pi)
+        yaw = _np_quat((0, 1, 0), psi)
+        side = _np_qrot(yaw, np.array([1.0, 0.0, 0.0]))
+        P, Q = {}, {}
+        if kind == 0:
+            for k in (S1, C, Y1, Y2, H):
+                P[k] = base + np.array([u(-0.3, 0.3), u(0.1, 0.45),
+                                        u(-0.3, 0.3)])
+                q = rng.normal(size=4)
+                Q[k] = q / np.linalg.norm(q)
+            P[S2] = P[H] + u(-0.05, 0.05, 3)
+            Q[S2] = ident
+        elif kind == 1:
+            P[Y1] = base + np.array([0.0, 0.25 - pen(), 0.0])
+            P[Y2] = base + np.array([u(-0.05, 0.05), 0.7 - pen(),
+                                     u(-0.05, 0.05)])
+            Q[Y1] = Q[Y2] = yaw
+            P[S1] = base + side * (0.5 - pen()) + np.array([0, 0.2 - pen(), 0])
+            P[S2] = P[S1] + np.array([u(-0.02, 0.02), 0.35 - pen(),
+                                      u(-0.02, 0.02)])
+            Q[S1] = Q[S2] = ident
+            gap = 0.32 - pen()
+            cy = 0.12 - pen()
+            P[C] = P[S1] + side * np.sqrt(gap ** 2 - (P[S1][1] - cy) ** 2)
+            P[C][1] = cy
+            Q[C] = _np_qmul(yaw, rx90)       # axis along the ground, across
+            # the hull's +x vertex (local (0.4, 0, 0)) into Y1's side
+            Q[H] = _np_quat((0, 1, 0), psi + np.pi)
+            P[H] = base - side * (0.7 - pen()) + np.array([0, 0.2 - pen(), 0])
+        elif kind == 2:
+            q = _np_qmul(yaw, rx90)
+            axis = _np_qrot(q, np.array([0.0, 1.0, 0.0]))
+            P[Y1] = base + np.array([0.0, 0.3 - pen(), 0.0])
+            P[Y2] = (base + side * np.sqrt((0.52 - pen()) ** 2 - 0.08 ** 2)
+                     + axis * u(-0.05, 0.05))
+            P[Y2][1] = 0.22 - pen()
+            P[S1] = P[Y1] + np.array([0, 0.5 - pen(), 0]) + axis * u(-0.15,
+                                                                       0.15)
+            P[C] = P[Y2] + np.array([0, 0.34 - pen(), 0])
+            Q[Y1] = Q[Y2] = Q[C] = q
+            Q[S1] = Q[S2] = ident
+            P[H] = base - side * 1.2 + np.array([0, 0.2 - pen(), 0])
+            Q[H] = yaw
+            P[S2] = P[H] + u(-0.03, 0.03, 3)
+        else:
+            th = np.radians(u(15, 35))
+            Q[Y1] = _np_qmul(yaw, _np_quat((1, 0, 0), th))
+            P[Y1] = base + np.array([0, 0.25 * np.cos(th) + 0.3 * np.sin(th)
+                                     - pen(), 0])
+            P[Y2] = base + side * 1.5 + np.array([0, 0.2 - pen(), 0])
+            Q[Y2] = ident
+            P[S2] = P[Y2] + np.array([u(-0.1, 0.1), 0.35 - pen(),
+                                      u(-0.1, 0.1)])
+            P[C] = P[Y2] + np.array([0, 0.32 - pen(), 0])
+            Q[C] = _np_qmul(_np_quat((0, 1, 0), u(0, 2 * np.pi)), rz90)
+            P[H] = base - side * 1.5 + np.array([0, 0.2 - pen(), 0])
+            Q[H] = yaw
+            P[S1] = (P[H] + _np_qrot(yaw, top_h)
+                     + np.array([u(-0.05, 0.05), 0.2 - pen(), u(-0.05, 0.05)]))
+            Q[S1] = Q[S2] = ident
+        for k in P:
+            pos[e, k] = P[k]
+            rot[e, k] = Q[k]
+    return st.replace(pos=torch.from_numpy(pos).float().to(st.pos.device),
+                      rot=torch.from_numpy(rot).float().to(st.rot.device))
+
+
+def lowest_point(scene, state):
+    """Per env, the lowest world point (m, the ground's top is y = 0) of any
+    dynamic body's collider, from the colliders' tight AABBs, and the lowest
+    centre of a dynamic body."""
+    from dxk_tpu_torch.ops.shapes import collider_aabbs, world_colliders
+    mn, _mx = collider_aabbs(scene, world_colliders(scene, state.pos,
+                                                    state.rot))
+    dyn = scene.colliders.body < scene.num_bodies
+    bodies = scene.colliders.body[dyn].long()
+    return mn[:, dyn, 1].amin(dim=1), state.pos[:, bodies, 1].amin(dim=1)
+
+
+def shapes_phase(seed):
+    """The golden mixed-shape drop and sphere bounce on the fused step:
+    kernel vs plain version on the card (both scenes, the check pile), every
+    sphere and cylinder recipe and branch live, then the main path at each
+    batch."""
+    from dxk_tpu_torch.ops.kernels import broadphase_kernel as bk
+    from dxk_tpu_torch.ops.kernels import fused_step as fs
+    from dxk_tpu_torch.ops.kernels import kselect_broadphase as ks
+    from dxk_tpu_torch.ops.kernels import sap_broadphase as sp
+    from dxk_tpu_torch.physics import PhysicsSettings, physics_step
+
+    counters = {"fused_step": fs, "aabb_overlap_matrix": bk,
+                "kselect_broadphase": ks, "sap_broadphase": sp}
+    scenes = {n: shapes_scene(n) for n in SHAPES_SCENES}
+    pile = shapes_pile_scene()
+    settings = PhysicsSettings(num_rigid_solver_iterations=ITERATIONS,
+                               solver_mode="fused")
+
+    # ---- kernel vs plain version: bench's batch and a ragged one, on the
+    # initial state and after each of SHAPES_WARM steps; the check pile
+    checks = {}
+    for name, scene in scenes.items():
+        for batch in (SHAPES_BATCHES[0], SHAPES_RAGGED):
+            st = shapes_initial_state(scene, batch, seed)
+            checks[f"{name}.B{batch}_initial"] = compare_kernel(
+                scene, st, batch, SHAPES_DT)[0]
+            for t in range(1, SHAPES_WARM[-1] + 1):
+                st, _info = physics_step(scene, st, settings, SHAPES_DT)
+                if t in SHAPES_WARM:
+                    checks[f"{name}.B{batch}_after_{t}_steps"] = \
+                        compare_kernel(scene, st, batch, SHAPES_DT)[0]
+    checks["pile_poses"] = compare_kernel(
+        pile, shapes_pile_poses(pile, SHAPES_BATCHES[0], seed),
+        SHAPES_BATCHES[0], SHAPES_DT)[0]
+
+    # ---- the main path: each scene at each batch, counts from zero just
+    # before it
+    runs, timing = {}, {}
+    for name, scene in scenes.items():
+        tab = fs.fused_tables(scene, DEVICE)
+        for batch in SHAPES_BATCHES:
+            st = shapes_initial_state(scene, batch, seed + 1)
+            finite = torch.ones((), dtype=torch.bool, device=DEVICE)
+            lowest = torch.full((), float("inf"), device=DEVICE)
+            centre = torch.full((), float("inf"), device=DEVICE)
+            for mod in counters.values():
+                mod.reset_launch_count()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(SHAPES_STEPS):
+                st, _info = physics_step(scene, st, settings, SHAPES_DT)
+                finite &= torch.isfinite(st.pos).all() & torch.isfinite(
+                    st.lin_vel).all() & torch.isfinite(st.ang_vel).all()
+                if t % SHAPES_EVERY == SHAPES_EVERY - 1:
+                    low, cen = lowest_point(scene, st)
+                    lowest = torch.minimum(lowest, low.min())
+                    centre = torch.minimum(centre, cen.min())
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = {n: mod.launch_count() for n, mod in counters.items()}
+            low_end = lowest_point(scene, st)[0]
+            deep = int(low_end.argmin())
+            key = f"{name}.B{batch}"
+            runs[key] = dict(
+                steps=SHAPES_STEPS, seconds=secs,
+                body_steps_per_s=SHAPES_BODIES[name] * batch * SHAPES_STEPS
+                / secs,
+                ms_per_step=secs / SHAPES_STEPS * 1e3, launches=launches,
+                finite=bool(finite),
+                lowest_point_m=dict(
+                    every_25_steps=float(lowest), end_min=float(low_end.min()),
+                    end_mean=float(low_end.mean()),
+                    end_share_deeper_than_tol=float(
+                        (low_end < -SHAPES_SINK_TOL).float().mean())),
+                lowest_centre_m_every_25_steps=float(centre),
+                deepest_env_state=dict(env=deep, **{
+                    k: getattr(st, k)[deep].tolist()
+                    for k in ("pos", "rot", "lin_vel", "ang_vel")}))
+            # the kernel at this batch on the end state (held below)
+            cmp, run_kernel, run_plain, _tab, klive = compare_kernel(
+                scene, st, batch, SHAPES_DT)
+            checks[f"{key}_after_{SHAPES_STEPS}_steps"] = cmp
+            for _ in range(3):
+                run_kernel()
+            work = recipe_flops(tab, cmp.get("branches", {}), batch)
+            b_ms, b_by, b_detail = bound_ms(tab, klive, batch, work)
+            timing[key] = dict(ms=time_ms(run_kernel, 20),
+                               plain_ms=time_ms(run_plain, 2), bound_ms=b_ms,
+                               bound_by=b_by, bound_detail=b_detail,
+                               recipe_flops=work,
+                               live_rows_by_recipe=cmp["live_rows_by_recipe"])
+    live, branches = {}, {}
+    for c in checks.values():
+        for r, n in c["live_rows_by_recipe"].items():
+            live[r] = live.get(r, 0) + n
+        for r, br in c.get("branches", {}).items():
+            for k, n in br.items():
+                branches.setdefault(r, {})
+                branches[r][k] = branches[r].get(k, 0) + n
+    ptab = fs.fused_tables(pile, DEVICE)
+    emit("shapes", scenes={
+        n: dict(bodies=s.num_bodies, dynamic_bodies=SHAPES_BODIES[n],
+                colliders=fs.fused_tables(s, DEVICE).num_colliders,
+                pair_rows=fs.fused_tables(s, DEVICE).num_rows,
+                threads=fs.fused_tables(s, DEVICE).threads(),
+                smem_bytes=fs.fused_tables(s, DEVICE).shared_floats() * 4)
+        for n, s in scenes.items()},
+         pile=dict(pair_rows=ptab.num_rows, threads=ptab.threads(),
+                   smem_bytes=ptab.shared_floats() * 4),
+         iterations=ITERATIONS, dt=SHAPES_DT, tolerance=KERNEL_TOL,
+         tolerance_reason=SHAPES_TOL_REASON, sink_tolerance=SHAPES_SINK_TOL,
+         sink_gated=SHAPES_SINK_GATED, sink_reason=SHAPES_SINK_REASON,
+         checks=checks,
+         live_rows_by_recipe=live, branches=branches, runs=runs,
+         kernel=timing)
+    for c in checks.values():
+        hold_fused(c, relative=True)
+    dead = [r for r in SHAPES_RECIPES if live.get(r, 0) == 0]
+    dead += [f"{r}.{k}" for r, ks_ in SHAPES_BRANCHES.items() for k in ks_
+             if branches.get(r, {}).get(k, 0) == 0]
+    if dead:
+        raise RuntimeError(f"shapes: recipes or branches never live in the "
+                           f"compared states: {dead}")
+    for key, r in runs.items():
+        want = {n: (SHAPES_STEPS if n == "fused_step" else 0)
+                for n in counters}
+        if r["launches"] != want or not r["finite"]:
+            raise RuntimeError(f"shapes {key}: launches {r['launches']} "
+                               f"(expected {want}), finite {r['finite']}")
+        if not r["lowest_centre_m_every_25_steps"] > 0.0:
+            raise RuntimeError(f"shapes {key}: a body's centre went below "
+                               f"the ground")
+        low = r["lowest_point_m"]["every_25_steps"]
+        if key.split(".")[0] in SHAPES_SINK_GATED and not low >= \
+                -SHAPES_SINK_TOL:
+            raise RuntimeError(f"shapes {key}: a body sank {-low} m into "
+                               f"the ground")
+    big = f"mixed_shape_drop.B{SHAPES_BATCHES[-1]}"
+    return {
+        "name": "fused_step_shapes", "route": "cuda",
         "source": "dxk_tpu_torch/ops/kernels/csrc/fused_step.cu",
         "replaces": "dxk_tpu/ops/pallas/fused_step.py:1177",
         "launches": runs[big]["launches"]["fused_step"],
@@ -1335,6 +1780,9 @@ def main():
     # ---- the ragdoll settle with its hull debris on the fused step
     settle_kernel = settle_phase(args.seed + 5)
 
+    # ---- the golden mixed-shape drop and sphere bounce on the fused step
+    shapes_kernel = shapes_phase(args.seed + 6)
+
     # ---- the box stack on the reference step, each broadphase
     box_kernels = box_stack_phase(args.seed + 3)
 
@@ -1346,7 +1794,8 @@ def main():
             cmp_full[k] for k in ("err_v", "err_w", "err_pos", "err_rot",
                                   "err_imp")),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": None}, zoo_kernel, settle_kernel]
+        "bound_by": b_by, "library_ms": None}, zoo_kernel, settle_kernel,
+        shapes_kernel]
         + box_kernels}),
         flush=True)
     print(smi, flush=True)

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from dxk_tpu_torch.core.maths import sqrt
+
 _PI = 3.14159265358979323846
 _PI_2 = _PI / 2
 _PI_4 = _PI / 4
@@ -44,11 +46,11 @@ def atan2(y, x):
 def acos(x):
     """arccos via atan2(sqrt((1-x)(1+x)), x) — well-conditioned at +-1."""
     xc = torch.clamp(x, -1.0, 1.0)
-    s = torch.sqrt(torch.clamp((1.0 - xc) * (1.0 + xc), min=0.0))
+    s = sqrt(torch.clamp((1.0 - xc) * (1.0 + xc), min=0.0))
     return atan2(s, xc)
 
 
 def asin(x):
     xc = torch.clamp(x, -1.0, 1.0)
-    s = torch.sqrt(torch.clamp((1.0 - xc) * (1.0 + xc), min=0.0))
+    s = sqrt(torch.clamp((1.0 - xc) * (1.0 + xc), min=0.0))
     return atan2(xc, s)

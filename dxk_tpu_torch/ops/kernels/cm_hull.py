@@ -1,5 +1,5 @@
 """Sphere-hull and capsule-hull contacts on component-major lane tuples —
-the plain PyTorch form of the capsule-hull recipe of
+the plain PyTorch form of the sphere-hull and capsule-hull recipes of
 ``csrc/fused_step.cu``, in the same operation order as the JAX package's
 ``ops/pallas/cm_hull.py``.
 
@@ -67,13 +67,13 @@ def _face_mtv(p, planes, plane_valid):
     return best_sd, best_n
 
 
-def sphere_hull_core(sc, sr, verts_list, planes, plane_valid):
+def sphere_hull_core(sc, sr, verts_list, planes, plane_valid, stats=None):
     """Sphere (center sc, radius sr) vs local hull. Returns
     (point, depth, normal, hit): one contact, hull-local frame, normal
-    pointing sphere -> hull. Not dispatched by the fused step yet (the
-    sphere recipes are still to port)."""
+    pointing sphere -> hull. `stats` as in capsule_hull_core ("overlap":
+    the centre is inside the hull)."""
     dist, qa, qb, overlap = gjk_distance(sup_point, sup_verts,
-                                         sc, verts_list)
+                                         sc, verts_list, stats=stats)
     inv_d = 1.0 / _max(dist, 1e-30)
     n_s = _muls(_sub(qb, qa), inv_d)
     depth_s = sr - dist
@@ -88,6 +88,8 @@ def sphere_hull_core(sc, sr, verts_list, planes, plane_valid):
     depth = torch.where(overlap, depth_d, depth_s)
     point = _where(overlap, point_d, point_s)
     hit = overlap | (depth_s >= 0.0)
+    if stats is not None:
+        stats["overlap"] = overlap
     return point, depth, normal, hit
 
 

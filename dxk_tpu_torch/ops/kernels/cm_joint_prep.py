@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from dxk_tpu_torch.core import fastmath as fm
+from dxk_tpu_torch.core.maths import sqrt
 from dxk_tpu_torch.ops.kernels.cm_narrowphase import (_add, _clip, _cross,
                                                       _dot, _max, _muls,
                                                       _neg, _sqlen, _sub,
@@ -57,7 +58,7 @@ def quat_conj_cm(q):
 
 
 def quat_normalize_cm(q):
-    n = torch.sqrt(_max(
+    n = sqrt(_max(
         q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3], 1e-30))
     inv = 1.0 / n
     return (q[0] * inv, q[1] * inv, q[2] * inv, q[3] * inv)
@@ -70,14 +71,14 @@ def quat_from_axis_angle_cm(axis, angle):
 
 
 def normalize_cm(v):
-    inv = 1.0 / torch.sqrt(_max(_sqlen(v), 1e-30))
+    inv = 1.0 / sqrt(_max(_sqlen(v), 1e-30))
     return _muls(v, inv)
 
 
 def noz_cm(v):
     sq = _sqlen(v)
     ok = sq > 1e-12
-    inv = torch.sqrt(1.0 / torch.where(ok, sq, 1.0))
+    inv = sqrt(1.0 / torch.where(ok, sq, 1.0))
     return tuple(torch.where(ok, c * inv, 0.0) for c in v)
 
 
@@ -87,7 +88,7 @@ def rotate_from_to_cm(f, t):
     "local_axis_a_unit"); `t` is normalized here."""
     t = normalize_cm(t)
     d = _dot(f, t)
-    s = torch.sqrt(_max((1.0 + d) * 2.0, 1e-30))
+    s = sqrt(_max((1.0 + d) * 2.0, 1e-30))
     invs = 1.0 / s
     c = _cross(f, t)
     qg = quat_normalize_cm((c[0] * invs, c[1] * invs, c[2] * invs, s * 0.5))
@@ -111,7 +112,7 @@ def get_axis_rotation_cm(q):
     sq = _sqlen(v)
     ok = sq > 0.0
     angle = torch.where(ok, 2.0 * fm.acos(_clip(q[3], -1.0, 1.0)), 0.0)
-    inv_len = torch.where(ok, 1.0 / torch.sqrt(torch.where(ok, sq, 1.0)), 0.0)
+    inv_len = torch.where(ok, 1.0 / sqrt(torch.where(ok, sq, 1.0)), 0.0)
     one = torch.ones_like(sq)
     zero = torch.zeros_like(sq)
     axis = _where(ok, _muls(v, inv_len), (one, zero, zero))
@@ -192,7 +193,7 @@ def distance_rows(js, ctl, bd, dt, inv_dt):
     """solver.prep_distance (constraints.cpp:189-243)."""
     rel_a, rel_b, ga, gb = _anchors(js, bd)
     u = _sub(gb, ga)
-    l = torch.sqrt(_max(_sqlen(u), 0.0))
+    l = sqrt(_max(_sqlen(u), 0.0))
     ok = l > 0.001
     u = tuple(torch.where(ok, c / _max(l, 1e-12), 0.0) for c in u)
     cr_a = _cross(rel_a, u)

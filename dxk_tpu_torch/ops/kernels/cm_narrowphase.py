@@ -4,18 +4,21 @@ narrowphase that ``csrc/fused_step.cu`` computes per pair row.
 Every vec3 is a tuple of 3 same-shaped tensors (shape (B, pairs): env batch
 leading, pair rows minor). Each recipe is the same math, in the same
 operation order, as the JAX package's ``ops/pallas/cm_narrowphase.py``;
-``tests/test_torch_cm_kernels.py`` pins them against each other.
+``tests/test_torch_cm_kernels.py`` and ``tests/test_torch_shapes.py`` (the
+sphere and cylinder recipes) pin them against each other.
 
 Returns per recipe: (points, depths, normal, mask) where points is a list
 of K v3 tuples, depths a list of K tensors, normal one v3, and mask a list
 of K boolean tensors (point k live).
 
-Ported so far: capsule-capsule, capsule-box, box-box (the ragdoll
-locomotion scene's three pair types)."""
+Ported: every recipe of the JAX module, the sphere, capsule, cylinder and
+box pairs (the hull pairs are in cm_hull.py and cm_polytope.py)."""
 
 from __future__ import annotations
 
 import torch
+
+from dxk_tpu_torch.core.maths import sqrt
 
 
 def _max(a, b):
@@ -129,7 +132,7 @@ def closest_point_segment_segment_cm(p1, q1, p2, q2):
 def _normalize_or_up(n):
     """n / |n|, or +Y when degenerate (narrowphase _UP convention)."""
     sq = _sqlen(n)
-    dist = torch.sqrt(_max(sq, 0.0))
+    dist = sqrt(_max(sq, 0.0))
     inv = 1.0 / _max(dist, 1e-30)
     deg = sq == 0.0
     return (_where(deg, (torch.zeros_like(sq), torch.ones_like(sq),
@@ -154,10 +157,10 @@ def capsule_capsule_cm(aa, ab, ar, ba, bb, br):
     """narrowphase.capsule_capsule_contact (collision_narrow.cpp:523-611):
     K=2 points. Returns (pts[2], dps[2], normal, mask[2])."""
     a_dirv = _sub(ab, aa)
-    a_len = torch.sqrt(_max(_sqlen(a_dirv), 0.0))
+    a_len = sqrt(_max(_sqlen(a_dirv), 0.0))
     a_dir = _muls(a_dirv, 1.0 / _max(a_len, 1e-30))
     b_dirv = _sub(bb, ba)
-    b_len = torch.sqrt(_max(_sqlen(b_dirv), 0.0))
+    b_len = sqrt(_max(_sqlen(b_dirv), 0.0))
     b_dir = _muls(b_dirv, 1.0 / _max(b_len, 1e-30))
     par = _dot(a_dir, b_dir)
     is_parallel = torch.abs(par) > 0.99
@@ -313,7 +316,7 @@ def capsule_box_cm(aa, ab, ar, bc, bh, bq):
     d2 = _sqlen(delta)
     inside = d2 <= 1e-12
 
-    dist = torch.sqrt(_max(d2, 1e-30))
+    dist = sqrt(_max(d2, 1e-30))
     n_shallow = _muls(delta, 1.0 / dist)
     depth_shallow = ar - dist
     point_shallow = _muls(_add(_add(s, _muls(n_shallow, ar)), q), 0.5)
@@ -359,7 +362,7 @@ def capsule_box_cm(aa, ab, ar, bc, bh, bq):
     is_face = (absn[0] > 0.99) | (absn[1] > 0.99) | (absn[2] > 0.99)
     axisv = _sub(lb, la)
     axis = _muls(axisv, 1.0 / _max(
-        torch.sqrt(_max(_sqlen(axisv), 0.0)), 1e-30))
+        sqrt(_max(_sqlen(axisv), 0.0)), 1e-30))
     parallel = torch.abs(_dot(normal, axis)) < 0.01
     enrich = is_face & parallel
 
@@ -393,7 +396,7 @@ def get_tangent_cm(n):
     use_x = torch.abs(n[0]) >= 0.57735
     z = torch.zeros_like(n[0])
     t = _where(use_x, (n[1], -n[0], z), (z, n[2], -n[1]))
-    ln = torch.sqrt(_max(_sqlen(t), 0.0))
+    ln = sqrt(_max(_sqlen(t), 0.0))
     return _muls(t, 1.0 / _max(ln, 1e-30))
 
 
@@ -590,7 +593,7 @@ def box_box_cm(ac, ah, aq, bc, bh, bq):
             rb = bh[l1] * absR[i][l2] + bh[l2] * absR[i][l1]
             dist = torch.abs(sum(t[c] * axis[c] for c in range(3)))
             praw = ra + rb - dist
-            ln = torch.sqrt(_max(_sqlen(axis), 0.0))
+            ln = sqrt(_max(_sqlen(axis), 0.0))
             inv_len = 1.0 / _max(ln, 1e-30)
             edge_raw.append(praw)
             edge_pen.append(praw * inv_len)
@@ -705,7 +708,7 @@ def box_box_cm(ac, ah, aq, bc, bh, bq):
     b1 = _add(quat_rotate_cm(bq, b1l), bc)
     c1, c2 = closest_point_segment_segment_cm(a0, a1, b0, b1)
     e_pt = _muls(_add(c1, c2), 0.5)
-    e_dp = torch.sqrt(_max(_sqlen(_sub(c1, c2)), 0.0))
+    e_dp = sqrt(_max(_sqlen(_sub(c1, c2)), 0.0))
 
     pts = [_where(is_edge, e_pt, f_pts[k]) for k in range(4)]
     dps = [torch.where(is_edge, e_dp if k == 0 else zero, f_dps[k])
@@ -715,3 +718,551 @@ def box_box_cm(ac, ah, aq, bc, bh, bq):
     count = torch.where(hit, count, 0)
     masks = [(k < count) for k in range(4)]
     return pts, dps, normal, masks
+
+
+# ===========================================================================
+# sphere recipes
+
+
+def sphere_capsule_cm(sc, sr, ca, cb, cr):
+    """narrowphase.sphere_capsule_contact: sphere vs closest axis point."""
+    closest = closest_point_point_segment_cm(sc, ca, cb)
+    return sphere_sphere_cm(sc, sr, closest, cr)
+
+
+def sphere_box_cm(sc, sr, bc, bh, bq):
+    """narrowphase.sphere_box_contact: rotate-to-local sphere-vs-AABB
+    (collision_narrow.cpp:451-494)."""
+    sc_l = quat_inv_rotate_cm(bq, _sub(sc, bc))
+    p = tuple(_clip(sc_l[i], -bh[i], bh[i]) for i in range(3))
+    n = _sub(p, sc_l)
+    sq = _sqlen(n)
+    hit = sq <= sr * sr
+    dist = sqrt(_max(sq, 0.0))
+    pos = sq > 0.0
+    inv = 1.0 / _max(dist, 1e-30)
+    up = (torch.zeros_like(sq), torch.ones_like(sq), torch.zeros_like(sq))
+    n = _where(pos, _muls(n, inv), up)
+    depth = sr - torch.where(pos, dist, 0.0)
+    point_l = _muls(_add(_add(p, sc_l), _muls(n, sr)), 0.5)
+    normal = quat_rotate_cm(bq, n)
+    point = _add(quat_rotate_cm(bq, point_l), bc)
+    return point, depth, normal, hit
+
+
+# ===========================================================================
+# cylinder recipes
+
+
+def _snap_sign(x):
+    """sign() with components under 1e-6 snapped to 0, so that a witness
+    point does not jump a whole cap or face on float dust."""
+    return torch.sign(torch.where(torch.abs(x) < 1e-6, 0.0, x))
+
+
+def _cyl_support_cm(c, u, hl, r, d):
+    """Cylinder support point along d (cap by snapped axial sign + radial
+    rim)."""
+    cap = _add(c, _muls(u, hl * _snap_sign(_dot(u, d))))
+    radial = _sub(d, _muls(u, _dot(d, u)))
+    rl = sqrt(_max(_sqlen(radial), 0.0))
+    rad = _where(rl > EPSILON,
+                 _muls(radial, r / _max(rl, 1e-30)),
+                 (torch.zeros_like(rl),) * 3)
+    return _add(cap, rad)
+
+
+def sphere_cylinder_cm(sc, sr, ca, cb, cr):
+    """narrowphase.sphere_cylinder_contact (collision_narrow.cpp:408-450):
+    lateral body -> sphere-on-axis; beyond the caps -> cap disk rim/face."""
+    ab = _sub(cb, ca)
+    t = _dot(_sub(sc, ca), ab) / _max(_sqlen(ab), 1e-12)
+    inside = (t >= 0.0) & (t <= 1.0)
+
+    # lateral case
+    on_axis = _add(ca, _muls(ab, t))
+    l_pt, l_dp, l_n, l_hit = sphere_sphere_cm(sc, sr, on_axis, cr)
+
+    # cap case
+    t_lo = t <= 0.0
+    p = _where(t_lo, ca, cb)
+    up = _where(t_lo, _sub(ca, cb), ab)        # -ab when t<=0 else ab
+    proj = _cross(_cross(up, _sub(sc, p)), up)
+    proj = _muls(proj, 1.0 / _max(
+        sqrt(_max(_sqlen(proj), 0.0)), 1e-30))
+    end_a = _add(p, _muls(proj, cr))
+    end_b = _sub(p, _muls(proj, cr))
+    closest = closest_point_point_segment_cm(sc, end_a, end_b)
+    nvec = _sub(closest, sc)
+    sq = _sqlen(nvec)
+    cap_hit = sq <= sr * sr
+    degenerate = sq == 0.0
+    dist = sqrt(_max(sq, 0.0))
+    up_n = _muls(up, 1.0 / _max(
+        sqrt(_max(_sqlen(up), 0.0)), 1e-30))
+    normal = _where(degenerate, (-up_n[0], -up_n[1], -up_n[2]),
+                    _muls(nvec, 1.0 / _max(dist, 1e-30)))
+    depth = sr - torch.where(degenerate, 0.0, dist)
+    point = _add(closest, _muls(nvec, 0.5 * depth))
+    # merge
+    pt = _where(inside, l_pt, point)
+    dp = torch.where(inside, l_dp, depth)
+    nm = _where(inside, l_n, normal)
+    hit = (inside & l_hit) | (~inside & cap_hit)
+    return pt, dp, nm, hit
+
+
+def capsule_cylinder_cm(aa, ab, ar, ba, bb, br):
+    """narrowphase.capsule_cylinder_contact (collision_narrow.cpp:614-704):
+    parallel -> 2-point overlap manifold; else segment-segment closest
+    point -> sphere-cylinder. K=2."""
+    a_dirv = _sub(ab, aa)
+    a_len = sqrt(_max(_sqlen(a_dirv), 0.0))
+    a_dir = _muls(a_dirv, 1.0 / _max(a_len, 1e-30))
+    b_dirv = _sub(bb, ba)
+    b_dir = _muls(b_dirv, 1.0 / _max(
+        sqrt(_max(_sqlen(b_dirv), 0.0)), 1e-30))
+    par = _dot(a_dir, b_dir)
+    is_parallel = torch.abs(par) > 0.99
+
+    swap = par < 0.0
+    p_ba = _where(swap, bb, ba)
+    p_bb = _where(swap, ba, bb)
+    b0 = _dot(a_dir, _sub(p_ba, aa))
+    b1 = _dot(a_dir, _sub(p_bb, aa))
+    left = _max(0.0, b0)
+    right = _min(a_len, b1)
+    overlaps = right >= left
+
+    ca0 = _add(aa, _muls(a_dir, left))
+    ca1 = _add(aa, _muls(a_dir, right))
+    cb0 = closest_point_point_segment_cm(ca0, p_ba, p_bb)
+    cb1 = _add(cb0, _muls(a_dir, right - left))
+    nvec = _sub(cb0, ca0)
+    normal2, d, _deg0 = _normalize_or_up(nvec)
+    deg = d < EPSILON
+    normal2 = _where(deg, (torch.zeros_like(d), torch.ones_like(d),
+                           torch.zeros_like(d)), normal2)
+    pen = (ar + br) - torch.where(deg, 0.0, d)
+    two_hit = overlaps & (pen >= 0.0)
+    p2_0 = _muls(_add(ca0, cb0), 0.5)
+    p2_1 = _muls(_add(ca1, cb1), 0.5)
+
+    # parallel but no axial overlap: capsule end sphere vs cylinder
+    use_a0 = 0.0 > b1
+    s_end = _where(use_a0, aa, ab)
+    e_pt, e_dp, e_n, e_hit = sphere_cylinder_cm(s_end, ar, ba, bb, br)
+
+    # non-parallel: closest points -> sphere-cylinder
+    c1, _c2 = closest_point_segment_segment_cm(aa, ab, ba, bb)
+    g_pt, g_dp, g_n, g_hit = sphere_cylinder_cm(c1, ar, ba, bb, br)
+
+    one_pt = _where(is_parallel, e_pt, g_pt)
+    one_dp = torch.where(is_parallel, e_dp, g_dp)
+    one_n = _where(is_parallel, e_n, g_n)
+    one_hit = (is_parallel & e_hit) | (~is_parallel & g_hit)
+
+    use2 = is_parallel & overlaps
+    pt0 = _where(use2, p2_0, one_pt)
+    dp0 = torch.where(use2, pen, one_dp)
+    normal = _where(use2, normal2, one_n)
+    m0 = (use2 & two_hit) | (~use2 & one_hit)
+    pt1 = p2_1
+    dp1 = pen
+    m1 = use2 & two_hit
+    return [pt0, pt1], [dp0, dp1], normal, [m0, m1]
+
+
+def _fixed_point(step, p, iters, stats):
+    """`iters` rounds of p <- step(p). When `stats` is a dict,
+    stats["iterations"] receives, per lane, the rounds run until an iterate
+    equals the one before bit for bit (from there every later round gives
+    the same point; the kernel stops there)."""
+    done = torch.zeros_like(p[0], dtype=torch.bool)
+    n = torch.zeros_like(p[0], dtype=torch.int32)
+    for _ in range(iters):
+        pn = step(p)
+        if stats is not None:
+            n = n + (~done).to(torch.int32)
+            same = ((pn[0].view(torch.int32) == p[0].view(torch.int32))
+                    & (pn[1].view(torch.int32) == p[1].view(torch.int32))
+                    & (pn[2].view(torch.int32) == p[2].view(torch.int32)))
+            done = done | same
+        p = pn
+    if stats is not None:
+        stats["iterations"] = n
+    return p
+
+
+def _branch_stats(stats, ring, tube):
+    """Which manifold a cylinder recipe built, per lane: "ring" (4-point
+    cap ring), "tube" (2-point lying-tube manifold), else "single"."""
+    if stats is not None:
+        stats["branch"] = torch.where(ring, 0, torch.where(tube, 1, 2))
+
+
+def cylinder_box_cm(aa, ab, ar, bc, bh, bq, stats=None):
+    """narrowphase.cylinder_box_contact (collision_narrow.cpp:953-1043
+    behavior, analytic redesign): K=4. Exact boolean (axis distance +
+    solid-cylinder alternating projection), exact tube contacts, SAT-MTV
+    candidates for cap/deep contacts, then face-clip (2 points) / cap-rim
+    ring (4 points) enrichment. Returns (pts[4], dps[4], normal, mask[4])
+    in WORLD space. When `stats` is a dict it receives the manifold kind
+    per lane (_branch_stats) and the alternating projection's rounds."""
+    la = quat_inv_rotate_cm(bq, _sub(aa, bc))
+    lb = quat_inv_rotate_cm(bq, _sub(ab, bc))
+
+    axis_v = _sub(lb, la)
+    alen = sqrt(_max(_sqlen(axis_v), 0.0))
+    u = _muls(axis_v, 1.0 / _max(alen, 1e-30))
+    hl = 0.5 * alen
+    cc = _muls(_add(la, lb), 0.5)
+    zero = torch.zeros_like(ar)
+    one = torch.ones_like(ar)
+    up = (zero, one, zero)
+
+    # ---- exact boolean ----
+    s, q = _segment_box_closest_cm(la, lb, bh)
+    delta = _sub(q, s)
+    d2 = _sqlen(delta)
+    dist_axis = sqrt(_max(d2, 1e-30))
+    # threshold well above alternating-projection float dust
+    dir_thr = _max(1e-3 * ar, 1e-6)
+    have_dir = d2 > dir_thr * dir_thr
+    tube_case = have_dir & (torch.abs(_dot(delta, u)) <= 1e-4 * dist_axis)
+
+    # solid-cylinder / box alternating projection (32 rounds)
+    def step(p):
+        qq = tuple(_clip(p[i], -bh[i], bh[i]) for i in range(3))
+        w = _sub(qq, cc)
+        t = _clip(_dot(w, u), -hl, hl)
+        rad = _sub(w, _muls(u, _dot(w, u)))
+        rl = sqrt(_max(_sqlen(rad), 0.0))
+        scale = _min(1.0, ar / _max(rl, 1e-30))
+        return _add(_add(cc, _muls(u, t)), _muls(rad, scale))
+
+    p = _fixed_point(step, cc, 32, stats)
+    qq = tuple(_clip(p[i], -bh[i], bh[i]) for i in range(3))
+    d_cb2 = _sqlen(_sub(qq, p))
+    touch = _max(1e-3 * ar, 1e-5)
+    cap_hit = d_cb2 <= touch * touch
+
+    # ---- tube contact: exact (the capsule formula) ----
+    n_tube = _where(have_dir, _muls(delta, 1.0 / dist_axis), up)
+    depth_tube = ar - dist_axis
+    point_tube = _muls(_add(_add(s, _muls(n_tube, ar)), q), 0.5)
+
+    # ---- cap/deep contact: SAT-MTV over the candidate axes ----
+    def overlap(n):
+        rb = bh[0] * torch.abs(n[0]) + bh[1] * torch.abs(n[1]) \
+            + bh[2] * torch.abs(n[2])
+        un = _dot(u, n)
+        rc = hl * torch.abs(un) + ar * sqrt(
+            _max(1.0 - un * un, 0.0))
+        return rb + rc - torch.abs(_dot(cc, n))
+
+    big = 3.4e38
+    best_ov = torch.full_like(ar, big)
+    best_n = up
+    best_id = torch.full_like(ar, -1.0)
+
+    def consider(bo, bn, bi, n, valid, cid):
+        # SAT_TIE_TOL relative tie-breaking
+        ov = overlap(n) if valid is None else torch.where(valid, overlap(n),
+                                                          big)
+        take = ov < bo - SAT_TIE_TOL * (torch.abs(ov) + torch.abs(bo))
+        return (torch.where(take, ov, bo), _where(take, n, bn),
+                torch.where(take, cid, bi))
+
+    ex = (one, zero, zero)
+    ey = (zero, one, zero)
+    ez = (zero, zero, one)
+    for i, e in enumerate((ex, ey, ez)):                  # box faces
+        best_ov, best_n, best_id = consider(
+            best_ov, best_n, best_id, e, None, float(i))
+    best_ov, best_n, best_id = consider(                  # cylinder axis
+        best_ov, best_n, best_id, u, alen > EPSILON, 3.0)
+    for i, e in enumerate((ex, ey, ez)):                  # u x box edges
+        wax = _cross(u, e)
+        wl = sqrt(_max(_sqlen(wax), 0.0))
+        wn = _muls(wax, 1.0 / _max(wl, 1e-30))
+        best_ov, best_n, best_id = consider(
+            best_ov, best_n, best_id, wn, wl > 1e-6, 4.0 + i)
+    best_ov, best_n, best_id = consider(                  # lateral closest
+        best_ov, best_n, best_id, n_tube, have_dir, 7.0)
+
+    sgn = torch.where(_dot(cc, best_n) >= 0.0, 1.0, -1.0)
+    n_sat = _muls(best_n, -sgn)                           # points cyl -> box
+    depth_sat = best_ov
+
+    # witness point by winning feature
+    pa_face = _cyl_support_cm(cc, u, hl, ar, n_sat)
+    pt_face = _sub(pa_face, _muls(n_sat, 0.5 * depth_sat))
+    pb_u = tuple(_snap_sign(-n_sat[i]) * bh[i] for i in range(3))
+    pt_u = _add(pb_u, _muls(n_sat, 0.5 * depth_sat))
+    pt_mid = _muls(_add(pa_face, pb_u), 0.5)
+    pt_lat = _where(have_dir,
+                    _muls(_add(_add(s, _muls(n_sat, ar)), q), 0.5), pt_mid)
+    point_sat = _where(best_id < 2.5, pt_face,
+                       _where((best_id > 2.5) & (best_id < 3.5),
+                              pt_u, pt_lat))
+
+    # tube direction wins only when it is the smaller pushout
+    use_tube = tube_case & (depth_tube <= depth_sat)
+    normal = _where(use_tube, n_tube, n_sat)
+    depth = torch.where(use_tube, depth_tube, depth_sat)
+    point = _where(use_tube, point_tube, point_sat)
+
+    hit = (dist_axis <= ar) & (depth_sat >= 0.0) & (tube_case | cap_hit)
+
+    # ---- enrichment ----
+    absn = (torch.abs(normal[0]), torch.abs(normal[1]), torch.abs(normal[2]))
+    is_face = (absn[0] > 0.99) | (absn[1] > 0.99) | (absn[2] > 0.99)
+    axis_n = _muls(axis_v, 1.0 / _max(
+        sqrt(_max(_sqlen(axis_v), 0.0)), 1e-30))
+    cos_angle = torch.abs(_dot(normal, axis_n))
+    enrich = is_face & (cos_angle < 0.01)
+
+    e0p, e1p, dp_e0, dp_e1, m_e0, m_e1, clip_ok = _face_clip_segment_cm(
+        la, lb, ar, bh, normal)
+    use = enrich & clip_ok & (m_e0 | m_e1)
+
+    pt0 = _where(use, _where(m_e0, e0p, e1p), point)
+    dp0 = torch.where(use, torch.where(m_e0, dp_e0, dp_e1), depth)
+    m0 = (use & (m_e0 | m_e1)) | (~use & hit)
+    pt1 = e1p
+    dp1 = dp_e1
+    m1 = use & m_e0 & m_e1
+
+    # cap flat on a box face: 4-point rim ring
+    cap_case = is_face & (cos_angle > 0.99)
+    pick_a = _dot(la, normal) > _dot(lb, normal)
+    cap_c = _where(pick_a, la, lb)
+    t1c = get_tangent_cm(normal)
+    t2c = _cross(normal, t1c)
+    rr = ar * 0.95
+    r0 = _add(cap_c, _muls(t1c, rr))
+    r1 = _sub(cap_c, _muls(t1c, rr))
+    r2 = _add(cap_c, _muls(t2c, rr))
+    r3 = _sub(cap_c, _muls(t2c, rr))
+
+    pt0 = _where(cap_case, r0, pt0)
+    pt1 = _where(cap_case, r1, pt1)
+    pt2 = r2
+    pt3 = r3
+    dp0 = torch.where(cap_case, depth, dp0)
+    dp1 = torch.where(cap_case, depth, dp1)
+    dp2 = depth
+    dp3 = depth
+    m0 = (cap_case & hit) | (~cap_case & m0 & hit)
+    m1 = (cap_case & hit) | (~cap_case & m1 & hit)
+    m2 = cap_case & hit
+    m3 = cap_case & hit
+    _branch_stats(stats, cap_case & hit, ~cap_case & m1)
+
+    def to_world(pp):
+        return _add(quat_rotate_cm(bq, pp), bc)
+
+    nrm_w = quat_rotate_cm(bq, normal)
+    return ([to_world(pt0), to_world(pt1), to_world(pt2), to_world(pt3)],
+            [dp0, dp1, dp2, dp3], nrm_w, [m0, m1, m2, m3])
+
+
+def cylinder_cylinder_cm(aa, ab, ar, ba, bb, br, stats=None):
+    """narrowphase.cylinder_cylinder_contact (collision_narrow.cpp:821-951
+    behavior, analytic non-parallel path): K=4. Parallel: cap-to-cap
+    4-point ring / tube-to-tube 2 points; otherwise exact boolean + SAT-MTV
+    single point. Returns (pts[4], dps[4], normal, mask[4]) in WORLD space.
+    `stats` as in cylinder_box_cm."""
+    zero = torch.zeros_like(ar)
+    one = torch.ones_like(ar)
+    up = (zero, one, zero)
+
+    a_dirv = _sub(ab, aa)
+    a_len = sqrt(_max(_sqlen(a_dirv), 0.0))
+    a_dir = _muls(a_dirv, 1.0 / _max(a_len, 1e-30))
+    b_dirv = _sub(bb, ba)
+    b_len = sqrt(_max(_sqlen(b_dirv), 0.0))
+    b_dir = _muls(b_dirv, 1.0 / _max(b_len, 1e-30))
+    par = _dot(a_dir, b_dir)
+    is_parallel = torch.abs(par) > 0.99
+
+    # ---- parallel branch (orient b along a, 1D intervals) ----
+    swap = par < 0.0
+    p_ba = _where(swap, bb, ba)
+    p_bb = _where(swap, ba, bb)
+    b0 = _dot(a_dir, _sub(p_ba, aa))
+    b1 = _dot(a_dir, _sub(p_bb, aa))
+    left = _max(0.0, b0)
+    right = _min(a_len, b1)
+    overlaps = right >= left
+
+    ca0 = _add(aa, _muls(a_dir, left))
+    ca1 = _add(aa, _muls(a_dir, right))
+    cb0 = closest_point_point_segment_cm(ca0, p_ba, p_bb)
+    cb1 = _add(cb0, _muls(a_dir, right - left))
+    nvec = _sub(cb0, ca0)
+    d = sqrt(_max(_sqlen(nvec), 0.0))
+    pen = (ar + br) - d
+    radial_hit = pen >= 0.0
+
+    cap_pen = right - left
+    cap_first = cap_pen < pen
+    b_right = b0 > 0.0
+    cap_normal = _where(b_right, a_dir, _neg(a_dir))
+    cap_point = _where(b_right,
+                       _sub(ab, _muls(a_dir, 0.5 * cap_pen)),
+                       _add(aa, _muls(a_dir, 0.5 * cap_pen)))
+
+    degen = d < EPSILON
+    t_normal = _where(degen, up, _muls(nvec, 1.0 / _max(d, 1e-30)))
+
+    # tube-to-tube 2 points
+    tt0 = _muls(_add(ca0, cb0), 0.5)
+    tt1 = _muls(_add(ca1, cb1), 0.5)
+
+    # cap-to-cap 4-point ring on the cap-disk intersection lens
+    lat = _sub(nvec, _muls(a_dir, _dot(nvec, a_dir)))
+    dl = sqrt(_max(_sqlen(lat), 0.0))
+    lat_ok = dl > EPSILON
+    lat_dir = _where(lat_ok, _muls(lat, 1.0 / _max(dl, 1e-30)),
+                     get_tangent_cm(a_dir))
+    lo = _max(-ar, dl - br)
+    hi = _min(ar, dl + br)
+    re = _max(0.5 * (hi - lo), 0.0)
+    c_off = 0.5 * (lo + hi)
+    ring_c = _add(cap_point, _muls(lat_dir, c_off))
+    t1v = lat_dir
+    t2v = _cross(cap_normal, t1v)
+    r0 = _add(ring_c, _muls(t1v, re))
+    r1 = _sub(ring_c, _muls(t1v, re))
+    r2 = _add(ring_c, _muls(t2v, re))
+    r3 = _sub(ring_c, _muls(t2v, re))
+    ring_ok = re > EPSILON
+
+    par_hit = overlaps & radial_hit
+
+    # ---- non-parallel analytic ----
+    ca_c = _muls(_add(aa, ab), 0.5)
+    cb_c = _muls(_add(ba, bb), 0.5)
+    a_hl = 0.5 * a_len
+    b_hl = 0.5 * b_len
+    rsum = ar + br
+
+    c1, c2 = closest_point_segment_segment_cm(aa, ab, ba, bb)
+    gdelta = _sub(c2, c1)
+    dsq = _sqlen(gdelta)
+    gdist = sqrt(_max(dsq, 1e-30))
+    g_thr = _max(1e-3 * _max(ar, br), 1e-6)
+    g_have = dsq > g_thr * g_thr
+    perp = g_have & (torch.abs(_dot(gdelta, a_dir)) <= 1e-4 * gdist) \
+        & (torch.abs(_dot(gdelta, b_dir)) <= 1e-4 * gdist)
+    n_tt = _where(g_have, _muls(gdelta, 1.0 / gdist), up)
+    depth_tt = rsum - gdist
+    point_tt = _muls(_add(_add(c1, _muls(n_tt, ar)),
+                          _sub(c2, _muls(n_tt, br))), 0.5)
+
+    def _proj_cyl(x, c, uax, hl, r):
+        w = _sub(x, c)
+        wu = _dot(w, uax)
+        t = _clip(wu, -hl, hl)
+        rad = _sub(w, _muls(uax, wu))
+        rl = sqrt(_max(_sqlen(rad), 0.0))
+        scale = _min(1.0, r / _max(rl, 1e-30))
+        return _add(_add(c, _muls(uax, t)), _muls(rad, scale))
+
+    def step(p):
+        qq = _proj_cyl(p, cb_c, b_dir, b_hl, br)
+        return _proj_cyl(qq, ca_c, a_dir, a_hl, ar)
+
+    p = _fixed_point(step, ca_c, 32, stats)
+    qq = _proj_cyl(p, cb_c, b_dir, b_hl, br)
+    d_cc2 = _sqlen(_sub(qq, p))
+    g_touch = _max(1e-3 * _max(ar, br), 1e-5)
+    g_caphit = d_cc2 <= g_touch * g_touch
+
+    def cyl_radius_on(n, uax, hl, r):
+        un = _dot(uax, n)
+        return hl * torch.abs(un) + r * sqrt(
+            _max(1.0 - un * un, 0.0))
+
+    dc = _sub(cb_c, ca_c)
+
+    def g_overlap(n):
+        return (cyl_radius_on(n, a_dir, a_hl, ar)
+                + cyl_radius_on(n, b_dir, b_hl, br)
+                - torch.abs(_dot(dc, n)))
+
+    big = 3.4e38
+    g_bo = torch.full_like(ar, big)
+    g_bn = up
+    g_bi = torch.full_like(ar, -1.0)
+
+    def g_consider(bo, bn, bi, n, valid, cid):
+        ov = torch.where(valid, g_overlap(n), big)
+        take = ov < bo - SAT_TIE_TOL * (torch.abs(ov) + torch.abs(bo))
+        return (torch.where(take, ov, bo), _where(take, n, bn),
+                torch.where(take, cid, bi))
+
+    g_bo, g_bn, g_bi = g_consider(g_bo, g_bn, g_bi, a_dir,
+                                  a_len > EPSILON, 0.0)
+    g_bo, g_bn, g_bi = g_consider(g_bo, g_bn, g_bi, b_dir,
+                                  b_len > EPSILON, 1.0)
+    xax = _cross(a_dir, b_dir)
+    xl = sqrt(_max(_sqlen(xax), 0.0))
+    g_bo, g_bn, g_bi = g_consider(
+        g_bo, g_bn, g_bi, _muls(xax, 1.0 / _max(xl, 1e-30)),
+        xl > 1e-6, 2.0)
+    g_bo, g_bn, g_bi = g_consider(g_bo, g_bn, g_bi, n_tt, g_have, 3.0)
+
+    g_sgn = torch.where(_dot(dc, g_bn) >= 0.0, 1.0, -1.0)
+    n_gsat = _muls(g_bn, g_sgn)                            # points A -> B
+    depth_gsat = g_bo
+
+    pb_sup = _cyl_support_cm(cb_c, b_dir, b_hl, br, _neg(n_gsat))
+    pa_sup = _cyl_support_cm(ca_c, a_dir, a_hl, ar, n_gsat)
+    pt_capa = _add(pb_sup, _muls(n_gsat, 0.5 * depth_gsat))
+    pt_capb = _sub(pa_sup, _muls(n_gsat, 0.5 * depth_gsat))
+    pt_glat = _where(g_have,
+                     _muls(_add(_add(c1, _muls(n_gsat, ar)),
+                                _sub(c2, _muls(n_gsat, br))), 0.5),
+                     _muls(_add(pa_sup, pb_sup), 0.5))
+    point_gsat = _where(g_bi < 0.5, pt_capa,
+                        _where((g_bi > 0.5) & (g_bi < 1.5),
+                               pt_capb, pt_glat))
+
+    use_tt = perp & (depth_tt <= depth_gsat)
+    g_nrm = _where(use_tt, n_tt, n_gsat)
+    g_depth = torch.where(use_tt, depth_tt, depth_gsat)
+    g_point = _where(use_tt, point_tt, point_gsat)
+    g_hit = (gdist <= rsum) & (depth_gsat >= 0.0) & (perp | g_caphit)
+
+    # ---- assemble K=4 slots (priority: parallel ring > tube-2 > single)
+    use_ring = is_parallel & par_hit & cap_first & ring_ok
+    use_cap1 = is_parallel & par_hit & cap_first & ~ring_ok
+    use_tube2 = is_parallel & par_hit & ~cap_first
+    use_np = ~is_parallel
+
+    pt0 = _where(use_ring, r0,
+          _where(use_cap1, cap_point,
+          _where(use_tube2, tt0, g_point)))
+    dp0 = torch.where(use_ring | use_cap1, cap_pen,
+          torch.where(use_tube2, pen, g_depth))
+    pt1 = _where(use_ring, r1, tt1)
+    dp1 = torch.where(use_ring, cap_pen, pen)
+    pt2 = r2
+    dp2 = cap_pen
+    pt3 = r3
+    dp3 = cap_pen
+
+    normal = _where(use_ring | use_cap1, cap_normal,
+             _where(use_tube2, t_normal, g_nrm))
+
+    m0 = (is_parallel & par_hit) | (use_np & g_hit)
+    m1 = use_ring | use_tube2
+    m2 = use_ring
+    m3 = use_ring
+    _branch_stats(stats, use_ring, use_tube2)
+
+    return ([pt0, pt1, pt2, pt3], [dp0, dp1, dp2, dp3], normal,
+            [m0, m1, m2, m3])

@@ -1,8 +1,8 @@
 """Convex-polytope contacts on component-major lane tuples — exact SAT +
-reference-face clipping for box-hull and hull-hull pairs: the plain
-PyTorch form of the box-hull and hull-hull recipes of
-``csrc/fused_step.cu``, in the same operation order as the JAX package's
-``ops/pallas/cm_polytope.py``.
+reference-face clipping for box-hull and hull-hull pairs, candidate-axis
+SAT for cylinder-hull: the plain PyTorch form of the box-hull, hull-hull
+and cylinder-hull recipes of ``csrc/fused_step.cu``, in the same operation
+order as the JAX package's ``ops/pallas/cm_polytope.py``.
 
 For two polytopes the separating-axis set {face normals of A, face
 normals of B, edge-direction cross products} is finite and complete, so
@@ -21,17 +21,16 @@ Inputs are WORLD-space lists:
   loops:  list[F] of (list[LM] of v3, length lane)   ordered CCW around n
   edges:  list[E] of (d v3, valid)  unique unit edge directions
 Loops are padded to a COMMON LM on both sides (repeat the last point).
-
-The cylinder-hull recipe of the JAX module waits for the cylinder slice.
 """
 
 from __future__ import annotations
 
 import torch
 
+from dxk_tpu_torch.core.maths import sqrt
 from dxk_tpu_torch.ops.kernels.cm_narrowphase import (
-    SAT_TIE_TOL, _add, _clip_one_plane_cm, _cross, _dot, _max, _muls, _neg,
-    _project_filter_cm, _reduce_manifold_cm, _sqlen, _sub, _where,
+    SAT_TIE_TOL, _add, _clip, _clip_one_plane_cm, _cross, _dot, _max, _muls,
+    _neg, _project_filter_cm, _reduce_manifold_cm, _sqlen, _sub, _where,
     quat_rotate_cm)
 
 _BIG = 3.4e38
@@ -124,7 +123,7 @@ def _edge_scan(edges_a, edges_b, verts_a, verts_b, ca, cb):
             ax = _cross(da, db)
             l2 = _sqlen(ax)
             ok = va & vb & (l2 > 1e-10)
-            axn = _muls(ax, 1.0 / torch.sqrt(_max(l2, 1e-30)))
+            axn = _muls(ax, 1.0 / sqrt(_max(l2, 1e-30)))
             s = torch.where(_dot(axn, cab) < 0.0, -1.0, 1.0)
             axn = _muls(axn, s)
             mxa = _dot(verts_a[0], axn)
@@ -332,3 +331,133 @@ def hull_hull_cm(hulls_world_a, hulls_world_b, stats=None):
     va, fa, la, ea = hulls_world_a
     vb, fb, lb, eb = hulls_world_b
     return polytope_polytope_core(va, fa, la, ea, vb, fb, lb, eb, stats)
+
+
+# ===========================================================================
+# cylinder-hull: candidate-axis SAT, single contact
+
+
+def cylinder_hull_cm(ca, cb2, cr, hulls_world, stats=None):
+    """Cylinder (axis endpoints ca..cb2, radius cr) vs hull. The cylinder
+    is smooth, so the SAT runs over a candidate axis set that covers every
+    feature pairing: the hull's face normals, the cylinder axis, hull edge
+    direction x cylinder axis, and the direction from the clamped closest
+    axis point to each hull vertex. The cylinder's projection along a unit
+    axis n is centre +- (h |n.a| + r sqrt(1 - (n.a)^2)), exact, so each
+    candidate's overlap is exact. Then 8 rounds of support-witness descent
+    from the best axis (keeping the minimum), and a 16-iteration distance
+    GJK decides the boolean (the candidates can miss a separating axis in
+    rim-vs-edge configurations); the SAT gives the depth. Returns
+    (pts[1], dps[1], normal (cyl->hull), masks[1]). When `stats` is a
+    dict it receives "sat" (the SAT found no separating axis), "gate" (the
+    GJK found the shapes touching) and the GJK's "iterations"."""
+    verts_h, faces_h, _loops_h, edges_h = hulls_world
+    m = _muls(_add(ca, cb2), 0.5)
+    axv = _sub(cb2, ca)
+    hlen = 0.5 * sqrt(_max(_sqlen(axv), 0.0))
+    adir = _muls(axv, 1.0 / _max(2.0 * hlen, 1e-30))
+    zero = torch.zeros_like(cr)
+
+    def cyl_interval(n):
+        na = _dot(n, adir)
+        perp = sqrt(_max(1.0 - na * na, 0.0))
+        half = hlen * torch.abs(na) + cr * perp
+        c = _dot(m, n)
+        return c - half, c + half
+
+    best_ov = torch.full_like(zero, _BIG)
+    best_n = (zero, zero, torch.ones_like(zero))
+    separated = zero > torch.ones_like(zero)
+
+    def consider(best_ov, best_n, separated, n, valid):
+        # two-sided overlap; normal oriented cylinder -> hull
+        mna, mxa = cyl_interval(n)
+        mnb, mxb = _interval(verts_h, n)
+        d1 = mxa - mnb
+        d2 = mxb - mna
+        ov = torch.minimum(d1, d2)
+        nd = _where(d1 <= d2, n, _neg(n))
+        separated = separated | (valid & (ov < 0.0))
+        ov = torch.where(valid, ov, _BIG)
+        upd = ov < best_ov - (SAT_TIE_TOL * (torch.abs(best_ov)
+                                             + torch.abs(ov)) + 1e-9)
+        return (torch.where(upd, ov, best_ov), _where(upd, nd, best_n),
+                separated)
+
+    for n, valid in faces_h:
+        best_ov, best_n, separated = consider(
+            best_ov, best_n, separated, n, valid)
+    true = torch.ones_like(zero) > zero
+    best_ov, best_n, separated = consider(
+        best_ov, best_n, separated, adir, true)
+    for d, valid in edges_h:
+        cx = _cross(d, adir)
+        l2 = _sqlen(cx)
+        ok = valid & (l2 > 1e-10)
+        cxn = _muls(cx, 1.0 / sqrt(_max(l2, 1e-30)))
+        best_ov, best_n, separated = consider(
+            best_ov, best_n, separated, cxn, ok)
+    for v in verts_h:
+        # direction from the clamped closest axis point to the vertex
+        w = _sub(v, m)
+        t = _clip(_dot(w, adir), -hlen, hlen)
+        perp = _sub(w, _muls(adir, t))
+        l2 = _sqlen(perp)
+        ok = l2 > 1e-10
+        pn = _muls(perp, 1.0 / sqrt(_max(l2, 1e-30)))
+        best_ov, best_n, separated = consider(
+            best_ov, best_n, separated, pn, ok)
+
+    # ---- support-witness descent: at a local optimum of
+    # overlap(n) = max_cyl(n) - min_hull(n) the witness difference is
+    # parallel to n, so iterate n <- normalize(sign(ov) * (w_c - w_h)) from
+    # the best SAT axis, keeping the minimum
+    def cyl_support(n):
+        na = _dot(n, adir)
+        perp = _sub(n, _muls(adir, na))
+        pl = sqrt(_max(_sqlen(perp), 0.0))
+        pdir = _muls(perp, 1.0 / _max(pl, 1e-30))
+        sgn = torch.where(na >= 0.0, 1.0, -1.0)
+        return _add(m, _add(_muls(adir, hlen * sgn),
+                            _muls(pdir, torch.where(pl > 1e-6, cr, 0.0))))
+
+    def overlap_along(n):
+        na = _dot(n, adir)
+        half = hlen * torch.abs(na) + cr * sqrt(
+            _max(1.0 - na * na, 0.0))
+        mn_h, _ = _interval(verts_h, n)
+        return _dot(m, n) + half - mn_h
+
+    probe_n, probe_ov = best_n, best_ov
+    for _ in range(8):
+        w_c = cyl_support(probe_n)
+        w_h = _support(verts_h, _neg(probe_n))
+        d = _sub(w_c, w_h)
+        d = _muls(d, torch.where(probe_ov >= 0.0, 1.0, -1.0))
+        dl = sqrt(_max(_sqlen(d), 0.0))
+        ok = dl > 1e-9
+        probe_n = _where(ok, _muls(d, 1.0 / _max(dl, 1e-30)), probe_n)
+        probe_ov = overlap_along(probe_n)
+        take = probe_ov < best_ov
+        best_ov = torch.where(take, probe_ov, best_ov)
+        best_n = _where(take, probe_n, best_n)
+
+    # ---- boolean gate: distance GJK, exact for separated convex shapes
+    from dxk_tpu_torch.ops.kernels.cm_hull import sup_verts
+    from dxk_tpu_torch.ops.kernels.gjk_distance import gjk_distance
+
+    def sup_cyl(params, d):
+        return cyl_support(d)
+
+    dist, _qa, _qb, overlap = gjk_distance(
+        sup_cyl, sup_verts, None, verts_h, max_iterations=16, stats=stats)
+    sat = (best_ov >= 0.0) & ~separated
+    gate = overlap | (dist < 1e-5)
+    hit = sat & gate
+    n = best_n                                   # cylinder -> hull
+    # the cylinder's support point along +n, pulled back half the depth
+    pt = _sub(cyl_support(n), _muls(n, 0.5 * best_ov))
+    if stats is not None:
+        stats["sat"] = sat
+        stats["gate"] = gate
+    return [pt], [best_ov], n, [hit]

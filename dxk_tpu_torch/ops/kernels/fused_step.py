@@ -38,12 +38,13 @@ version.
 Solve semantics = the JAX package's averaged ("jacobi") mode; see
 batched_solver.py.
 
-Ported so far: capsule-capsule, capsule-box, box-box, capsule-hull
-(distance GJK, cm_hull.py), box-hull and hull-hull (polytope SAT + clip,
-cm_polytope.py) pair groups, all six joint types (distance, ball, fixed,
-hinge, cone-twist, slider), one contact phase or several, joint prep in
-the kernel. Other recipes, the sequential (``fused_seq``) mode and
-prep-passed groups (heightfield) raise NotImplementedError.
+Ported: all 15 shape-pair recipes (sphere, capsule, cylinder, box and
+hull against each other; the hull recipes over the distance GJK of
+gjk_distance.py, cm_hull.py, and the polytope SAT of cm_polytope.py), all
+six joint types (distance, ball, fixed, hinge, cone-twist, slider), one
+contact phase or several, joint prep in the kernel. The sequential
+(``fused_seq``) mode and prep-passed groups (heightfield) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ from typing import List
 import numpy as np
 import torch
 
+from dxk_tpu_torch.core.maths import sqrt
 from dxk_tpu_torch.ops.kernels import build
 from dxk_tpu_torch.ops.kernels import cm_hull as ch
 from dxk_tpu_torch.ops.kernels import cm_narrowphase as cm
@@ -71,10 +73,15 @@ from dxk_tpu_torch.ops.kernels.cm_joint_prep import (CTL_FIELDS, ROW_BUILDERS,
 # shape-type pairs with a recipe in both the plain version and the kernel,
 # and the recipe id the kernel switches on
 CM_RECIPES = {(1, 1): 0, (1, 3): 1, (3, 3): 2, (1, 4): 3, (3, 4): 4,
-              (4, 4): 5}
+              (4, 4): 5, (0, 0): 6, (0, 1): 7, (0, 2): 8, (0, 3): 9,
+              (0, 4): 10, (1, 2): 11, (2, 2): 12, (2, 3): 13, (2, 4): 14}
 RECIPE_NAMES = {0: "capsule_capsule", 1: "capsule_box", 2: "box_box",
-                3: "capsule_hull", 4: "box_hull", 5: "hull_hull"}
-HULL_RECIPES = {(1, 4), (3, 4), (4, 4)}
+                3: "capsule_hull", 4: "box_hull", 5: "hull_hull",
+                6: "sphere_sphere", 7: "sphere_capsule", 8: "sphere_cylinder",
+                9: "sphere_box", 10: "sphere_hull", 11: "capsule_cylinder",
+                12: "cylinder_cylinder", 13: "cylinder_box",
+                14: "cylinder_hull"}
+HULL_RECIPES = {(0, 4), (1, 4), (2, 4), (3, 4), (4, 4)}
 # largest padded hull the kernel's polytope recipes hold per thread: world
 # vertices of each side, and clip slots 2 * LM (csrc/fused_step.cu)
 MAX_HULL_VERTS = 32
@@ -212,6 +219,9 @@ class FusedTables:
                     g.hull_a = _hull_rows(hulls, t(m["hull_a"]))
             self.groups.append(g)
         self.phase_groups = phase_partition([m["phase"] for m in metas])
+        # rows of a sphere or cylinder recipe (ids from 6 on): only the
+        # library built with those recipes launches for them
+        self.has_shapes = any(CM_RECIPES[m["key"]] >= 6 for m in metas)
         self.num_rows = sum(m["pg"] for m in metas)
         self.col_r = scene.colliders.r.to(dev).float().contiguous()
 
@@ -360,7 +370,8 @@ class FusedTables:
         return ([batch, self.num_bodies, self.num_colliders, self.num_rows,
                  self.num_phases, self.ctl_rows + 1, self.num_points,
                  int(num_iterations)] + self.ioffs + self.foffs
-                + self.joint_desc + self.hull_offs + list(self.hull_dims))
+                + self.joint_desc + self.hull_offs + list(self.hull_dims)
+                + [int(self.has_shapes)])
 
     def threads(self) -> int:
         """Block size: one thread per pair row (rounded up to a warp, at
@@ -422,26 +433,52 @@ def _hull_world(h, pos, quat, LM):
 def _narrow_native(group, pa, pb, stats=None):
     """Dispatch a contact recipe. pa/pb: (a3, b3, r, q4) per side, side a
     the lower shape type. Returns (pts[K] v3, dps[K], normal, mask[K]).
-    `stats` (a dict or None) collects the hull recipes' branch data."""
+    `stats` (a dict or None) collects the branch data of the recipes that
+    keep it (hull, cylinder-box and cylinder-cylinder)."""
     a3, b3a, ra, qa = pa
     a3b, b3b, rb, qb = pb
     key = group.meta["key"]
+    if key[0] == 0 and key[1] < 4:                  # one-point sphere recipes
+        if key == (0, 0):
+            p, d, n, h = cm.sphere_sphere_cm(a3, ra, a3b, rb)
+        elif key == (0, 1):
+            p, d, n, h = cm.sphere_capsule_cm(a3, ra, a3b, b3b, rb)
+        elif key == (0, 2):
+            p, d, n, h = cm.sphere_cylinder_cm(a3, ra, a3b, b3b, rb)
+        else:
+            p, d, n, h = cm.sphere_box_cm(a3, ra, a3b, b3b, qb)
+        return [p], [d], n, [h]
     if key == (1, 1):
         return cm.capsule_capsule_cm(a3, b3a, ra, a3b, b3b, rb)
+    if key == (1, 2):
+        return cm.capsule_cylinder_cm(a3, b3a, ra, a3b, b3b, rb)
     if key == (1, 3):
         return cm.capsule_box_cm(a3, b3a, ra, a3b, b3b, qb)
+    if key == (2, 2):
+        return cm.cylinder_cylinder_cm(a3, b3a, ra, a3b, b3b, rb, stats)
+    if key == (2, 3):
+        return cm.cylinder_box_cm(a3, b3a, ra, a3b, b3b, qb, stats)
     if key == (3, 3):
         return cm.box_box_cm(a3, b3a, qa, a3b, b3b, qb)
-    if key == (1, 4):
+    if key in {(0, 4), (1, 4)}:
         # hull-local frame (hull = side b: position a3b, rotation qb)
         verts, planes, pvalid = _hull_local(group.hull_b)[:3]
 
         def to_local(p):
             return cm.quat_inv_rotate_cm(qb, cm._sub(p, a3b))
-        pt, dp, nrm, hit = ch.capsule_hull_core(
-            to_local(a3), to_local(b3a), ra, verts, planes, pvalid, stats)
+        if key == (0, 4):
+            pt, dp, nrm, hit = ch.sphere_hull_core(
+                to_local(a3), ra, verts, planes, pvalid, stats)
+        else:
+            pt, dp, nrm, hit = ch.capsule_hull_core(
+                to_local(a3), to_local(b3a), ra, verts, planes, pvalid,
+                stats)
         return ([cm._add(cm.quat_rotate_cm(qb, pt), a3b)], [dp],
                 cm.quat_rotate_cm(qb, nrm), [hit])
+    if key == (2, 4):
+        hwb = _hull_world(group.hull_b, a3b, qb,
+                          group.hull_b["loops"].shape[2])
+        return cp.cylinder_hull_cm(a3, b3a, ra, hwb, stats)
     if key == (3, 4):
         LM = max(4, group.hull_b["loops"].shape[2])
         hwb = _hull_world(group.hull_b, a3b, qb, LM)
@@ -491,7 +528,7 @@ def _prep_points(pts, dps, normal, masks, group, pos_cog, inv_inertia,
         vn0 = cm._dot(normal, rel_v)
         t_raw = cm._sub(rel_v, cm._muls(normal, vn0))
         # normalize-or-zero: zero vector below epsilon
-        tl = torch.sqrt(torch.clamp(cm._sqlen(t_raw), min=0.0))
+        tl = sqrt(torch.clamp(cm._sqlen(t_raw), min=0.0))
         ok = tl > 1e-6
         tangent = tuple(torch.where(ok, c / torch.clamp(tl, min=1e-30), 0.0)
                         for c in t_raw)
@@ -550,16 +587,32 @@ def _side(tab, cols, col_a, col_b, col_rot):
             tab.col_r[cols], _lanes(col_rot[:, cols], 4))
 
 
-def hull_branches(tab: FusedTables, col_a, col_b, col_rot):
-    """Which branch each hull recipe takes on these world collider params,
-    from the plain version, per recipe: live rows by branch (capsule-hull:
-    the distance GJK's shallow "separated" or deep "overlap" case; box-hull
-    and hull-hull: the SAT winner "face_a", "face_b" or "edge") and, for
-    capsule-hull, the GJK iterations of all rows (what the kernel runs)."""
+# recipes whose plain version reports which branch each row took
+BRANCH_RECIPES = HULL_RECIPES | {(2, 2), (2, 3)}
+
+
+def recipe_branches(tab: FusedTables, col_a, col_b, col_rot):
+    """Which branch the branching recipes take on these world collider
+    params, from the plain version, per recipe name: rows by branch and the
+    loop iterations the kernel runs.
+
+      - capsule-hull: live rows whose segment stays outside the hull
+        ("separated", the distance GJK's shallow case) or reaches into it
+        ("overlap"); sphere-hull: the same as "outside" and "inside";
+        "gjk_iterations" of all rows;
+      - box-hull / hull-hull: live rows by SAT winner "face_a", "face_b",
+        "edge";
+      - cylinder-hull: all rows by the distance-GJK gate's verdict,
+        "gate_separated" and "gate_overlap", and "sat_overruled", the rows
+        the gate drops although no candidate axis separates them;
+        "gjk_iterations" of all rows;
+      - cylinder-box / cylinder-cylinder: live rows by manifold "ring" (4-point
+        cap ring), "tube" (2-point lying tube), "single"; "projection_rounds"
+        of all rows (the alternating projection, up to its fixed point)."""
     out = {}
     for grp in tab.groups:
         key = grp.meta["key"]
-        if key not in HULL_RECIPES:
+        if key not in BRANCH_RECIPES:
             continue
         stats = {}
         _pts, _dps, _n, masks = _narrow_native(
@@ -568,15 +621,28 @@ def hull_branches(tab: FusedTables, col_a, col_b, col_rot):
         live = masks[0].expand(col_a.shape[0], grp.meta["pg"])
         name = RECIPE_NAMES[CM_RECIPES[key]]
         acc = out.setdefault(name, {})
-        if key == (1, 4):
+        loops = "gjk_iterations"
+        if key in {(0, 4), (1, 4)}:
             ov = stats["overlap"]
-            cnt = {"separated": live & ~ov, "overlap": live & ov}
-            acc["gjk_iterations"] = acc.get("gjk_iterations", 0) + int(
-                stats["iterations"].sum())
+            names = (("outside", "inside") if key == (0, 4)
+                     else ("separated", "overlap"))
+            cnt = {names[0]: live & ~ov, names[1]: live & ov}
+        elif key == (2, 4):
+            sat, gate = stats["sat"], stats["gate"]
+            cnt = {"gate_separated": ~gate, "gate_overlap": gate,
+                   "sat_overruled": sat & ~gate}
+        elif key in {(2, 2), (2, 3)}:
+            br = stats["branch"]
+            cnt = {"ring": live & (br == 0), "tube": live & (br == 1),
+                   "single": live & (br == 2)}
+            loops = "projection_rounds"
         else:
             w = stats["which"]
             cnt = {"face_a": live & (w == 0), "face_b": live & (w == 1),
                    "edge": live & (w == 2)}
+            loops = None
+        if loops is not None:
+            acc[loops] = acc.get(loops, 0) + int(stats["iterations"].sum())
         for k, m in cnt.items():
             acc[k] = acc.get(k, 0) + int(m.sum())
     return out
@@ -689,10 +755,14 @@ def _fused_core(tab: FusedTables, num_iterations, omega, inv_dt,
 # the CUDA kernel: build, bind, launch
 
 NVCC_FLAGS = build.BASE_FLAGS + ["-fmad=false"]
+# the library with the sphere and cylinder recipes is a second build of the
+# same source: in one module with the other recipes they made the ragdoll
+# settle's kernel 4 % slower on an H100, though it never calls them
+SHAPES_FLAGS = ["-DDXK_SHAPE_RECIPES=1"]
 
-_LIB = None
+_LIBS = {}
 _LAUNCHES = 0
-BUILD_LOG = ""
+BUILD_LOGS = {}              # compiler output by library: "base", "shapes"
 
 
 def launch_count() -> int:
@@ -705,13 +775,14 @@ def reset_launch_count() -> None:
     _LAUNCHES = 0
 
 
-def load_library(verbose: bool = False):
+def load_library(verbose: bool = False, shapes: bool = False):
     """Compile csrc/fused_step.cu with nvcc into the build directory (once
-    per source content) and bind it with ctypes. Raises if nvcc is missing
-    or the build fails."""
-    global _LIB, BUILD_LOG
-    if _LIB is not None:
-        return _LIB
+    per source content and flags) and bind it with ctypes: the library
+    without the sphere and cylinder recipes, or with them (`shapes`).
+    Raises if nvcc is missing or the build fails."""
+    name = "shapes" if shapes else "base"
+    if name in _LIBS:
+        return _LIBS[name]
     rows = tuple(JOINT_SPECS[n][0] for n in JOINT_ORDER)
     if (rows, STATIC_WIDTH, POINT_FIELDS, ROW_INTS, DESC_INTS,
             MAX_HULL_VERTS, MAX_HULL_LOOP) != (
@@ -720,8 +791,9 @@ def load_library(verbose: bool = False):
                            "codes the joint row widths, STATIC_WIDTH, "
                            "POINT_FIELDS, ROW_INTS, DESC_INTS and the hull "
                            "caps (VCAP, SCAP = 2 * MAX_HULL_LOOP)")
-    lib, BUILD_LOG = build.compile_library("fused_step.cu", NVCC_FLAGS,
-                                           verbose)
+    lib, BUILD_LOGS[name] = build.compile_library(
+        "fused_step.cu", NVCC_FLAGS + (SHAPES_FLAGS if shapes else []),
+        verbose)
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.dxk_fused_step_launch.restype = i
     lib.dxk_fused_step_launch.argtypes = (
@@ -730,7 +802,7 @@ def load_library(verbose: bool = False):
         + [p, p]                                    # itab, ftab
         + [p] * 4                                   # outputs
         + [i, i, p])                                # threads, smem, stream
-    _LIB = lib
+    _LIBS[name] = lib
     return lib
 
 
@@ -746,7 +818,7 @@ def _launch(tab: FusedTables, num_iterations, omega, inv_dt, v, w, inv_mass,
             f"fused_step: hulls of {V} vertices and {LM} points per face "
             f"loop; the kernel holds at most {MAX_HULL_VERTS} and "
             f"{MAX_HULL_LOOP}")
-    lib = load_library()
+    lib = load_library(shapes=tab.has_shapes)
     B, nb, C = v.shape[0], tab.num_bodies, tab.num_colliders
     P, R1 = tab.num_rows, tab.ctl_rows + 1
     if B == 0:

@@ -1,6 +1,6 @@
 """Distance GJK on component-major lane tuples — the plain PyTorch form of
-the distance GJK that ``csrc/fused_step.cu`` runs for the capsule-hull
-recipe.
+the distance GJK that ``csrc/fused_step.cu`` runs for the sphere-hull and
+capsule-hull recipes and for the boolean gate of the cylinder-hull recipe.
 
 Computes the distance and closest-point witnesses between two convex
 shapes from their support functions (the margin trick of the hull
@@ -14,14 +14,15 @@ conventions). The simplex is 4 fixed slots of (wA, wB, w = wA - wB) with
 validity masks; the closest point on the simplex is computed branchlessly
 over its 4 triangles (Ericson 5.1.5, every region mask-selected) and the
 new support replaces the valid slot with the smallest barycentric weight
-(first slot on ties). A fixed 24 iterations; once a lane is done its
-simplex no longer changes.
+(first slot on ties). A fixed number of iterations (24 unless the caller
+asks for another); once a lane is done its simplex no longer changes.
 """
 
 from __future__ import annotations
 
 import torch
 
+from dxk_tpu_torch.core.maths import sqrt
 from dxk_tpu_torch.ops.kernels.cm_narrowphase import (_add, _cross, _dot,
                                                       _max, _muls, _sub,
                                                       _sqlen, _where)
@@ -183,7 +184,7 @@ def gjk_distance(support_a, support_b, a_params, b_params,
         overlap = overlap | (~done & deg)
         done = done | deg
 
-        nd = _muls(q, -1.0 / torch.sqrt(_max(d2q, 1e-30)))
+        nd = _muls(q, -1.0 / sqrt(_max(d2q, 1e-30)))
         pa, pb, w = sup_pair(nd)
         ext2 = torch.maximum(ext2, _sqlen(w))
 
@@ -213,7 +214,7 @@ def gjk_distance(support_a, support_b, a_params, b_params,
 
         q, lams = _simplex_closest(ws)
 
-    dist = torch.sqrt(_max(_sqlen(q), 0.0))
+    dist = sqrt(_max(_sqlen(q), 0.0))
     overlap = overlap | (dist <= 1e-9)
 
     qa = (zerol,) * 3

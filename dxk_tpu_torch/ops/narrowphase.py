@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from dxk_tpu_torch.core.maths import (cross, dot, length, quat_inv_rotate,
-                                      quat_rotate, quat_to_mat3,
+                                      quat_rotate, quat_to_mat3, sqrt,
                                       squared_length)
 from dxk_tpu_torch.ops.manifold import (POLY_SLOTS, make_plane,
                                         project_and_filter, reduce_manifold,
@@ -274,7 +274,7 @@ def box_box_contact(ca, ha, qa, cb, hb, qb):
     pa, pb, sq = closest_point_segment_segment(a0, a1, b0, b1)
     zeros3 = inc_v.new_zeros((*lead, 3, 3))
     edge_pts = torch.cat([((pa + pb) * 0.5)[..., None, :], zeros3], dim=-2)
-    edge_dps = torch.cat([torch.sqrt(torch.clamp(sq, min=0.0))[..., None],
+    edge_dps = torch.cat([sqrt(torch.clamp(sq, min=0.0))[..., None],
                           zeros3[..., 0]], dim=-1)
 
     e = is_edge

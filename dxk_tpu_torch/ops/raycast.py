@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from dxk_tpu_torch.core.maths import dot, quat_inv_rotate, squared_length
+from dxk_tpu_torch.core.maths import (dot, quat_inv_rotate, sqrt,
+                                      squared_length)
 
 _INF = 3.4e38
 
@@ -21,7 +22,7 @@ def ray_sphere(o, d, center, radius):
     c = dot(m, m) - radius * radius
     disc = b * b - c
     ok = disc >= 0.0
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    sq = sqrt(torch.clamp(disc, min=0.0))
     t = -b - sq
     t = torch.where(t < 0.0, -b + sq, t)   # inside: exit point
     hit = ok & (t >= 0.0) & ~((c > 0.0) & (b > 0.0))
@@ -57,7 +58,7 @@ def _ray_infinite_cylinder(o, d, pa, axis, radius):
     c = squared_length(md) - radius * radius
     disc = b * b - a * c
     ok = (disc >= 0.0) & (a > 1e-12)
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    sq = sqrt(torch.clamp(disc, min=0.0))
     t = (-b - sq) / torch.clamp(a, min=1e-12)
     t = torch.where(t < 0.0, (-b + sq) / torch.clamp(a, min=1e-12), t)
     ok = ok & (t >= 0.0)
@@ -66,7 +67,7 @@ def _ray_infinite_cylinder(o, d, pa, axis, radius):
 
 def ray_capsule(o, d, pa, pb, radius):
     axis_v = pb - pa
-    ln = torch.sqrt(torch.clamp(squared_length(axis_v), min=1e-12))
+    ln = sqrt(torch.clamp(squared_length(axis_v), min=1e-12))
     axis = axis_v / ln[..., None]
     t_cyl, ok_cyl = _ray_infinite_cylinder(o, d, pa, axis, radius)
     s = dot(o + t_cyl[..., None] * d - pa, axis)
@@ -81,7 +82,7 @@ def ray_capsule(o, d, pa, pb, radius):
 
 def ray_cylinder(o, d, pa, pb, radius):
     axis_v = pb - pa
-    ln = torch.sqrt(torch.clamp(squared_length(axis_v), min=1e-12))
+    ln = sqrt(torch.clamp(squared_length(axis_v), min=1e-12))
     axis = axis_v / ln[..., None]
     t_cyl, ok_cyl = _ray_infinite_cylinder(o, d, pa, axis, radius)
     s = dot(o + t_cyl[..., None] * d - pa, axis)

@@ -9,7 +9,8 @@ from dataclasses import dataclass
 
 import torch
 
-from dxk_tpu_torch.core.maths import quat_mul, quat_rotate, quat_to_mat3
+from dxk_tpu_torch.core.maths import (quat_mul, quat_rotate, quat_to_mat3,
+                                      sqrt)
 from dxk_tpu_torch.scene.scene import (SHAPE_BOX, SHAPE_CAPSULE,
                                        SHAPE_CYLINDER, SHAPE_SPHERE, Scene)
 
@@ -64,7 +65,7 @@ def collider_aabbs(scene: Scene, w: WorldColliders):
 
     axis = w.b - w.a
     aa = torch.clamp(torch.sum(axis * axis, dim=-1, keepdim=True), min=1e-12)
-    e = r * torch.sqrt(torch.clamp(1.0 - axis * axis / aa, min=0.0))
+    e = r * sqrt(torch.clamp(1.0 - axis * axis / aa, min=0.0))
     cyl_min = torch.minimum(w.a - e, w.b - e)
     cyl_max = torch.maximum(w.a + e, w.b + e)
 

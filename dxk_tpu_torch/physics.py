@@ -27,7 +27,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from dxk_tpu_torch.core.maths import cross, quat_inv_rotate, quat_rotate
+from dxk_tpu_torch.core.maths import cross, quat_inv_rotate, quat_rotate, sqrt
 from dxk_tpu_torch.ops.integrator import (integrate_forces,
                                           integrate_velocities)
 from dxk_tpu_torch.ops.shapes import collider_aabbs, world_colliders
@@ -188,7 +188,7 @@ def _physics_step_reference(scene, state, settings, dt):
         out = _contacts_for_group(w, items[0][1], cat_pairs, cat_mask)
         ia, ib = cat_pairs[..., 0].long(), cat_pairs[..., 1].long()
         # friction/restitution combine
-        fric = torch.clamp(torch.sqrt(w.friction[ia] * w.friction[ib]),
+        fric = torch.clamp(sqrt(w.friction[ia] * w.friction[ib]),
                            0.0, 1.0)
         rest = torch.clamp(torch.maximum(w.restitution[ia],
                                          w.restitution[ib]), 0.0, 1.0)

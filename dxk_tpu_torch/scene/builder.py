@@ -7,7 +7,7 @@ parameter arrays. Everything up to `finalize` is plain numpy (float64, as
 in the JAX package, so both builders round the same values to float32);
 `finalize(device=...)` converts to tensors on the requested device.
 
-Ported so far: rigid bodies, statics, sphere/capsule/box colliders,
+Ported so far: rigid bodies, statics, sphere/capsule/cylinder/box colliders,
 convex hull geometry (from triangle faces or a point cloud) and hull
 colliders, all six joint types, static pair tables (capped or not, in contact phases or
 not, pruned by `candidate_margin` or not) and the K-select /
@@ -192,9 +192,13 @@ class SceneBuilder:
             float(radius), np.array([0, 0, 0, 1.0]),
             friction, restitution, density, owner, OWNER_RIGID_BODY, 0, -1))
 
-
-    def add_cylinder_collider(self, *a, **k):
-        raise _later("cylinder colliders")
+    def add_cylinder_collider(self, owner, a, b, radius,
+                              friction=1.0, restitution=0.2, density=1000.0):
+        """Cylinder between the local cap centres a and b."""
+        self._add_collider(owner, _Collider(
+            SHAPE_CYLINDER, np.asarray(a, np.float64),
+            np.asarray(b, np.float64), float(radius), np.array([0, 0, 0, 1.0]),
+            friction, restitution, density, owner, OWNER_RIGID_BODY, 0, -1))
 
     def add_box_collider(self, owner, center, half_extents,
                          rotation=(0, 0, 0, 1),
@@ -421,6 +425,20 @@ class SceneBuilder:
             t2 = t0 + hemi_m * (t1 * t1 + 3.0 / 8.0 * sq_h)
             I[0, 0] += t2 * 2.0
             I[2, 2] += t2 * 2.0
+            I = rot.T @ I @ rot
+            return mass, (c.a + c.b) * 0.5, I
+        if c.ctype == SHAPE_CYLINDER:
+            axis = c.a - c.b
+            if axis[1] < 0:
+                axis = -axis
+            h = float(np.linalg.norm(axis))
+            axis = axis / h
+            rot = _np_quat_to_mat3(_np_rotate_from_to([0, 1, 0], axis))
+            r = c.r
+            mass = math.pi * r * r * h * rho
+            I = np.zeros((3, 3))
+            I[1, 1] = r * r * mass * 0.5
+            I[0, 0] = I[2, 2] = mass * (3 * r * r + h * h) / 12.0
             I = rot.T @ I @ rot
             return mass, (c.a + c.b) * 0.5, I
         if c.ctype == SHAPE_BOX:

@@ -99,7 +99,7 @@ def test_ragdoll_tables():
 
 
 @pytest.mark.parametrize("call", [
-    lambda b: b.add_cylinder_collider(b.add_body(), (0, 0, 0), (0, 1, 0), 0.2),
+    lambda b: b.add_cloth(1.0, 1.0, 4, 4, 1.0),
     lambda b: b.set_heightfield(np.zeros((4, 4)), 1.0),
     lambda b: b.finalize(orbit_margin=0.25, device="cpu"),
 ])

@@ -5,15 +5,21 @@ compiles the same source with g++ instead: a small header maps the CUDA
 keywords away, every CUDA thread of a block becomes a std::thread, and
 __syncthreads() becomes a std::barrier, so the kernel's shared-memory
 layout, indexing and per-type joint passes run as written (blocks one after
-another). Built with -ffp-contract=off, like the card's -fmad=false. It
+another). Built with -ffp-contract=off, like the card's -fmad=false, and
+with the sphere and cylinder recipes (the build the card launches for
+scenes with such rows; the other build is the same code without them). It
 prints, per scene, the largest differences between the emulated kernel and
 the plain version `_fused_core`: on the constraint zoo, on bench.py's
 ragdoll settle (initial state and hull poses that send every hull recipe
-down each of its branches), on the hull pile and on the locomotion scene.
+down each of its branches), on the hull pile, on the golden mixed-shape drop
+and sphere bounce (initial and after --shapes-steps steps), on the sphere
+and cylinder check pile and on the locomotion scene.
 sin/cos come from the C library, so scenes with the ragdoll (whose
 cone-twist prep calls them) may differ by float rounding.
 
     python3 tools/emulate_fused_step_cpu.py [--chains 2] [--batch 5]
+                                            [--shapes-steps 60]
+                                            [--only zoo|settle|shapes|loco ...]
 
 Needs g++ with C++20; writes only under <repo>/build/emulate/.
 """
@@ -36,7 +42,10 @@ import chip_smoke as cs  # noqa: E402
 from dxk_tpu_torch.ops.integrator import integrate_forces  # noqa: E402
 from dxk_tpu_torch.ops.kernels import fused_step as fs  # noqa: E402
 from dxk_tpu_torch.ops.shapes import world_colliders  # noqa: E402
-from dxk_tpu_torch.physics import controls_pack  # noqa: E402
+from dxk_tpu_torch.physics import (PhysicsSettings, controls_pack,  # noqa: E402
+                                   physics_step)
+
+GROUPS = ("zoo", "settle", "shapes", "loco")
 
 SHIM = r"""
 #pragma once
@@ -59,9 +68,15 @@ inline float* g_smem;
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
+inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  __builtin_memcpy(&u, &x, 4);
+  return u;
+}
 template <class K, class... A>
 void emu_launch(int grid, int threads, int smem_bytes, K k, A... args) {
   std::vector<float> sm(smem_bytes / 4, -12345.0f);
@@ -95,7 +110,8 @@ def build():
         f.write(src)
     lib = os.path.join(out, "libfused_step_emu.so")
     subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off",
-                    "-fPIC", "-shared", "-Wno-unknown-pragmas", "-I", out,
+                    "-DDXK_SHAPE_RECIPES=1", "-fPIC", "-shared",
+                    "-Wno-unknown-pragmas", "-I", out,
                     "-o", lib, os.path.join(out, "fused_step.cpp"),
                     "-lpthread"], check=True)
     dll = ctypes.CDLL(lib)
@@ -143,34 +159,61 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--chains", type=int, default=2)
     ap.add_argument("--batch", type=int, default=5)
+    ap.add_argument("--shapes-steps", type=int, default=60)
+    ap.add_argument("--only", choices=GROUPS, action="append",
+                    help="run only these scene groups (default: all)")
     args = ap.parse_args()
+    groups = args.only or GROUPS
     dll = build()
-    zoo = cs.zoo_scene(args.chains, device="cpu")
-    for name, st in (
-            ("zoo_initial", cs.zoo_initial_state(zoo, args.batch, 0)),
-            ("zoo_limit_poses", cs.zoo_limit_state(zoo, args.batch, 0))):
-        print(json.dumps({"scene": name, "chains": args.chains,
-                          **compare(dll, zoo, st, cs.ZOO_DT)}), flush=True)
-    settle = cs.settle_scene("cpu")
-    pile = cs.pile_scene("cpu")
-    for name, scene, st in (
-            ("settle_initial", settle,
-             cs.settle_initial_state(settle, args.batch, 0)),
-            ("settle_hull_poses", settle,
-             cs.settle_hull_poses(settle, 4 * args.batch, 0)),
-            ("pile_poses", pile, cs.pile_poses(pile, 2 * args.batch, 0))):
-        print(json.dumps({"scene": name, **compare(dll, scene, st,
-                                                   cs.SETTLE_DT)}),
+    if "zoo" in groups:
+        zoo = cs.zoo_scene(args.chains, device="cpu")
+        for name, st in (
+                ("zoo_initial", cs.zoo_initial_state(zoo, args.batch, 0)),
+                ("zoo_limit_poses", cs.zoo_limit_state(zoo, args.batch, 0))):
+            print(json.dumps({"scene": name, "chains": args.chains,
+                              **compare(dll, zoo, st, cs.ZOO_DT)}),
+                  flush=True)
+    if "settle" in groups:
+        settle = cs.settle_scene("cpu")
+        pile = cs.pile_scene("cpu")
+        for name, scene, st in (
+                ("settle_initial", settle,
+                 cs.settle_initial_state(settle, args.batch, 0)),
+                ("settle_hull_poses", settle,
+                 cs.settle_hull_poses(settle, 4 * args.batch, 0)),
+                ("pile_poses", pile, cs.pile_poses(pile, 2 * args.batch, 0))):
+            print(json.dumps({"scene": name, **compare(dll, scene, st,
+                                                       cs.SETTLE_DT)}),
+                  flush=True)
+    if "shapes" in groups:
+        settings = PhysicsSettings(num_rigid_solver_iterations=cs.ITERATIONS,
+                                   solver_mode="fused")
+        for name in cs.SHAPES_SCENES:
+            scene = cs.shapes_scene(name, "cpu")
+            st = cs.shapes_initial_state(scene, args.batch, 0)
+            print(json.dumps({"scene": f"{name}_initial",
+                              **compare(dll, scene, st, cs.SHAPES_DT)}),
+                  flush=True)
+            for _ in range(args.shapes_steps):
+                st, _info = physics_step(scene, st, settings, cs.SHAPES_DT)
+            print(json.dumps({
+                "scene": f"{name}_after_{args.shapes_steps}_steps",
+                **compare(dll, scene, st, cs.SHAPES_DT)}), flush=True)
+        pile = cs.shapes_pile_scene("cpu")
+        print(json.dumps({"scene": "shapes_pile_poses", **compare(
+            dll, pile, cs.shapes_pile_poses(pile, 8 * args.batch, 0),
+            cs.SHAPES_DT)}), flush=True)
+    if "loco" in groups:
+        from dxk_tpu_torch.envs.loco_env import DT, LocoEnv
+        env = LocoEnv(solver_mode="fused", device="cpu", enable_pokes=False)
+        gen = torch.Generator().manual_seed(0)
+        st, _obs = env.reset(args.batch)
+        for _ in range(20):
+            act = torch.rand((args.batch, 27), generator=gen) * 2 - 1
+            st, _obs, _r, _d = env.step(st, act, gen)
+        print(json.dumps({"scene": "loco_after_20_steps",
+                          **compare(dll, env.scene, st.physics, DT)}),
               flush=True)
-    from dxk_tpu_torch.envs.loco_env import DT, LocoEnv
-    env = LocoEnv(solver_mode="fused", device="cpu", enable_pokes=False)
-    gen = torch.Generator().manual_seed(0)
-    st, _obs = env.reset(args.batch)
-    for _ in range(20):
-        act = torch.rand((args.batch, 27), generator=gen) * 2 - 1
-        st, _obs, _r, _d = env.step(st, act, gen)
-    print(json.dumps({"scene": "loco_after_20_steps",
-                      **compare(dll, env.scene, st.physics, DT)}), flush=True)
 
 
 if __name__ == "__main__":

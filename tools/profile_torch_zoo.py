@@ -2,10 +2,13 @@
 of chip_smoke.py's batches for that scene.
 
 Scenes (`--scene`): "zoo", chip_smoke.py's constraint zoo (bench.py's
-BASELINE config 2: 16 chains, 112 bodies, 96 joints), and "settle", its
+BASELINE config 2: 16 chains, 112 bodies, 96 joints), "settle", its
 ragdoll drop-and-settle with the hull debris (BASELINE config 3: 16
-bodies, 165 pair rows, 13 joints; bench.py counts 15 bodies); 30 solver
-iterations, "fused". Steps the scene `--warm` steps, then per batch prints
+bodies, 165 pair rows, 13 joints; bench.py counts 15 bodies), and "mixed",
+its golden mixed-shape drop (a hull, a cylinder and a capsule onto a box
+ramp: 3 dynamic bodies, 9 pair rows); 30 solver iterations, "fused". Steps
+the scene `--warm` steps (150 for "mixed" unless given: its bodies land
+after about 80), then per batch prints
 one JSON line: host time per step over `--steps` steps, and from
 torch.profiler over `--profile-steps` steps, device busy time per step, the
 device's idle share, the fused-step kernel's device time per step, device
@@ -13,7 +16,7 @@ kernel launches per step, the top device kernels by time, and the kernel
 alone (CUDA events) with 0 and with 30 solver iterations, which splits its
 time between narrowphase + prep and the solve.
 
-    python3 tools/profile_torch_zoo.py [--scene zoo|settle] [--steps 50]
+    python3 tools/profile_torch_zoo.py [--scene zoo|settle|mixed] [--steps 50]
 """
 
 import argparse
@@ -36,8 +39,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--profile-steps", type=int, default=3)
-    ap.add_argument("--warm", type=int, default=60)
-    ap.add_argument("--scene", choices=("zoo", "settle"), default="zoo")
+    ap.add_argument("--warm", type=int, default=None)
+    ap.add_argument("--scene", choices=("zoo", "settle", "mixed"),
+                    default="zoo")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_zoo: no CUDA device")
@@ -45,10 +49,17 @@ def main():
     if args.scene == "zoo":
         scene, batches, dt = cs.zoo_scene(), cs.ZOO_BATCHES, cs.ZOO_DT
         state, bodies = cs.zoo_initial_state, scene.num_bodies
-    else:
+    elif args.scene == "settle":
         scene, batches, dt = (cs.settle_scene(), cs.SETTLE_BATCHES,
                               cs.SETTLE_DT)
         state, bodies = cs.settle_initial_state, cs.SETTLE_BODIES
+    else:
+        scene = cs.shapes_scene("mixed_shape_drop")
+        batches, dt = cs.SHAPES_BATCHES, cs.SHAPES_DT
+        state = cs.shapes_initial_state
+        bodies = cs.SHAPES_BODIES["mixed_shape_drop"]
+    if args.warm is None:
+        args.warm = 150 if args.scene == "mixed" else 60
     settings = PhysicsSettings(num_rigid_solver_iterations=cs.ITERATIONS,
                                solver_mode="fused")
     acts = [torch.profiler.ProfilerActivity.CPU,
