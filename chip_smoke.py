@@ -142,7 +142,8 @@ def device_phase():
 
 def build_phase():
     """The CUDA sources, one nvcc each, started together: csrc/fused_step.cu
-    twice (without and with the sphere and cylinder recipes) and
+    three times (without and with the sphere and cylinder recipes, and the
+    build that takes prepared joint rows and solves sequentially) and
     csrc/broadphase.cu."""
     from dxk_tpu_torch.ops.kernels import broadphase_kernel as bk
     from dxk_tpu_torch.ops.kernels import fused_step as fs
@@ -153,6 +154,10 @@ def build_phase():
         "fused_step_shapes": (
             lambda: fs.load_library(verbose=True, shapes=True),
             lambda: fs.BUILD_LOGS["shapes"], fs.NVCC_FLAGS + fs.SHAPES_FLAGS),
+        "fused_step_prepped": (
+            lambda: fs.load_library(verbose=True, prepped=True),
+            lambda: fs.BUILD_LOGS["prepped"],
+            fs.NVCC_FLAGS + fs.PREPPED_FLAGS),
         "broadphase": (lambda: bk.load_library(verbose=True),
                        lambda: bk.BUILD_LOG, bk.NVCC_FLAGS)}
 
@@ -185,16 +190,19 @@ def load_policy(env):
     return net.to(env.device).eval()
 
 
-def kernel_inputs(scene, state, dt):
-    """What physics_step hands the fused step for `state`."""
+def kernel_inputs(scene, state, dt, prep_in_kernel=True):
+    """What physics_step hands the fused step for `state`, with the joint
+    rows prepared in the kernel (the controls pack) or outside it (the
+    packed tables of ops/solver.py's preps)."""
     from dxk_tpu_torch.ops.integrator import integrate_forces
     from dxk_tpu_torch.ops.shapes import world_colliders
-    from dxk_tpu_torch.physics import controls_pack
+    from dxk_tpu_torch.physics import joint_inputs
     dt32 = np.float32(dt)
     wcol = world_colliders(scene, state.pos, state.rot)
     bodies = integrate_forces(scene, state, float(dt32))
-    ctl = controls_pack(scene, state.controls, dt32)
-    return bodies, wcol, ctl, float(np.float32(1.0) / dt32)
+    joints = joint_inputs(scene, bodies, state.controls, dt32,
+                          prep_in_kernel)
+    return bodies, wcol, joints, float(np.float32(1.0) / dt32)
 
 
 def time_ms(fn, reps):
@@ -259,14 +267,17 @@ def recipe_flops(tab, branches, batch):
     return flops
 
 
-def bound_ms(tab, live, batch, data_work=0):
+def bound_ms(tab, live, batch, data_work=0, prepped=False, sequential=False):
     """Least time the card could take for this call: the larger of compulsory
     bytes over the memory rate and counted operations over the float32 peak.
     The operation count follows this run's data: live pair rows and live
     manifold points only; `data_work` is the count of the rows whose work
-    follows the data (recipe_flops)."""
+    follows the data (recipe_flops). `prepped`: the joint rows are read
+    from device memory instead of prepared in the kernel; `sequential`: the
+    sequential solve, which has no velocity deltas to sum and apply."""
     nb, C, P = tab.num_bodies, tab.num_colliders, tab.num_rows
-    floats_in = nb * (3 + 3 + 9 + 3 + 4) + C * 10 + tab.ctl_rows + 1
+    floats_in = nb * (3 + 3 + 9 + 3 + 4) + C * 10 + (
+        tab.joint_row_floats if prepped else tab.ctl_rows + 1)
     floats_out = nb * 6 + P * 4
     nbytes = batch * (4 * (floats_in + floats_out) + P) \
         + 4 * (tab.itab.numel() + tab.ftab.numel() + nb)
@@ -276,15 +287,19 @@ def bound_ms(tab, live, batch, data_work=0):
     types = tab.itab[tab.ioffs[0]:tab.ioffs[0] + 8 * P].view(P, 8)[:, 0].tolist()
     narrow = sum(FLOPS_NARROW.get(t, 0) for t in types)
     counts = tab.joint_counts
-    per_env_once = narrow + sum(n * FLOPS_JOINT[t][0]
-                                for t, n in counts.items())
+    per_env_once = narrow + (0 if prepped else sum(
+        n * FLOPS_JOINT[t][0] for t, n in counts.items()))
     passes = sum(n > 0 for n in counts.values()) + tab.num_phases
-    per_env_iter = (sum(n * FLOPS_JOINT[t][1] for t, n in counts.items())
-                    + passes * nb * 6 * FLOPS_BODY_APPLY)
+    if sequential:
+        per_env_iter = sum(n * (FLOPS_JOINT[t][1] - FLOPS_ROW_DELTA)
+                           for t, n in counts.items())
+    else:
+        per_env_iter = (sum(n * FLOPS_JOINT[t][1] for t, n in counts.items())
+                        + passes * nb * 6 * FLOPS_BODY_APPLY)
     flops = (batch * (per_env_once + ITERATIONS * per_env_iter) + data_work
              + live_points * (FLOPS_PREP_POINT
                               + ITERATIONS * FLOPS_CONTACT_POINT)
-             + live_rows * ITERATIONS * FLOPS_ROW_DELTA)
+             + (0 if sequential else live_rows * ITERATIONS * FLOPS_ROW_DELTA))
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations",
@@ -1347,13 +1362,62 @@ SHAPES_BRANCHES = {"cylinder_box": ("ring", "tube", "single"),
                    "cylinder_hull": ("gate_separated", "gate_overlap")}
 
 
-def golden_builder(builder, name):
-    """tests/test_golden_trajectories.py:33-40 (sphere_bounce: a sphere
-    dropped from 2 m onto a ground box, restitution 0.3) and :98-114
-    (mixed_shape_drop: a convex hull, a cylinder and a capsule dropped onto a
-    tilted box ramp on a ground box), copied. `builder` is a SceneBuilder
+GOLDEN_SCENES = ("sphere_bounce", "box_stack", "double_pendulum",
+                 "constraint_zoo", "ragdoll_settle", "mixed_shape_drop")
+
+
+def golden_builder(builder, name, add_ragdoll=None):
+    """The golden scenes of tests/test_golden_trajectories.py:33-114,
+    copied: sphere_bounce (a sphere dropped from 2 m onto a ground box,
+    restitution 0.3), box_stack (three boxes), double_pendulum (two capsule
+    links on ball joints under a kinematic anchor), constraint_zoo (a chain
+    of one link per joint type, with limits), ragdoll_settle (the ragdoll
+    dropped from a hip height of 1.5 m; `add_ragdoll` is the package's own)
+    and mixed_shape_drop (a convex hull, a cylinder and a capsule dropped
+    onto a tilted box ramp on a ground box). `builder` is a SceneBuilder
     class; the result is finalized by the caller with no arguments."""
     b = builder()
+    if name == "ragdoll_settle":
+        g = b.add_static(position=(0, -4.0, 0))
+        b.add_box_collider(g, (0, 0, 0), (20, 4, 20), friction=1.0)
+        add_ragdoll(b, initial_hip_position=(0.0, 1.5, 0.0))
+        return b
+    if name == "double_pendulum":
+        anchor = b.add_body(position=(0, 3, 0), kinematic=True)
+        l1 = b.add_body(position=(0.5, 3, 0))
+        b.add_capsule_collider(l1, (-0.2, 0, 0), (0.2, 0, 0), 0.05)
+        l2 = b.add_body(position=(1.2, 3, 0))
+        b.add_capsule_collider(l2, (-0.2, 0, 0), (0.2, 0, 0), 0.05)
+        b.add_ball_constraint(anchor, l1, (0, 3, 0))
+        b.add_ball_constraint(l1, l2, (0.8, 3, 0))
+        return b
+    if name == "constraint_zoo":
+        top = b.add_body(position=(0, 8, 0), kinematic=True)
+        prev, y = top, 8.0
+        for kind in ("distance", "ball", "fixed", "hinge", "cone_twist",
+                     "slider"):
+            y -= 1.0
+            link = b.add_body(position=(0.05, y, -0.02))
+            b.add_capsule_collider(link, (0, -0.3, 0), (0, 0.3, 0), 0.12)
+            anchor = (0, y + 0.5, 0)
+            if kind == "distance":
+                b.add_distance_constraint(prev, link, (0, y + 0.8, 0),
+                                          anchor)
+            elif kind == "ball":
+                b.add_ball_constraint(prev, link, anchor)
+            elif kind == "fixed":
+                b.add_fixed_constraint(prev, link, anchor)
+            elif kind == "hinge":
+                b.add_hinge_constraint(prev, link, anchor, (1, 0, 0),
+                                       min_limit=-1.0, max_limit=1.0)
+            elif kind == "cone_twist":
+                b.add_cone_twist_constraint(prev, link, anchor, (0, -1, 0),
+                                            swing_limit=0.8, twist_limit=0.5)
+            else:
+                b.add_slider_constraint(prev, link, anchor, (0, 1, 0),
+                                        min_limit=-0.4, max_limit=0.4)
+            prev = link
+        return b
     g = b.add_static()
     if name == "sphere_bounce":
         b.add_box_collider(g, (0, -1, 0), (20, 1, 20), restitution=0.3)
@@ -1361,6 +1425,11 @@ def golden_builder(builder, name):
         b.add_sphere_collider(s, (0, 0, 0), 0.5, restitution=0.3)
         return b
     b.add_box_collider(g, (0, -1, 0), (20, 1, 20))
+    if name == "box_stack":
+        for i in range(3):
+            bd = b.add_body(position=(0.02 * i, 0.5 + 1.001 * i, -0.01 * i))
+            b.add_box_collider(bd, (0, 0, 0), (0.5, 0.5, 0.5))
+        return b
     b.add_box_collider(g, (0, 0.3, 0), (2.0, 0.3, 2.0),
                        rotation=(0.13, 0, 0, 0.9915))
     hid = b.add_hull_geometry_from_mesh(GOLDEN_HULL)
@@ -1374,8 +1443,10 @@ def golden_builder(builder, name):
 
 
 def shapes_scene(name, device=DEVICE):
+    from dxk_tpu_torch.models.ragdoll import add_ragdoll
     from dxk_tpu_torch.scene import SceneBuilder
-    return golden_builder(SceneBuilder, name).finalize(device=device)
+    return golden_builder(SceneBuilder, name, add_ragdoll).finalize(
+        device=device)
 
 
 def shapes_initial_state(scene, batch, seed):
@@ -1701,6 +1772,291 @@ def shapes_phase(seed):
         "bound_by": timing[big]["bound_by"], "library_ms": None}
 
 
+# ---------------------------------------------------------------------------
+# the golden fidelity row on fused_seq (bench.py's bench_fidelity_seq)
+
+FIDELITY_STEPS = 1000                     # tests/test_golden_trajectories.py
+FIDELITY_EVERY = 25                       # GOLDEN_STEPS, GOLDEN_EVERY
+FIDELITY_DT = 1.0 / 120.0
+FIDELITY_TOL = 1e-3                       # BASELINE: 1e-3 over 1k steps
+# scenes gated only on their first checkpoints, and why
+FIDELITY_SHORT = {"box_stack": 1, "ragdoll_settle": 2, "mixed_shape_drop": 10}
+FIDELITY_SHORT_REASON = (
+    "the goldens are the JAX package's scan path on the CPU, and its fused_seq "
+    "path (what the port reproduces: stepped on the CPU from the same state, "
+    "the JAX package's fused_seq and the port's plain version agree step for "
+    "step on box_stack from the start and on the mixed drop from steps 140 "
+    "and 300, tools/fused_seq_vs_jax_cpu.py, PERF.md) leaves them where "
+    "bodies tumble: box_stack's impacts grow a 1e-11 difference of the two "
+    "paths on step 1 to 7e-4 by step 25 (JAX fused_seq: 6.2e-4 from the "
+    "golden at step 25, 1.34e-3 at 50), the ragdoll settles chaotically "
+    "(0.288 on a TPU, docs/FIDELITY.md), and in the "
+    "mixed drop the capsule starts to tumble at step ~300 and the cylinder "
+    "rolls off the ramp's edge at ~780 (held over 250 steps, the horizon of "
+    "bench.py's bench_fidelity_seq for it and of the JAX package's TPU "
+    "record, 6.5e-5); ROADMAP standing note 2. The whole horizon's deviation "
+    "is printed")
+FIDELITY_KERNEL_TOL = 1e-6
+FIDELITY_KERNEL_TOL_REASON = (
+    "absolute on velocities, impulses and live masks: the plain version "
+    "solves in the kernel's order with no index_add_, so the two run the same "
+    "float32 operations in the same order (0.0 expected)")
+FIDELITY_CHECK_BATCHES = (1, 256)
+FIDELITY_RAGGED = {"ragdoll_settle": 1000, "constraint_zoo": 1000}
+FIDELITY_WARM = 60
+# later compared states of the scenes whose bodies land after 60 steps
+FIDELITY_LATE = {"sphere_bounce": 150, "mixed_shape_drop": 150}
+FIDELITY_TIMED = ("ragdoll_settle", "constraint_zoo")
+FIDELITY_TIMED_BATCH = 4096
+FIDELITY_LIBRARY_REASON = ("no single PyTorch call computes the fused step "
+                           "or a sequential constraint solve")
+
+
+def _envs(inputs, lo, hi):
+    """Envs lo:hi of kernel_inputs' batched tensors."""
+    from types import SimpleNamespace
+    bodies, wcol, joints, inv_dt = inputs
+    sl = slice(lo, hi)
+    b = bodies.replace(**{k: getattr(bodies, k)[sl] for k in (
+        "rot", "pos_cog", "inv_inertia", "v", "w")})
+    w = SimpleNamespace(a=wcol.a[sl], b=wcol.b[sl], rot=wcol.rot[sl])
+    j = joints[sl] if isinstance(joints, torch.Tensor) \
+        else tuple(t[sl] for t in joints)
+    return b, w, j, inv_dt
+
+
+def hold_modes(scene, states, dt, sequential, prep_in_kernel=False):
+    """Kernel vs plain version for each of `states` ({name: state}), one
+    plain call over all of them put side by side (its cost is the number
+    of its eager launches, not the batch), one kernel launch per state at
+    that state's batch. Returns {name: check}."""
+    from dxk_tpu_torch.ops.kernels import fused_step as fs
+    names = list(states)
+    cat = states[names[0]].replace(**{
+        k: torch.cat([getattr(states[n], k) for n in names])
+        for k in ("pos", "rot", "lin_vel", "ang_vel", "force_acc",
+                  "torque_acc")}, controls=type(states[names[0]].controls)(**{
+            k: torch.cat([getattr(states[n].controls, k) for n in names])
+            for k in vars(states[names[0]].controls)}))
+    inputs = kernel_inputs(scene, cat, dt, prep_in_kernel)
+    bodies, wcol, joints, inv_dt = inputs
+    tab = fs.fused_tables(scene, DEVICE)
+    tables = None if prep_in_kernel else joints
+    pvw, pimp, plive = fs._fused_core(
+        tab, ITERATIONS, 1.0, inv_dt, torch.cat([bodies.v, bodies.w], -1),
+        bodies.inv_mass, bodies.inv_inertia, bodies.pos_cog, bodies.rot,
+        joints if prep_in_kernel else None, wcol.a, wcol.b, wcol.rot,
+        joint_tables=tables, sequential=sequential)
+    solver = fs.make_fused_step_solver(scene, ITERATIONS, 1.0,
+                                       sequential=sequential,
+                                       joint_prep_in_kernel=prep_in_kernel)
+    out, lo = {}, 0
+    for n in names:
+        hi = lo + states[n].pos.shape[0]
+        kv, kw, kimp, klive = solver(*_envs(inputs, lo, hi))
+        torch.cuda.synchronize()
+        out[n] = dict(
+            batch=hi - lo,
+            err_v=float((kv - pvw[lo:hi, :, :3]).abs().max()),
+            err_w=float((kw - pvw[lo:hi, :, 3:]).abs().max()),
+            err_imp=float((kimp - pimp[lo:hi]).abs().max()),
+            mask_mismatch=int((klive != plive[lo:hi]).sum()),
+            live_rows=int((klive != 0).sum()),
+            moved_velocities_by=float(torch.maximum(
+                (kv - bodies.v[lo:hi]).abs().max(),
+                (kw - bodies.w[lo:hi]).abs().max())),
+            finite=bool(torch.isfinite(kv).all() and torch.isfinite(kw).all()
+                        and torch.isfinite(kimp).all()))
+        lo = hi
+    return out
+
+
+def golden_path(name):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "golden", f"{name}.npy")
+
+
+def fidelity_phase(seed, loco):
+    """The golden fidelity row on fused_seq: the prepped library held
+    against its plain version on the six golden scenes in both of its modes
+    (and "fused" with joint rows prepared outside the kernel on the zoo
+    chain and on `loco` = (scene, state) of the loco env), then each golden
+    scene 1000 steps at one env through physics_step, held against
+    tests/golden/<name>.npy, then the kernel's times."""
+    from dxk_tpu_torch.ops.kernels import broadphase_kernel as bk
+    from dxk_tpu_torch.ops.kernels import fused_step as fs
+    from dxk_tpu_torch.ops.kernels import kselect_broadphase as ks
+    from dxk_tpu_torch.ops.kernels import sap_broadphase as sp
+    from dxk_tpu_torch.physics import PhysicsSettings, physics_step
+
+    scenes = {n: shapes_scene(n) for n in GOLDEN_SCENES}
+    seq = PhysicsSettings(num_rigid_solver_iterations=ITERATIONS,
+                          solver_mode="fused_seq")
+
+    # ---- kernel vs plain version: one env at the golden start and B=256
+    # (and a ragged 1000) with velocity noise, initial and after 60 steps
+    # (and 150, where bodies land later)
+    checks = {}
+    for name, scene in scenes.items():
+        start = {"B1": scene.initial_state(1)}
+        for b in FIDELITY_CHECK_BATCHES[1:] + (
+                (FIDELITY_RAGGED[name],) if name in FIDELITY_RAGGED else ()):
+            start[f"B{b}"] = shapes_initial_state(scene, b, seed)
+        states = {f"{k}_initial": v for k, v in start.items()}
+        warm = {FIDELITY_WARM, FIDELITY_LATE.get(name, FIDELITY_WARM)}
+        for k, st in start.items():
+            for t in range(1, max(warm) + 1):
+                st, _info = physics_step(scene, st, seq, FIDELITY_DT)
+                if t in warm:
+                    states[f"{k}_after_{t}_steps"] = st
+        for k, c in hold_modes(scene, states, FIDELITY_DT, True).items():
+            checks[f"{name}.fused_seq.{k}"] = c
+        if name == "constraint_zoo":
+            for k, c in hold_modes(scene, states, FIDELITY_DT,
+                                   False).items():
+                checks[f"{name}.fused_prepped.{k}"] = c
+    loco_scene, loco_state = loco
+    n = FIDELITY_RAGGED["ragdoll_settle"]
+    sub = loco_state.replace(**{
+        k: getattr(loco_state, k)[:n].contiguous() for k in (
+            "pos", "rot", "lin_vel", "ang_vel", "force_acc", "torque_acc")},
+        controls=type(loco_state.controls)(**{
+            k: v[:n].contiguous() for k, v in vars(loco_state.controls).items()}))
+    for k, c in hold_modes(loco_scene, {f"B{n}": sub}, FIDELITY_DT,
+                           False).items():
+        checks[f"loco.fused_prepped.{k}"] = c
+
+    # ---- the fidelity row: each golden scene, 1000 steps at one env,
+    # counts from zero just before it
+    counters = {"fused_step": fs, "aabb_overlap_matrix": bk,
+                "kselect_broadphase": ks, "sap_broadphase": sp}
+    rows, total_steps, total_secs = {}, 0, 0.0
+    for name, scene in scenes.items():
+        st = scene.initial_state(1)
+        finite = torch.ones((), dtype=torch.bool, device=DEVICE)
+        marks = []
+        for mod in counters.values():
+            mod.reset_launch_count()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(FIDELITY_STEPS):
+            st, _info = physics_step(scene, st, seq, FIDELITY_DT)
+            finite &= torch.isfinite(st.pos).all() & torch.isfinite(
+                st.rot).all() & torch.isfinite(st.lin_vel).all()
+            if t % FIDELITY_EVERY == FIDELITY_EVERY - 1:
+                marks.append(torch.cat([st.pos[0].reshape(-1),
+                                        st.rot[0].reshape(-1)]))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: mod.launch_count() for k, mod in counters.items()}
+        launches["fused_step.prepped"] = fs.launch_count("prepped")
+        traj = torch.stack(marks).double().cpu().numpy()
+        golden = np.load(golden_path(name))[:len(traj)]
+        if traj.shape != golden.shape:
+            raise RuntimeError(f"fidelity {name}: trajectory of shape "
+                               f"{traj.shape}, golden {golden.shape}")
+        dev = np.abs(traj - golden).max(axis=1)
+        gated = FIDELITY_SHORT.get(name, len(dev))
+        rows[name] = dict(
+            steps=FIDELITY_STEPS, seconds=secs,
+            steps_per_s=FIDELITY_STEPS / secs, launches=launches,
+            finite=bool(finite), checkpoints=len(dev),
+            gated_checkpoints=gated, max_dev_gated=float(dev[:gated].max()),
+            max_dev_all=float(dev.max()),
+            dev_every_25_steps=[float(x) for x in dev])
+        total_steps += FIDELITY_STEPS
+        total_secs += secs
+
+    # ---- the kernel at 4096 envs on two scenes after 60 steps
+    timing = {}
+    for name in FIDELITY_TIMED:
+        scene = scenes[name]
+        st = shapes_initial_state(scene, FIDELITY_TIMED_BATCH, seed + 1)
+        for _ in range(FIDELITY_WARM):
+            st, _info = physics_step(scene, st, seq, FIDELITY_DT)
+        inputs = kernel_inputs(scene, st, FIDELITY_DT, False)
+        bodies, wcol, joints, inv_dt = inputs
+        tab = fs.fused_tables(scene, DEVICE)
+        t = {}
+        for iters in (0, ITERATIONS):
+            solver = fs.make_fused_step_solver(
+                scene, iters, 1.0, sequential=True, joint_prep_in_kernel=False)
+            for _ in range(3):
+                out = solver(bodies, wcol, joints, inv_dt)
+            t[f"ms_{iters}_iterations"] = time_ms(
+                lambda: solver(bodies, wcol, joints, inv_dt), 20)
+        klive = out[3]
+
+        def run_plain():
+            return fs._fused_core(
+                tab, ITERATIONS, 1.0, inv_dt,
+                torch.cat([bodies.v, bodies.w], -1), bodies.inv_mass,
+                bodies.inv_inertia, bodies.pos_cog, bodies.rot, None, wcol.a,
+                wcol.b, wcol.rot, joint_tables=joints, sequential=True)
+        work = recipe_flops(tab, fs.recipe_branches(tab, wcol.a, wcol.b,
+                                                    wcol.rot)
+                            if any(m["key"] in fs.BRANCH_RECIPES
+                                   for m in tab.metas) else {},
+                            FIDELITY_TIMED_BATCH)
+        b_ms, b_by, b_detail = bound_ms(tab, klive, FIDELITY_TIMED_BATCH,
+                                        work, prepped=True, sequential=True)
+        timing[name] = dict(
+            batch=FIDELITY_TIMED_BATCH, ms=t[f"ms_{ITERATIONS}_iterations"],
+            **t, plain_ms=time_ms(run_plain, 1), bound_ms=b_ms,
+            bound_by=b_by, bound_detail=b_detail, library_ms=None,
+            library_reason=FIDELITY_LIBRARY_REASON,
+            live_rows_per_env=float((klive != 0).sum()) / FIDELITY_TIMED_BATCH)
+
+    emit("fidelity", scenes={
+        n: dict(bodies=s.num_bodies,
+                pair_rows=fs.fused_tables(s, DEVICE).num_rows,
+                joints=fs.fused_tables(s, DEVICE).joint_counts,
+                threads=fs.fused_tables(s, DEVICE).threads(),
+                smem_bytes=fs.fused_tables(s, DEVICE).shared_floats() * 4)
+        for n, s in scenes.items()},
+         iterations=ITERATIONS, dt=FIDELITY_DT, tolerance=FIDELITY_TOL,
+         short_gated=FIDELITY_SHORT, short_reason=FIDELITY_SHORT_REASON,
+         kernel_tolerance=FIDELITY_KERNEL_TOL,
+         kernel_tolerance_reason=FIDELITY_KERNEL_TOL_REASON, checks=checks,
+         rows=rows, row_steps_per_s=total_steps / total_secs, kernel=timing)
+
+    bad = [k for k, c in checks.items()
+           if not (c["finite"] and c["mask_mismatch"] == 0
+                   and max(c["err_v"], c["err_w"], c["err_imp"])
+                   <= FIDELITY_KERNEL_TOL)]
+    if bad:
+        raise RuntimeError(f"fidelity: the prepped kernel disagrees with its "
+                           f"plain version in {bad}")
+    if not any(c["live_rows"] for k, c in checks.items()
+               if ".fused_seq." in k):
+        raise RuntimeError("fidelity: no live contact row in the compared "
+                           "states")
+    for name, r in rows.items():
+        want = {k: (FIDELITY_STEPS if k in ("fused_step",
+                                            "fused_step.prepped") else 0)
+                for k in r["launches"]}
+        if r["launches"] != want or not r["finite"]:
+            raise RuntimeError(f"fidelity {name}: launches {r['launches']} "
+                               f"(expected {want}), finite {r['finite']}")
+        if not r["max_dev_gated"] < FIDELITY_TOL:
+            raise RuntimeError(
+                f"fidelity {name}: {r['max_dev_gated']} from the golden "
+                f"trajectory over its first {r['gated_checkpoints']} "
+                f"checkpoints (gate {FIDELITY_TOL})")
+    big = timing["ragdoll_settle"]
+    return {
+        "name": "fused_step_prepped", "route": "cuda",
+        "source": "dxk_tpu_torch/ops/kernels/csrc/fused_step.cu",
+        "replaces": "dxk_tpu/ops/pallas/fused_step.py:1177",
+        "launches": sum(r["launches"]["fused_step.prepped"]
+                        for r in rows.values()),
+        "max_abs_err": max(max(c["err_v"], c["err_w"], c["err_imp"])
+                           for c in checks.values()),
+        "ms": big["ms"], "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+        "library_ms": None}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=600,
@@ -1783,6 +2139,9 @@ def main():
     # ---- the golden mixed-shape drop and sphere bounce on the fused step
     shapes_kernel = shapes_phase(args.seed + 6)
 
+    # ---- the golden fidelity row on fused_seq
+    fidelity_kernel = fidelity_phase(args.seed + 7, (env.scene, state))
+
     # ---- the box stack on the reference step, each broadphase
     box_kernels = box_stack_phase(args.seed + 3)
 
@@ -1795,7 +2154,7 @@ def main():
                                   "err_imp")),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None}, zoo_kernel, settle_kernel,
-        shapes_kernel]
+        shapes_kernel, fidelity_kernel]
         + box_kernels}),
         flush=True)
     print(smi, flush=True)

@@ -13,6 +13,19 @@ from __future__ import annotations
 
 import torch
 
+_CONSTS = {}
+
+
+def const(values, like):
+    """A small constant tensor with the dtype and device of `like`, made
+    once per (values, dtype, device): building it anew on the card would
+    copy it from the host and wait for the device on every call."""
+    key = (tuple(values), like.dtype, like.device)
+    if key not in _CONSTS:
+        _CONSTS[key] = torch.tensor(values, dtype=like.dtype,
+                                    device=like.device)
+    return _CONSTS[key]
+
 
 def sqrt(x):
     """Square root, rounded correctly in float32 on every device. PyTorch's
@@ -140,18 +153,15 @@ def rotate_from_to(_from, _to):
     c = cross(f, t)
     q_general = quat_normalize(quat(c * invs[..., None], s * 0.5))
 
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=f.dtype, device=f.device)
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=f.dtype, device=f.device)
-    ax1 = cross(ex, f)
-    ax2 = cross(ey, f)
+    ax1 = cross(const((1.0, 0.0, 0.0), f), f)
+    ax2 = cross(const((0.0, 1.0, 0.0), f), f)
     use2 = (squared_length(ax1) < 1e-12)[..., None]
     axis = normalize(torch.where(use2, ax2, ax1) + 1e-30)
     q_pi = quat(axis, torch.zeros_like(d))
 
     anti = (d < (1e-6 - 1.0))[..., None]
     q = torch.where(anti, q_pi, q_general)
-    ident = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=q.dtype,
-                         device=q.device).expand(q.shape)
+    ident = const((0.0, 0.0, 0.0, 1.0), q).expand(q.shape)
     return torch.where((d >= 1.0)[..., None], ident, q)
 
 
@@ -164,8 +174,8 @@ def get_axis_rotation(q):
                                                          1.0)), 0.0)
     inv_len = torch.where(ok, 1.0 / sqrt(torch.where(ok, sq, 1.0)),
                           0.0)
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=q.dtype, device=q.device)
-    axis = torch.where(ok[..., None], v * inv_len[..., None], ex)
+    axis = torch.where(ok[..., None], v * inv_len[..., None],
+                       const((1.0, 0.0, 0.0), q))
     return axis, angle
 
 
@@ -178,3 +188,18 @@ def get_tangent(normal):
                     torch.stack([ny, -nx, zero], dim=-1),
                     torch.stack([zero, nz, -ny], dim=-1))
     return normalize(t)
+
+
+def get_tangents(normal):
+    """tangent = get_tangent(n); bitangent = n x tangent."""
+    t = get_tangent(normal)
+    return t, cross(normal, t)
+
+
+def skew(r):
+    """Cross-product matrix [r]x, (..., 3, 3)."""
+    zero = torch.zeros_like(r[..., 0])
+    m = torch.stack([zero, -r[..., 2], r[..., 1],
+                     r[..., 2], zero, -r[..., 0],
+                     -r[..., 1], r[..., 0], zero], dim=-1)
+    return m.reshape(*m.shape[:-1], 3, 3)

@@ -80,10 +80,10 @@ class LocoEnv:
                  solver_mode: str = "fused", enable_pokes: bool = True,
                  torso_velocity_target=(0.0, 0.0, 0.0), gait: bool = None,
                  device="cuda"):
-        if solver_mode != "fused":
+        if solver_mode not in ("fused", "fused_seq"):
             raise NotImplementedError(
                 f"LocoEnv(solver_mode={solver_mode!r}) is not ported to "
-                "dxk_tpu_torch yet; only 'fused'")
+                "dxk_tpu_torch yet; only 'fused' and 'fused_seq'")
         self.device = resolve_device(device)
         dev = self.device
 

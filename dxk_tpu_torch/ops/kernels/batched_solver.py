@@ -13,7 +13,14 @@ the same arithmetic as the JAX package's joint-by-joint unrolled loop
 because the averaged mode reads every joint's velocities before any
 write-back.
 
-Ported: contacts and all six joint types.
+The sequential mode (`_solve_joint_type_seq`, the JAX package's
+``_solve_joint_type(sequential=True)``) solves one joint at a time on
+(B,) lanes and stores both bodies' new velocity rows before the next
+joint reads them: reference Gauss-Seidel. `pack_joint_type` packs a joint
+prep of ops/solver.py into the (B, J * ROWS) table the fused step takes
+when its joint rows are prepared outside the kernel.
+
+Ported: contacts and all six joint types, averaged and sequential.
 """
 
 from __future__ import annotations
@@ -69,8 +76,10 @@ DIST_VECS = ("rel_a", "rel_b", "u", "to_wa", "to_wb")
 DIST_SCALS = ("bias", "eff_mass")
 DIST_ROWS = len(DIST_VECS) * 3 + len(DIST_SCALS)
 BALL_VECS = ("rel_a", "rel_b", "bias")
+BALL_SCALS = ()
 BALL_ROWS = len(BALL_VECS) * 3 + 9                       # + inv_eff_mass
 FIXED_VECS = ("rel_a", "rel_b", "translation_bias", "rotation_bias")
+FIXED_SCALS = ()
 FIXED_ROWS = len(FIXED_VECS) * 3 + 9 + 9                 # + mt + mr
 SLIDER_VECS = ("r_au_x_t", "r_au_x_b", "r_b_x_t", "r_b_x_b", "tangent",
                "bitangent", "axis", "r_au_x_s", "r_b_x_s", "l_to_wa",
@@ -96,7 +105,6 @@ def phase_partition(phases):
             last = ph
         out[-1].append(g)
     return out
-
 
 
 # ===========================================================================
@@ -537,6 +545,114 @@ def _solve_joint_type(name, idx_a, idx_b, rows, vw, inv_mass, inv_inertia,
     return vw, tuple(out[4:])
 
 
+def _solve_joint_type_seq(name, ab, fields, vw, inv_mass, inv_inertia, accs):
+    """One sequential pass over the joints of one type, in order: each
+    joint solves against the current velocities and its two bodies' new
+    [v|w] rows are stored into `vw` (B, NB, 6), in place, before the next
+    joint reads them.
+
+    ab: [(a, b), ...] body indices; fields[j]: joint j's field dict of
+    (B,) lanes; accs: tuple of per-joint lists of (B,) accumulated
+    impulses. Returns the new accs."""
+    _rows, _reader, solve, n_acc = JOINT_SPECS[name]
+    B = vw.shape[0]
+    new = tuple([] for _ in range(n_acc))
+    for j, (a, b) in enumerate(ab):
+        ua, ub = vw[:, a], vw[:, b]
+        ia = inv_inertia[:, a].reshape(B, 9)
+        ib = inv_inertia[:, b].reshape(B, 9)
+        out = solve(fields[j], inv_mass[a], inv_mass[b],
+                    tuple(ia[:, i] for i in range(9)),
+                    tuple(ib[:, i] for i in range(9)),
+                    tuple(ua[:, c] for c in range(3)),
+                    tuple(ua[:, c] for c in range(3, 6)),
+                    tuple(ub[:, c] for c in range(3)),
+                    tuple(ub[:, c] for c in range(3, 6)),
+                    *[acc[j] for acc in accs])
+        row_a = torch.stack(list(out[0]) + list(out[1]), dim=-1)
+        row_b = torch.stack(list(out[2]) + list(out[3]), dim=-1)
+        vw[:, a] = row_a
+        vw[:, b] = row_b
+        for lst, val in zip(new, out[4:]):
+            lst.append(val)
+    return new
+
+
+# ===========================================================================
+# joint preps (ops/solver.py) -> packed tables
+
+
+def _joint_extra_hinge(h):
+    extra = [h.inv_eff_trans_mass[..., i, j]
+             for i in range(3) for j in range(3)]
+    extra += [h.inv_eff_rot_mass[..., 0, 0], h.inv_eff_rot_mass[..., 0, 1],
+              h.inv_eff_rot_mass[..., 1, 0], h.inv_eff_rot_mass[..., 1, 1]]
+    extra += [h.rotation_bias[..., 0], h.rotation_bias[..., 1]]
+    return extra
+
+
+def _joint_extra_ct(c):
+    return [c.inv_eff_mass[..., i, j] for i in range(3) for j in range(3)]
+
+
+def _joint_extra_dist(_d):
+    return []
+
+
+def _joint_extra_ball(b):
+    return [b.inv_eff_mass[..., i, j] for i in range(3) for j in range(3)]
+
+
+def _joint_extra_fixed(x):
+    extra = [x.inv_eff_trans_mass[..., i, j]
+             for i in range(3) for j in range(3)]
+    extra += [x.inv_eff_rot_mass[..., i, j]
+              for i in range(3) for j in range(3)]
+    return extra
+
+
+def _joint_extra_slider(s):
+    extra = [s.inv_eff_trans_mass[..., 0, 0], s.inv_eff_trans_mass[..., 0, 1],
+             s.inv_eff_trans_mass[..., 1, 0], s.inv_eff_trans_mass[..., 1, 1]]
+    extra += [s.translation_bias[..., 0], s.translation_bias[..., 1]]
+    extra += [s.inv_eff_rot_mass[..., i, j]
+              for i in range(3) for j in range(3)]
+    return extra
+
+
+# name -> (vec fields, scalar fields, extra rows) of the packed layout; the
+# row order is the one the _*_field_rows readers above consume
+PACK_SPECS = {
+    "distance": (DIST_VECS, DIST_SCALS, _joint_extra_dist),
+    "ball": (BALL_VECS, BALL_SCALS, _joint_extra_ball),
+    "fixed": (FIXED_VECS, FIXED_SCALS, _joint_extra_fixed),
+    "hinge": (HINGE_VECS, HINGE_SCALS, _joint_extra_hinge),
+    "cone_twist": (CT_VECS, CT_SCALS, _joint_extra_ct),
+    "slider": (SLIDER_VECS, SLIDER_SCALS, _joint_extra_slider),
+}
+
+
+def _pack_joint(prep, vec_names, scal_names, extra):
+    """(B, J*R) with column j*R + r (row r of joint j)."""
+    rows = []
+    for name in vec_names:
+        v = getattr(prep, name)                  # (B, J, 3)
+        rows.extend([v[..., i] for i in range(3)])
+    rows.extend(extra)
+    for name in scal_names:
+        rows.append(getattr(prep, name).to(torch.float32))
+    shape = torch.broadcast_shapes(*[r.shape for r in rows])
+    t = torch.stack([r.expand(shape) for r in rows], dim=2)   # (B, J, R)
+    return t.reshape(t.shape[0], -1)
+
+
+def pack_joint_type(name, prep):
+    """(B, J * ROWS) packed table of one joint type's prep (ops/solver.py),
+    joint-major: column j * ROWS + r is row r of joint j."""
+    vecs, scals, extra_fn = PACK_SPECS[name]
+    return _pack_joint(prep, vecs, scals, extra_fn(prep))
+
+
 def static_joint_invdeg(scene, nbody):
     """(6, nbody) 1/degree per joint type — scene constants (wiring is
     static)."""
@@ -552,6 +668,14 @@ def static_joint_invdeg(scene, nbody):
             deg[n] += 1
         out[row] = 1.0 / np.maximum(deg, 1.0)
     return out
+
+
+def scene_joint_types(scene):
+    """Names of the joint types present in the scene, in reference solve
+    order (scene_joint_ab's, without reading the wiring off the device)."""
+    return [name for name in JOINT_ORDER
+            if getattr(scene, name) is not None
+            and getattr(scene, name).body_a.shape[0] > 0]
 
 
 def scene_joint_ab(scene):

@@ -49,12 +49,31 @@
 // envs are not packed into one block to fill lanes during the joint passes (in
 // the constraint zoo 208 of 224 threads wait through each joint pass), no
 // tuning of block size or register budget.
+//
+// Built with -DDXK_PREPPED_JOINTS=1 (and the sphere and cylinder recipes), the
+// same kernel also replaces the TPU kernel's two other modes, behind the entry
+// point dxk_fused_step_prepped_launch:
+//   * joint rows prepared outside the kernel (the JAX package's XLA preps,
+//     ops/solver.py; here dxk_tpu_torch/ops/solver.py) come in as one row of
+//     floats per env and are copied into the block's joint rows in place of the
+//     in-kernel joint prep;
+//   * the sequential solve of solver_mode "fused_seq" (_fused_core with
+//     sequential=True): after the parallel narrowphase and contact prep, one
+//     thread of the block walks the whole dependent chain - per iteration each
+//     joint in JOINT_ORDER, then every live pair row in phase order with its
+//     live points in order, both bodies' velocities stored after each joint and
+//     each row. There is no parallelism to take within an env there; one thread
+//     per env is slow on paper, and several envs per block is a later step.
+// The other two builds compile none of this code.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #ifndef DXK_SHAPE_RECIPES
 #define DXK_SHAPE_RECIPES 0
+#endif
+#ifndef DXK_PREPPED_JOINTS
+#define DXK_PREPPED_JOINTS 0
 #endif
 
 #define DF __device__ __forceinline__
@@ -2572,6 +2591,39 @@ DF void joint_pass(const JointDesc& d, bool joint_warp, int lane, const int* jab
   __syncthreads();
 }
 
+#if DXK_PREPPED_JOINTS
+DF void st_vel(float* vw, int a, int b, const Vel& u) {
+  float* ra = vw + 6 * a;
+  float* rb = vw + 6 * b;
+  ra[0] = u.va.x; ra[1] = u.va.y; ra[2] = u.va.z;
+  ra[3] = u.wa.x; ra[4] = u.wa.y; ra[5] = u.wa.z;
+  rb[0] = u.vb.x; rb[1] = u.vb.y; rb[2] = u.vb.z;
+  rb[3] = u.wb.x; rb[4] = u.wb.y; rb[5] = u.wb.z;
+}
+
+// one sequential pass over the joints of type T: each joint solves against the
+// current velocities, and both bodies' rows are stored before the next joint
+template <int T>
+DF void joint_seq(const JointDesc& d, const int* jab, const float* jrow, float* jimp,
+                  float* vw, const float* invm, const float* invI) {
+  for (int j = 0; j < d.n; ++j) {
+    int a = jab[2 * (d.base + j)], b = jab[2 * (d.base + j) + 1];
+    Vel u;
+    ld_vel(vw, a, b, u);
+    const float* f = jrow + d.row + j;
+    float* imps = jimp + d.acc + joint_accs(T) * j;
+    const float *ia = invI + 9 * a, *ib = invI + 9 * b;
+    if (T == J_DISTANCE) distance_solve(f, d.n, invm[a], invm[b], u);
+    if (T == J_BALL) ball_solve(f, d.n, invm[a], invm[b], ia, ib, u);
+    if (T == J_FIXED) fixed_solve(f, d.n, invm[a], invm[b], ia, ib, u);
+    if (T == J_HINGE) hinge_solve(f, d.n, invm[a], invm[b], ia, ib, u, imps);
+    if (T == J_CONE_TWIST) cone_twist_solve(f, d.n, invm[a], invm[b], ia, ib, u, imps);
+    if (T == J_SLIDER) slider_solve(f, d.n, invm[a], invm[b], ia, ib, u, imps);
+    st_vel(vw, a, b, u);
+  }
+}
+#endif
+
 }  // namespace
 
 // At most 256 threads (224 row threads + the joint warp) and at least two
@@ -2587,6 +2639,9 @@ __global__ void __launch_bounds__(256, 2) fused_step_kernel(
     const float* __restrict__ g_pos, const float* __restrict__ g_rot,
     const float* __restrict__ g_ctl, const float* __restrict__ g_col_a,
     const float* __restrict__ g_col_b, const float* __restrict__ g_col_rot,
+#if DXK_PREPPED_JOINTS
+    const float* __restrict__ g_jrows, int sequential, int rows_passed,
+#endif
     const int* __restrict__ itab, const float* __restrict__ ftab,
     float* __restrict__ o_v, float* __restrict__ o_w, float* __restrict__ o_imp,
     unsigned char* __restrict__ o_live) {
@@ -2650,7 +2705,17 @@ __global__ void __launch_bounds__(256, 2) fused_step_kernel(
     int n = i / 4, c = i - 4 * n;
     col[10 * n + 6 + c] = g_col_rot[(size_t)env * C * 4 + i];
   }
+#if DXK_PREPPED_JOINTS
+  // joint rows prepared outside the kernel, already in the field-major layout
+  // of jrow; the controls are then not read at all
+  if (rows_passed) {
+    for (int i = tid; i < nrow_f; i += T) jrow[i] = g_jrows[(size_t)env * nrow_f + i];
+  } else {
+    for (int i = tid; i < D.R1; i += T) ctl[i] = g_ctl[(size_t)env * D.R1 + i];
+  }
+#else
   for (int i = tid; i < D.R1; i += T) ctl[i] = g_ctl[(size_t)env * D.R1 + i];
+#endif
   for (int i = tid; i < P * 12; i += T) rdelta[i] = 0.0f;
   for (int i = tid; i < nacc_f; i += T) jimp[i] = 0.0f;
   __syncthreads();
@@ -2716,7 +2781,11 @@ __global__ void __launch_bounds__(256, 2) fused_step_kernel(
         }
       }
     }
-  } else {
+  } else
+#if DXK_PREPPED_JOINTS
+  if (!rows_passed)
+#endif
+  {
     int lane = tid - RT;
     float dt = ctl[D.R1 - 1];
 #define DXK_PREP(JT)                                                                   \
@@ -2738,7 +2807,38 @@ __global__ void __launch_bounds__(256, 2) fused_step_kernel(
   __syncthreads();
 
   // ---- the solve ---------------------------------------------------------------
+#if DXK_PREPPED_JOINTS
+  // sequential: one thread walks the chain; joints in JOINT_ORDER, then the
+  // rows in phase order, live points only (a dead point's effective masses
+  // and friction are zero: solving it could change no more than the sign of
+  // a zero)
+  if (sequential && tid == 0) {
+    for (int it = 0; it < D.iters; ++it) {
+      joint_seq<J_DISTANCE>(D.jd[J_DISTANCE], jab, jrow, jimp, vw, invm, invI);
+      joint_seq<J_BALL>(D.jd[J_BALL], jab, jrow, jimp, vw, invm, invI);
+      joint_seq<J_FIXED>(D.jd[J_FIXED], jab, jrow, jimp, vw, invm, invI);
+      joint_seq<J_HINGE>(D.jd[J_HINGE], jab, jrow, jimp, vw, invm, invI);
+      joint_seq<J_CONE_TWIST>(D.jd[J_CONE_TWIST], jab, jrow, jimp, vw, invm, invI);
+      joint_seq<J_SLIDER>(D.jd[J_SLIDER], jab, jrow, jimp, vw, invm, invI);
+      for (int r = 0; r < P; ++r) {
+        int mask = rmask[r];
+        if (!mask) continue;
+        const int* ri = rows_i + r * ROW_INTS;
+        int K = ri[1], ba = ri[4], bb = ri[5], slot0 = ri[6], stride = ri[7];
+        Vel u;
+        ld_vel(vw, ba, bb, u);
+        float inv_ma = invm[ba], inv_mb = invm[bb];
+        for (int k = 0; k < K; ++k)
+          if (mask >> k & 1) contact_point(pts + slot0 + k * stride, np, inv_ma, inv_mb, u);
+        st_vel(vw, ba, bb, u);
+      }
+    }
+  }
+  __syncthreads();
+  for (int it = 0; it < (sequential ? 0 : D.iters); ++it) {
+#else
   for (int it = 0; it < D.iters; ++it) {
+#endif
     // joint passes in JOINT_ORDER; a type with no joints is skipped
 #define DXK_PASS(JT)                                                                   \
   joint_pass<JT>(D.jd[JT], joint_warp, tid - RT, jab, itab, ftab, jrow, jimp, jdelta,  \
@@ -2786,7 +2886,19 @@ __global__ void __launch_bounds__(256, 2) fused_step_kernel(
 }
 
 // Launches one block per env on `stream`. Returns the CUDA error code of the
-// launch (0 = success); does not synchronise and allocates nothing.
+// launch (0 = success); does not synchronise and allocates nothing. The prepped
+// build's entry also takes the env's prepared joint rows (`jrows`, read when
+// `rows_passed`; `ctl` is then not read) and the `sequential` flag.
+#if DXK_PREPPED_JOINTS
+extern "C" int dxk_fused_step_prepped_launch(
+    const int* dims, float omega, float inv_dt,
+    const void* v, const void* w, const void* inv_mass, const void* inv_inertia,
+    const void* pos_cog, const void* rot, const void* ctl, const void* col_a,
+    const void* col_b, const void* col_rot, const void* jrows, int sequential,
+    int rows_passed, const void* itab, const void* ftab,
+    void* v_out, void* w_out, void* imp_out, void* live_out,
+    int threads, int smem_bytes, void* stream) {
+#else
 extern "C" int dxk_fused_step_launch(
     const int* dims, float omega, float inv_dt,
     const void* v, const void* w, const void* inv_mass, const void* inv_inertia,
@@ -2794,6 +2906,7 @@ extern "C" int dxk_fused_step_launch(
     const void* col_b, const void* col_rot, const void* itab, const void* ftab,
     void* v_out, void* w_out, void* imp_out, void* live_out,
     int threads, int smem_bytes, void* stream) {
+#endif
   Dims D;
   D.B = dims[0]; D.nb = dims[1]; D.C = dims[2]; D.P = dims[3]; D.nphase = dims[4];
   D.R1 = dims[5]; D.npts = dims[6]; D.iters = dims[7];
@@ -2819,7 +2932,11 @@ extern "C" int dxk_fused_step_launch(
       (const float*)v, (const float*)w, (const float*)inv_mass,
       (const float*)inv_inertia, (const float*)pos_cog, (const float*)rot,
       (const float*)ctl, (const float*)col_a, (const float*)col_b,
-      (const float*)col_rot, (const int*)itab, (const float*)ftab,
+      (const float*)col_rot,
+#if DXK_PREPPED_JOINTS
+      (const float*)jrows, sequential, rows_passed,
+#endif
+      (const int*)itab, (const float*)ftab,
       (float*)v_out, (float*)w_out, (float*)imp_out, (unsigned char*)live_out);
   return (int)cudaGetLastError();
 }

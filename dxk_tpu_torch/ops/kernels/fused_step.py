@@ -35,16 +35,28 @@ size or register budget; the library is compiled with ``-fmad=false`` so
 that the narrowphase takes the same side of every tie-break as the plain
 version.
 
-Solve semantics = the JAX package's averaged ("jacobi") mode; see
-batched_solver.py.
+Solve semantics: the JAX package's averaged ("jacobi") mode, or with
+``sequential=True`` its sequential (``fused_seq``) mode — per iteration
+each joint in JOINT_ORDER, one at a time, then every pair row in phase
+order with its points in order, both bodies' velocities stored after each
+joint and each row (reference Gauss-Seidel, the JAX package's ``scan``
+semantics); see batched_solver.py. Joint rows are prepared in the kernel
+from the motor controls, or outside it (ops/solver.py's preps, packed by
+batched_solver.pack_joint_type) and passed in.
+
+Three builds of ``csrc/fused_step.cu``: "base" (averaged, joint prep in the
+kernel, no sphere or cylinder recipes), "shapes" (the same with the sphere
+and cylinder recipes) and "prepped" (every recipe, passed joint rows or
+in-kernel prep, averaged or sequential solve by a run-time flag). The
+first two serve ``"fused"`` with ``joint_prep_in_kernel=True``; the third
+every other combination.
 
 Ported: all 15 shape-pair recipes (sphere, capsule, cylinder, box and
 hull against each other; the hull recipes over the distance GJK of
 gjk_distance.py, cm_hull.py, and the polytope SAT of cm_polytope.py), all
 six joint types (distance, ball, fixed, hinge, cone-twist, slider), one
-contact phase or several, joint prep in the kernel. The sequential
-(``fused_seq``) mode and prep-passed groups (heightfield) raise
-NotImplementedError.
+contact phase or several, both solve modes. Prep-passed groups
+(heightfield) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -63,8 +75,8 @@ from dxk_tpu_torch.ops.kernels import cm_narrowphase as cm
 from dxk_tpu_torch.ops.kernels import cm_polytope as cp
 from dxk_tpu_torch.ops.kernels.batched_solver import (
     JOINT_ORDER, JOINT_SPECS, TYPE_MAX_POINTS, _contact_point,
-    _solve_joint_type, _sub, phase_partition, scene_joint_ab,
-    static_joint_invdeg)
+    _solve_joint_type, _solve_joint_type_seq, _sub, phase_partition,
+    scene_joint_ab, static_joint_invdeg)
 from dxk_tpu_torch.ops.kernels.cm_joint_prep import (CTL_FIELDS, ROW_BUILDERS,
                                                      STATIC_FIELDS,
                                                      STATIC_WIDTH,
@@ -167,6 +179,7 @@ class _JointType:
     js: dict                   # static params, see cm_joint_prep
     ctl_cols: dict             # field -> (J,) int64 columns of the ctl pack
     inv_deg: torch.Tensor      # (NB,)
+    ab: list                   # [(a, b), ...] as Python ints
 
 
 @dataclass
@@ -180,6 +193,12 @@ class _Group:
     rest: torch.Tensor
     hull_a: dict = None       # per-row hull-local tables of side a / b
     hull_b: dict = None
+
+    @property
+    def ab(self):
+        """[(body_a, body_b), ...] of the rows, as Python ints."""
+        return list(zip(self.meta["body_a"].tolist(),
+                        self.meta["body_b"].tolist()))
 
 
 def _hull_rows(h, hid):
@@ -249,7 +268,7 @@ class FusedTables:
                 c += n
             self.joint_types.append(_JointType(
                 name, t(ab_all[name][:, 0]), t(ab_all[name][:, 1]), js, cols,
-                t(idg[JOINT_ORDER.index(name)])))
+                t(idg[JOINT_ORDER.index(name)]), [tuple(x) for x in ab]))
 
         # ---- packed tables for the CUDA kernel --------------------------
         rows_i, rows_f, pt_base = [], [], 0
@@ -648,15 +667,35 @@ def recipe_branches(tab: FusedTables, col_a, col_b, col_rot):
     return out
 
 
+def joint_table_rows(tab: FusedTables, tables):
+    """Packed joint tables (batched_solver.pack_joint_type: one (B, J * ROWS)
+    joint-major table per joint type of the scene, in scene_joint_ab order)
+    -> per type the list of ROWS (B, J) lanes the solves read."""
+    if len(tables) != len(tab.joint_types):
+        raise ValueError(f"fused_step: {len(tables)} joint tables for "
+                         f"{len(tab.joint_types)} joint types")
+    out = []
+    for jt, t in zip(tab.joint_types, tables):
+        J, R = len(jt.ab), JOINT_SPECS[jt.name][0]
+        if t.dim() != 2 or t.shape[1] != J * R:
+            raise ValueError(f"fused_step: {jt.name} table of shape "
+                             f"{tuple(t.shape)}, expected (B, {J * R})")
+        t3 = t.view(t.shape[0], J, R)
+        out.append([t3[..., r] for r in range(R)])
+    return out
+
+
 def _fused_core(tab: FusedTables, num_iterations, omega, inv_dt,
                 vw0, inv_mass, inv_inertia, pos_cog, rot, ctl,
-                col_a, col_b, col_rot):
+                col_a, col_b, col_rot, joint_tables=None, sequential=False):
     """The whole contact pipeline in plain PyTorch on (B, rows) lanes.
 
     vw0 (B, NB, 6); inv_mass (NB,); inv_inertia (B, NB, 3, 3);
     pos_cog (B, NB, 3); rot (B, NB, 4); ctl (B, R+1) controls pack with dt
-    in the last column; col_a/col_b (B, C, 3), col_rot (B, C, 4) world
-    collider params; inv_dt a 0-dim float32 tensor.
+    in the last column, from which the joint rows are prepared, or None
+    when `joint_tables` (joint_table_rows' input) brings them prepared;
+    col_a/col_b (B, C, 3), col_rot (B, C, 4) world collider params; inv_dt
+    a 0-dim float32 tensor. `sequential` selects the sequential solve.
 
     Returns (vw (B, NB, 6), imp_n (B, P, 4), live (B, P) uint8) with the
     pair rows P in ascending phase order; bit k of `live` says that
@@ -664,9 +703,12 @@ def _fused_core(tab: FusedTables, num_iterations, omega, inv_dt,
     B, nb = vw0.shape[0], vw0.shape[1]
     inv_dt = torch.as_tensor(inv_dt, dtype=torch.float32, device=vw0.device)
 
-    # ---- joint prep ----------------------------------------------------
-    joint_ts = [_joint_rows(tab, jt, rot, pos_cog, inv_inertia, inv_mass,
-                            ctl, inv_dt) for jt in tab.joint_types]
+    # ---- joint rows: prepared here, or passed in ------------------------
+    if joint_tables is None:
+        joint_ts = [_joint_rows(tab, jt, rot, pos_cog, inv_inertia, inv_mass,
+                                ctl, inv_dt) for jt in tab.joint_types]
+    else:
+        joint_ts = joint_table_rows(tab, joint_tables)
 
     # ---- narrowphase + prep per group -----------------------------------
     group_fields, group_live = [], []
@@ -684,6 +726,11 @@ def _fused_core(tab: FusedTables, num_iterations, omega, inv_dt,
             live = live | (m.to(torch.uint8) << k)
         group_fields.append((fields, inv_ma, inv_mb))
         group_live.append(live)
+
+    if sequential:
+        vw, imps = _sequential_solve(tab, num_iterations, vw0, inv_mass,
+                                     inv_inertia, joint_ts, group_fields)
+        return vw, imps, torch.cat(group_live, dim=1)
 
     # ---- contact inverse degrees from live pairs, per phase slice -------
     inv_deg_con = []
@@ -751,6 +798,61 @@ def _fused_core(tab: FusedTables, num_iterations, omega, inv_dt,
     return vw, torch.cat(imps, dim=1), torch.cat(group_live, dim=1)
 
 
+def _sequential_solve(tab, num_iterations, vw0, inv_mass, inv_inertia,
+                      joint_ts, group_fields):
+    """The sequential solve (the JAX package's ``_fused_core`` with
+    sequential=True): per iteration each joint type in JOINT_ORDER, joints
+    in order, then the groups in ascending phase order, rows in table
+    order, every point k < K in order (dead ones included: their effective
+    masses and friction are zero), both bodies' [v|w] rows stored after each
+    joint and each row. Returns (vw, imp_n (B, P, 4))."""
+    B = vw0.shape[0]
+    vw = vw0.clone()
+    zero = torch.zeros((B,), dtype=torch.float32, device=vw0.device)
+    joint_fields = [[JOINT_SPECS[jt.name][1]([r[:, j] for r in rows])
+                     for j in range(len(jt.ab))]
+                    for jt, rows in zip(tab.joint_types, joint_ts)]
+    joint_imps = [tuple([zero] * len(jt.ab)
+                        for _ in range(JOINT_SPECS[jt.name][3]))
+                  for jt in tab.joint_types]
+    # per group, row and point: the point's fields as (B,) lanes
+    rows = []
+    for grp, (fields, inv_ma, inv_mb) in zip(tab.groups, group_fields):
+        for p, (a, b) in enumerate(grp.ab):
+            points = [(tuple(tuple(c[:, p] for c in v) for v in cv),
+                       tuple(c[:, p] for c in cs)) for cv, cs in fields]
+            rows.append((a, b, inv_ma[p], inv_mb[p], points))
+    imp_n = [[zero] * len(pts) for *_x, pts in rows]
+    imp_t = [[zero] * len(pts) for *_x, pts in rows]
+
+    for _it in range(num_iterations):
+        for ji, jt in enumerate(tab.joint_types):
+            joint_imps[ji] = _solve_joint_type_seq(
+                jt.name, jt.ab, joint_fields[ji], vw, inv_mass, inv_inertia,
+                joint_imps[ji])
+        for r, (a, b, inv_ma, inv_mb, points) in enumerate(rows):
+            ua, ub = vw[:, a], vw[:, b]
+            va = tuple(ua[:, c] for c in range(3))
+            wa = tuple(ua[:, c] for c in range(3, 6))
+            vb = tuple(ub[:, c] for c in range(3))
+            wb = tuple(ub[:, c] for c in range(3, 6))
+            for k, (cv, cs) in enumerate(points):
+                va, wa, vb, wb, imp_n[r][k], imp_t[r][k] = _contact_point(
+                    cv, cs, inv_ma, inv_mb, va, wa, vb, wb, imp_n[r][k],
+                    imp_t[r][k])
+            row_a = torch.stack(list(va) + list(wa), dim=-1)
+            row_b = torch.stack(list(vb) + list(wb), dim=-1)
+            vw[:, a] = row_a
+            vw[:, b] = row_b
+
+    imps = torch.zeros((B, len(rows), 4), dtype=torch.float32,
+                       device=vw0.device)
+    for r, row_imps in enumerate(imp_n):
+        for k, x in enumerate(row_imps):
+            imps[:, r, k] = x
+    return vw, imps
+
+
 # ===========================================================================
 # the CUDA kernel: build, bind, launch
 
@@ -759,28 +861,40 @@ NVCC_FLAGS = build.BASE_FLAGS + ["-fmad=false"]
 # same source: in one module with the other recipes they made the ragdoll
 # settle's kernel 4 % slower on an H100, though it never calls them
 SHAPES_FLAGS = ["-DDXK_SHAPE_RECIPES=1"]
+# the third build takes joint rows prepared outside the kernel and solves
+# averaged or sequentially (a run-time flag); it holds every recipe, and its
+# code is compiled into neither of the other two
+PREPPED_FLAGS = SHAPES_FLAGS + ["-DDXK_PREPPED_JOINTS=1"]
+LIBRARY_FLAGS = {"base": [], "shapes": SHAPES_FLAGS, "prepped": PREPPED_FLAGS}
 
 _LIBS = {}
-_LAUNCHES = 0
-BUILD_LOGS = {}              # compiler output by library: "base", "shapes"
+_LAUNCHES = {name: 0 for name in LIBRARY_FLAGS}
+BUILD_LOGS = {}              # compiler output by library: "base", "shapes",
+                             # "prepped"
 
 
-def launch_count() -> int:
-    """Kernel launches made by the wrapper since the last reset."""
-    return _LAUNCHES
+def launch_count(library=None) -> int:
+    """Kernel launches made by the wrapper since the last reset: of one
+    library ("base", "shapes", "prepped"), or of all three."""
+    if library is None:
+        return sum(_LAUNCHES.values())
+    return _LAUNCHES[library]
 
 
 def reset_launch_count() -> None:
-    global _LAUNCHES
-    _LAUNCHES = 0
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
 
 
-def load_library(verbose: bool = False, shapes: bool = False):
+def load_library(verbose: bool = False, shapes: bool = False,
+                 prepped: bool = False):
     """Compile csrc/fused_step.cu with nvcc into the build directory (once
     per source content and flags) and bind it with ctypes: the library
-    without the sphere and cylinder recipes, or with them (`shapes`).
-    Raises if nvcc is missing or the build fails."""
-    name = "shapes" if shapes else "base"
+    without the sphere and cylinder recipes, with them (`shapes`), or the
+    one that takes prepared joint rows and solves averaged or sequentially
+    (`prepped`, every recipe). Raises if nvcc is missing or the build
+    fails."""
+    name = "prepped" if prepped else ("shapes" if shapes else "base")
     if name in _LIBS:
         return _LIBS[name]
     rows = tuple(JOINT_SPECS[n][0] for n in JOINT_ORDER)
@@ -792,13 +906,16 @@ def load_library(verbose: bool = False, shapes: bool = False):
                            "POINT_FIELDS, ROW_INTS, DESC_INTS and the hull "
                            "caps (VCAP, SCAP = 2 * MAX_HULL_LOOP)")
     lib, BUILD_LOGS[name] = build.compile_library(
-        "fused_step.cu", NVCC_FLAGS + (SHAPES_FLAGS if shapes else []),
-        verbose)
+        "fused_step.cu", NVCC_FLAGS + LIBRARY_FLAGS[name], verbose)
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dxk_fused_step_launch.restype = i
-    lib.dxk_fused_step_launch.argtypes = (
+    fn = lib.dxk_fused_step_prepped_launch if prepped \
+        else lib.dxk_fused_step_launch
+    fn.restype = i
+    fn.argtypes = (
         [ctypes.POINTER(ctypes.c_int), fl, fl]      # dims, omega, inv_dt
         + [p] * 10                                  # per-env inputs
+        + ([p, i, i] if prepped else [])            # jrows, sequential,
+                                                    # rows passed
         + [p, p]                                    # itab, ftab
         + [p] * 4                                   # outputs
         + [i, i, p])                                # threads, smem, stream
@@ -806,11 +923,29 @@ def load_library(verbose: bool = False, shapes: bool = False):
     return lib
 
 
+def joint_rows_field_major(tab: FusedTables, tables, like):
+    """The packed joint tables (joint-major, one per joint type of the
+    scene) as the one (B, sum of J * ROWS) row of floats per env the
+    prepped kernel stages into shared memory: per type in JOINT_ORDER,
+    field-major (row r of joint j at r * J + j). `like` gives B and the
+    device."""
+    lanes = joint_table_rows(tab, tables)           # checks the shapes
+    parts = [torch.stack(rows, dim=1).flatten(1) for rows in lanes]
+    out = torch.cat(parts, dim=1).contiguous() if parts else torch.zeros(
+        (like.shape[0], 0), dtype=torch.float32, device=like.device)
+    if out.shape[1] != tab.joint_row_floats:
+        raise ValueError(f"fused_step: {out.shape[1]} joint floats, the "
+                         f"kernel's layout holds {tab.joint_row_floats}")
+    return out
+
+
 def _launch(tab: FusedTables, num_iterations, omega, inv_dt, v, w, inv_mass,
-            inv_inertia, pos_cog, rot, ctl, col_a, col_b, col_rot):
+            inv_inertia, pos_cog, rot, ctl, col_a, col_b, col_rot,
+            joint_tables=None, sequential=False):
     """Check the inputs, allocate the outputs, launch the kernel on the
-    current stream. No synchronisation."""
-    global _LAUNCHES
+    current stream. No synchronisation. The base or shapes library serves
+    the averaged solve with joint prep in the kernel (`ctl`); the prepped
+    library the sequential solve and passed joint rows (`joint_tables`)."""
     V, _F, _FU, LM, _EU = tab.hull_dims
     if any(m["key"] in HULL_RECIPES for m in tab.metas) and (
             V > MAX_HULL_VERTS or LM > MAX_HULL_LOOP):
@@ -818,7 +953,9 @@ def _launch(tab: FusedTables, num_iterations, omega, inv_dt, v, w, inv_mass,
             f"fused_step: hulls of {V} vertices and {LM} points per face "
             f"loop; the kernel holds at most {MAX_HULL_VERTS} and "
             f"{MAX_HULL_LOOP}")
-    lib = load_library(shapes=tab.has_shapes)
+    prepped = sequential or joint_tables is not None
+    name = "prepped" if prepped else ("shapes" if tab.has_shapes else "base")
+    lib = load_library(shapes=tab.has_shapes, prepped=prepped)
     B, nb, C = v.shape[0], tab.num_bodies, tab.num_colliders
     P, R1 = tab.num_rows, tab.ctl_rows + 1
     if B == 0:
@@ -829,10 +966,16 @@ def _launch(tab: FusedTables, num_iterations, omega, inv_dt, v, w, inv_mass,
     build.check_cuda("fused_step", "inv_inertia", inv_inertia, (B, nb, 3, 3))
     build.check_cuda("fused_step", "pos_cog", pos_cog, (B, nb, 3))
     build.check_cuda("fused_step", "rot", rot, (B, nb, 4))
-    build.check_cuda("fused_step", "ctl", ctl, (B, R1))
     build.check_cuda("fused_step", "col_a", col_a, (B, C, 3))
     build.check_cuda("fused_step", "col_b", col_b, (B, C, 3))
     build.check_cuda("fused_step", "col_rot", col_rot, (B, C, 4))
+    jrows = None
+    if joint_tables is None:
+        build.check_cuda("fused_step", "ctl", ctl, (B, R1))
+    else:
+        jrows = joint_rows_field_major(tab, joint_tables, v)
+        build.check_cuda("fused_step", "joint rows", jrows,
+                         (B, tab.joint_row_floats))
     if v.device != tab.device:
         raise ValueError(f"fused_step: inputs on {v.device}, tables on "
                          f"{tab.device}")
@@ -847,15 +990,22 @@ def _launch(tab: FusedTables, num_iterations, omega, inv_dt, v, w, inv_mass,
     live = torch.empty((B, P), dtype=torch.uint8, device=v.device)
     dims = tab.dims(B, num_iterations)
     dims_c = (ctypes.c_int * len(dims))(*dims)
-    build.raise_on_error("fused_step", lib.dxk_fused_step_launch(
-        dims_c, float(omega), float(inv_dt),
-        v.data_ptr(), w.data_ptr(), inv_mass.data_ptr(),
-        inv_inertia.data_ptr(), pos_cog.data_ptr(), rot.data_ptr(),
-        ctl.data_ptr(), col_a.data_ptr(), col_b.data_ptr(),
-        col_rot.data_ptr(), tab.itab.data_ptr(), tab.ftab.data_ptr(),
-        v_out.data_ptr(), w_out.data_ptr(), imp.data_ptr(),
-        live.data_ptr(), tab.threads(), smem, build.stream_of(v)))
-    _LAUNCHES += 1
+    inputs = [v.data_ptr(), w.data_ptr(), inv_mass.data_ptr(),
+              inv_inertia.data_ptr(), pos_cog.data_ptr(), rot.data_ptr(),
+              ctl.data_ptr() if jrows is None else None, col_a.data_ptr(),
+              col_b.data_ptr(), col_rot.data_ptr()]
+    if prepped:
+        launch = lib.dxk_fused_step_prepped_launch
+        inputs += [jrows.data_ptr() if jrows is not None else None,
+                   int(sequential), int(jrows is not None)]
+    else:
+        launch = lib.dxk_fused_step_launch
+    build.raise_on_error("fused_step", launch(
+        dims_c, float(omega), float(inv_dt), *inputs, tab.itab.data_ptr(),
+        tab.ftab.data_ptr(), v_out.data_ptr(), w_out.data_ptr(),
+        imp.data_ptr(), live.data_ptr(), tab.threads(), smem,
+        build.stream_of(v)))
+    _LAUNCHES[name] += 1
     return v_out, w_out, imp, live
 
 
@@ -871,42 +1021,41 @@ def fused_tables(scene, device) -> FusedTables:
 
 def make_fused_step_solver(scene, num_iterations, omega=1.0,
                            sequential=False, joint_prep_in_kernel=True):
-    """Returns fn(bodies, world_colliders, ctl, inv_dt) ->
+    """Returns fn(bodies, world_colliders, joints, inv_dt) ->
     (v (B, NB, 3), w (B, NB, 3), imp_n (B, P, 4), live (B, P) uint8 with
     bit k set when manifold point k of the pair row is live).
 
     bodies: integrator.SolverBodies; world_colliders: shapes.WorldColliders;
-    ctl: (B, R+1) controls pack (motor-control columns in
-    cm_joint_prep.CTL_FIELDS order per joint, dt in the last column);
-    inv_dt: float.
+    joints: with `joint_prep_in_kernel`, the (B, R+1) controls pack
+    (motor-control columns in cm_joint_prep.CTL_FIELDS order per joint, dt
+    in the last column); without, the tuple of packed joint tables
+    (batched_solver.pack_joint_type of ops/solver.py's preps, one per joint
+    type of the scene in scene_joint_ab order); inv_dt: float.
+    `sequential` selects the sequential solve (``solver_mode="fused_seq"``).
 
     CUDA tensors go through the kernel of csrc/fused_step.cu; CPU tensors
     through the plain version `_fused_core`. There is no other routing."""
-    if sequential:
-        raise NotImplementedError(
-            "the sequential (fused_seq) solve is not ported yet")
-    if not joint_prep_in_kernel:
-        raise NotImplementedError(
-            "joint prep outside the fused step is not ported; only "
-            "joint_prep_in_kernel=True")
     if not fused2_eligible(scene):
         raise NotImplementedError(
             "scene is not eligible for the fused step (capped pair tables "
             "or dynamic broadphase), and no other solver path is ported")
 
-    def fused(bodies, wcol, ctl, inv_dt):
+    def fused(bodies, wcol, joints, inv_dt):
         dev = bodies.v.device
         tab = fused_tables(scene, dev)
+        ctl, tables = (joints, None) if joint_prep_in_kernel \
+            else (None, tuple(joints))
         if dev.type == "cpu":
             vw0 = torch.cat([bodies.v, bodies.w], dim=-1)
             vw, imp, live = _fused_core(
                 tab, num_iterations, omega, inv_dt, vw0, bodies.inv_mass,
                 bodies.inv_inertia, bodies.pos_cog, bodies.rot, ctl,
-                wcol.a, wcol.b, wcol.rot)
+                wcol.a, wcol.b, wcol.rot, joint_tables=tables,
+                sequential=sequential)
             return vw[..., :3], vw[..., 3:], imp, live
         return _launch(tab, num_iterations, omega, inv_dt, bodies.v,
                        bodies.w, bodies.inv_mass, bodies.inv_inertia,
                        bodies.pos_cog, bodies.rot, ctl, wcol.a, wcol.b,
-                       wcol.rot)
+                       wcol.rot, joint_tables=tables, sequential=sequential)
 
     return fused

@@ -1,19 +1,28 @@
-"""Contact prep and the iterated contact solve of the reference (non-fused)
-step, batched over environments: the port's counterpart of the contact half
-of the JAX package's ops/solver.py.
+"""Constraint prep and the iterated contact solve of the reference (non-fused)
+step, batched over environments: the port's counterpart of the JAX
+package's ops/solver.py.
 
-Layout is pair-major, as there: a narrowphase pair is one solver row with
-its <= 4 contact points, solved in order against the pair's gathered body
-velocities. Rows are grouped in static contact-phase slices; one solver
-iteration runs the slices in order (Gauss-Seidel across slices), all rows of
-a slice in parallel against the same velocities, with per-body deltas summed
-by `index_add_` and scaled by 1/degree within the slice (averaged Jacobi).
-Scenes built with contact phases hash pairs so that a slice rarely shares a
-dynamic body, which makes the pass Gauss-Seidel.
+Contacts. Layout is pair-major, as there: a narrowphase pair is one solver
+row with its <= 4 contact points, solved in order against the pair's
+gathered body velocities. Rows are grouped in static contact-phase slices;
+one solver iteration runs the slices in order (Gauss-Seidel across slices),
+all rows of a slice in parallel against the same velocities, with per-body
+deltas summed by `index_add_` and scaled by 1/degree within the slice
+(averaged Jacobi). Scenes built with contact phases hash pairs so that a
+slice rarely shares a dynamic body, which makes the pass Gauss-Seidel.
+
+Joints. The six joint preps (`prep_distance` ... `prep_slider`): effective
+masses, biases, limit and motor activation computed once per step from the
+integrated bodies, with the env batch as the leading dimension of every
+field ((B, J, ...); the joints' static parameters are (J, ...)). The fused
+step's `fused_seq` mode and its `joint_prep_in_kernel=False` option pack
+them into its joint tables (batched_solver.pack_joint_type). 3x3 products
+are written as broadcast-multiply-sums, never as matmuls, so no float32
+product on the card can run in TF32.
 
 Ported so far: contacts in modes "jacobi" and "colored" (the same pass for
-contacts). The sequential "scan" pass and the joint types raise
-NotImplementedError.
+contacts) and the six joint preps. The sequential "scan" pass and the
+joint solves of the reference step raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -23,9 +32,22 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
-from dxk_tpu_torch.core.maths import cross, dot, noz
-from dxk_tpu_torch.ops.integrator import SolverBodies
+from dxk_tpu_torch.core import fastmath as fm
+from dxk_tpu_torch.core.maths import (const, cross, dot, get_tangents,
+                                      length, noz, quat_conj,
+                                      quat_from_axis_angle, quat_mul,
+                                      quat_rotate, rotate_from_to, skew, sqrt,
+                                      squared_length)
+from dxk_tpu_torch.ops.integrator import SolverBodies, _mat3_mul
+from dxk_tpu_torch.ops.kernels.cm_narrowphase import _clip
 
+DISTANCE_BETA = 0.1
+BALL_BETA = 0.1
+SLIDER_BETA = 0.1
+HINGE_ROTATION_BETA = 0.3
+HINGE_LIMIT_BETA = 0.1
+TWIST_LIMIT_BETA = 0.1
+SLIDER_LIMIT_BETA = 0.1
 DT_THRESHOLD = 1e-5
 
 
@@ -299,3 +321,493 @@ def solve_constraints(bodies: SolverBodies, contacts: ContactPrep,
         v, w, accs = _contact_phased_pass(views, v, w, accs, inv_deg_phases,
                                           omega=omega)
     return bodies.replace(v=v, w=w), accs[0]
+
+
+# ===========================================================================
+# Joint preps (constraints.cpp:189-2845). Every function takes the
+# integrated bodies, the joints of one type and, for the motorised types,
+# the batched motor controls ((B, J) fields); dt is the float32 step.
+
+
+def _get_axis_rotation_fm(q):
+    """maths.get_axis_rotation with fastmath.acos (shared with the fused
+    kernel's in-kernel joint prep)."""
+    v = q[..., :3]
+    sq = squared_length(v)
+    ok = sq > 0.0
+    angle = torch.where(ok, 2.0 * fm.acos(torch.clamp(q[..., 3], -1.0, 1.0)),
+                        0.0)
+    inv_len = torch.where(ok, 1.0 / sqrt(torch.where(ok, sq, 1.0)), 0.0)
+    axis = torch.where(ok[..., None], v * inv_len[..., None],
+                       const((1.0, 0.0, 0.0), q))
+    return axis, angle
+
+
+def _point_inv_effective_mass(inv_ia, inv_ib, inv_ma, inv_mb, ra, rb):
+    """skewA * invIA * skewA^T + skewB * invIB * skewB^T + I*(ma+mb)
+    (constraints.cpp:487-492)."""
+    sa = skew(ra)
+    sb = skew(rb)
+    m = (_mat3_mul(_mat3_mul(sa, inv_ia), sa.transpose(-1, -2))
+         + _mat3_mul(_mat3_mul(sb, inv_ib), sb.transpose(-1, -2)))
+    eye = torch.eye(3, dtype=ra.dtype, device=ra.device)
+    return m + eye * (inv_ma + inv_mb)[..., None, None]
+
+
+class _Step:
+    """dt of one step as the JAX package reads it: float32 dt and 1/dt,
+    Baumgarte gains beta/dt rounded once to float32, and whether dt is
+    above the degenerate-step guard."""
+
+    def __init__(self, dt):
+        self.dt = np.float32(dt)
+        self.inv_dt = np.float32(1.0) / self.dt
+        self.ok = bool(self.dt > DT_THRESHOLD)
+
+    def gain(self, beta, scale=1.0):
+        return float(np.float32(beta) * self.inv_dt * np.float32(scale))
+
+    def gate(self, x):
+        """x where dt passes the guard, else zeros."""
+        return x if self.ok else torch.zeros_like(x)
+
+
+def _joint_bodies(bodies: SolverBodies, j):
+    """Per-joint gathers of both bodies: rotations, anchors relative to the
+    centres of mass (rel_a/rel_b), world anchors, inverse inertias and
+    inverse masses."""
+    a, b = j.body_a.long(), j.body_b.long()
+    rot_a, rot_b = bodies.rot[:, a], bodies.rot[:, b]
+    rel_a = quat_rotate(rot_a, j.local_anchor_a - bodies.local_cog[a])
+    rel_b = quat_rotate(rot_b, j.local_anchor_b - bodies.local_cog[b])
+    ga = bodies.pos_cog[:, a] + rel_a
+    gb = bodies.pos_cog[:, b] + rel_b
+    return dict(a=a, b=b, rot_a=rot_a, rot_b=rot_b, rel_a=rel_a,
+                rel_b=rel_b, ga=ga, gb=gb,
+                inv_ia=bodies.inv_inertia[:, a],
+                inv_ib=bodies.inv_inertia[:, b],
+                inv_ma=bodies.inv_mass[a], inv_mb=bodies.inv_mass[b])
+
+
+def _stack2(m00, m01, m10, m11):
+    return torch.stack([torch.stack([m00, m01], -1),
+                        torch.stack([m10, m11], -1)], -2)
+
+
+def _rotation_error_bias(jb, j, st):
+    """Vector part of q_b * initial_inv_rotation_difference * conj(q_a) as
+    a Baumgarte bias (fixed and slider joints)."""
+    rot_err = quat_mul(quat_mul(jb["rot_b"], j.initial_inv_rotation_difference),
+                       quat_conj(jb["rot_a"]))
+    return st.gate(rot_err[..., :3] * st.gain(SLIDER_BETA, 2.0))
+
+
+@dataclass
+class DistancePrep:
+    body_a: torch.Tensor
+    body_b: torch.Tensor
+    rel_a: torch.Tensor
+    rel_b: torch.Tensor
+    u: torch.Tensor
+    bias: torch.Tensor
+    eff_mass: torch.Tensor
+    to_wa: torch.Tensor
+    to_wb: torch.Tensor
+
+
+def prep_distance(bodies: SolverBodies, j, dt) -> DistancePrep:
+    """constraints.cpp:189-243 with the corrected torque arm
+    invInertia * (relAnchor x u) of the JAX package (its solver.py
+    explains why the reference's double cross is not copied)."""
+    st = _Step(dt)
+    jb = _joint_bodies(bodies, j)
+    rel_a, rel_b = jb["rel_a"], jb["rel_b"]
+    u = jb["gb"] - jb["ga"]
+    l = length(u)
+    u = torch.where((l > 0.001)[..., None],
+                    u / torch.clamp(l, min=1e-12)[..., None], 0.0)
+    cr_a = cross(rel_a, u)
+    cr_b = cross(rel_b, u)
+    inv_ia, inv_ib = jb["inv_ia"], jb["inv_ib"]
+    im = (jb["inv_ma"] + dot(cr_a, _mat_vec(inv_ia, cr_a))
+          + jb["inv_mb"] + dot(cr_b, _mat_vec(inv_ib, cr_b)))
+    bias = st.gate((l - j.length) * st.gain(DISTANCE_BETA))
+    return DistancePrep(
+        body_a=jb["a"], body_b=jb["b"], rel_a=rel_a, rel_b=rel_b, u=u,
+        bias=bias, eff_mass=_inv_or_zero(im),
+        to_wa=_mat_vec(inv_ia, cr_a), to_wb=_mat_vec(inv_ib, cr_b))
+
+
+@dataclass
+class BallPrep:
+    body_a: torch.Tensor
+    body_b: torch.Tensor
+    rel_a: torch.Tensor
+    rel_b: torch.Tensor
+    bias: torch.Tensor
+    inv_eff_mass: torch.Tensor
+
+
+def prep_ball(bodies: SolverBodies, j, dt) -> BallPrep:
+    """constraints.cpp:460-507."""
+    st = _Step(dt)
+    jb = _joint_bodies(bodies, j)
+    m = _point_inv_effective_mass(jb["inv_ia"], jb["inv_ib"], jb["inv_ma"],
+                                  jb["inv_mb"], jb["rel_a"], jb["rel_b"])
+    bias = st.gate((jb["gb"] - jb["ga"]) * st.gain(BALL_BETA))
+    return BallPrep(body_a=jb["a"], body_b=jb["b"], rel_a=jb["rel_a"],
+                    rel_b=jb["rel_b"], bias=bias, inv_eff_mass=m)
+
+
+@dataclass
+class FixedPrep:
+    body_a: torch.Tensor
+    body_b: torch.Tensor
+    rel_a: torch.Tensor
+    rel_b: torch.Tensor
+    translation_bias: torch.Tensor
+    inv_eff_trans_mass: torch.Tensor
+    rotation_bias: torch.Tensor
+    inv_eff_rot_mass: torch.Tensor
+
+
+def prep_fixed(bodies: SolverBodies, j, dt) -> FixedPrep:
+    """constraints.cpp:736-786."""
+    st = _Step(dt)
+    jb = _joint_bodies(bodies, j)
+    inv_ia, inv_ib = jb["inv_ia"], jb["inv_ib"]
+    mt = _point_inv_effective_mass(inv_ia, inv_ib, jb["inv_ma"], jb["inv_mb"],
+                                   jb["rel_a"], jb["rel_b"])
+    return FixedPrep(
+        body_a=jb["a"], body_b=jb["b"], rel_a=jb["rel_a"], rel_b=jb["rel_b"],
+        translation_bias=st.gate((jb["gb"] - jb["ga"]) * st.gain(BALL_BETA)),
+        inv_eff_trans_mass=mt,
+        rotation_bias=_rotation_error_bias(jb, j, st),
+        inv_eff_rot_mass=inv_ia + inv_ib)
+
+
+@dataclass
+class HingePrep:
+    body_a: torch.Tensor
+    body_b: torch.Tensor
+    rel_a: torch.Tensor
+    rel_b: torch.Tensor
+    translation_bias: torch.Tensor
+    inv_eff_trans_mass: torch.Tensor
+    rotation_bias: torch.Tensor          # (B, J, 2)
+    inv_eff_rot_mass: torch.Tensor       # (B, J, 2, 2)
+    bxa: torch.Tensor
+    cxa: torch.Tensor
+    axis: torch.Tensor                   # global rotation axis
+    eff_axial_mass: torch.Tensor
+    solve_limit: torch.Tensor            # bool
+    solve_motor: torch.Tensor            # bool
+    limit_sign: torch.Tensor
+    limit_bias: torch.Tensor
+    motor_velocity: torch.Tensor
+    max_motor_impulse: torch.Tensor
+    ml_to_wa: torch.Tensor               # motorAndLimitImpulseToAngularVelocity
+    ml_to_wb: torch.Tensor
+
+
+def prep_hinge(bodies: SolverBodies, j, controls, dt) -> HingePrep:
+    """constraints.cpp:1079-1213."""
+    st = _Step(dt)
+    jb = _joint_bodies(bodies, j)
+    rot_a, rot_b = jb["rot_a"], jb["rot_b"]
+    inv_ia, inv_ib = jb["inv_ia"], jb["inv_ib"]
+    mt = _point_inv_effective_mass(inv_ia, inv_ib, jb["inv_ma"], jb["inv_mb"],
+                                   jb["rel_a"], jb["rel_b"])
+    t_bias = st.gate((jb["gb"] - jb["ga"]) * st.gain(BALL_BETA))
+
+    axis_a = quat_rotate(rot_a, j.local_axis_a)
+    axis_b = quat_rotate(rot_b, j.local_axis_b)
+    tan_b, bitan_b = get_tangents(axis_b)
+    bxa = cross(tan_b, axis_a)
+    cxa = cross(bitan_b, axis_a)
+    ia_bxa = _mat_vec(inv_ia, bxa)
+    ib_bxa = _mat_vec(inv_ib, bxa)
+    ia_cxa = _mat_vec(inv_ia, cxa)
+    ib_cxa = _mat_vec(inv_ib, cxa)
+    mr = _stack2(dot(bxa, ia_bxa) + dot(bxa, ib_bxa),
+                 dot(bxa, ia_cxa) + dot(bxa, ib_cxa),
+                 dot(cxa, ia_bxa) + dot(cxa, ib_bxa),
+                 dot(cxa, ia_cxa) + dot(cxa, ib_cxa))
+    r_bias = st.gate(torch.stack([dot(axis_a, tan_b), dot(axis_a, bitan_b)],
+                                 -1) * st.gain(HINGE_ROTATION_BETA))
+
+    # limits & motor (constraints.cpp:1155-1205); fastmath.atan2, as the
+    # fused kernel's in-kernel prep computes the same angle
+    compare_a = quat_rotate(quat_conj(rot_a),
+                            quat_rotate(rot_b, j.local_tangent_b))
+    angle = fm.atan2(dot(compare_a, j.local_bitangent_a),
+                     dot(compare_a, j.local_tangent_a))
+    min_violated = (j.limit_min <= 0.0) & (angle <= j.limit_min)
+    max_violated = (j.limit_max >= 0.0) & (angle >= j.limit_max)
+    max_torque = controls.hinge_max_torque
+    im_ax = (dot(axis_a, _mat_vec(inv_ia, axis_a))
+             + dot(axis_a, _mat_vec(inv_ib, axis_a)))
+
+    # position motor: reach the target angle in one frame, clamped later
+    # (constraints.cpp:1189-1197)
+    min_l = torch.where(j.limit_min <= 0.0, j.limit_min, -np.pi)
+    max_l = torch.where(j.limit_max >= 0.0, j.limit_max, np.pi)
+    target = _clip(controls.hinge_target, min_l, max_l)
+    pos_motor_vel = st.gate((target - angle) * float(st.inv_dt))
+    motor_vel = torch.where(controls.hinge_motor_type == 1, pos_motor_vel,
+                            controls.hinge_target)
+    d = torch.where(min_violated, angle - j.limit_min, j.limit_max - angle)
+    return HingePrep(
+        body_a=jb["a"], body_b=jb["b"], rel_a=jb["rel_a"], rel_b=jb["rel_b"],
+        translation_bias=t_bias, inv_eff_trans_mass=mt,
+        rotation_bias=r_bias, inv_eff_rot_mass=mr, bxa=bxa, cxa=cxa,
+        axis=axis_a, eff_axial_mass=_inv_or_zero(im_ax),
+        solve_limit=min_violated | max_violated,
+        solve_motor=max_torque > 0.0,
+        limit_sign=torch.where(min_violated, 1.0, -1.0),
+        limit_bias=st.gate(d * HINGE_LIMIT_BETA * float(st.inv_dt)),
+        motor_velocity=motor_vel,
+        max_motor_impulse=torch.clamp(max_torque, min=0.0) * float(st.dt),
+        ml_to_wa=_mat_vec(inv_ia, axis_a), ml_to_wb=_mat_vec(inv_ib, axis_a))
+
+
+@dataclass
+class ConeTwistPrep:
+    body_a: torch.Tensor
+    body_b: torch.Tensor
+    rel_a: torch.Tensor
+    rel_b: torch.Tensor
+    bias: torch.Tensor
+    inv_eff_mass: torch.Tensor
+    # swing limit
+    solve_swing_limit: torch.Tensor
+    swing_axis: torch.Tensor
+    eff_swing_limit_mass: torch.Tensor
+    swing_limit_bias: torch.Tensor
+    sl_to_wa: torch.Tensor
+    sl_to_wb: torch.Tensor
+    # twist limit
+    solve_twist_limit: torch.Tensor
+    twist_axis: torch.Tensor
+    eff_twist_mass: torch.Tensor
+    twist_limit_sign: torch.Tensor
+    twist_limit_bias: torch.Tensor
+    tw_to_wa: torch.Tensor
+    tw_to_wb: torch.Tensor
+    # swing motor
+    solve_swing_motor: torch.Tensor
+    swing_motor_axis: torch.Tensor
+    eff_swing_motor_mass: torch.Tensor
+    swing_motor_velocity: torch.Tensor
+    max_swing_motor_impulse: torch.Tensor
+    sm_to_wa: torch.Tensor
+    sm_to_wb: torch.Tensor
+    # twist motor
+    solve_twist_motor: torch.Tensor
+    twist_motor_velocity: torch.Tensor
+    max_twist_motor_impulse: torch.Tensor
+
+
+def _axial_mass(axis, inv_ia, inv_ib):
+    return _inv_or_zero(dot(axis, _mat_vec(inv_ia, axis))
+                        + dot(axis, _mat_vec(inv_ib, axis)))
+
+
+def prep_cone_twist(bodies: SolverBodies, j, controls, dt) -> ConeTwistPrep:
+    """constraints.cpp:1782-1946. The swing limit is stored in limit_min,
+    the twist limit in limit_max."""
+    st = _Step(dt)
+    inv_dt = float(st.inv_dt)
+    jb = _joint_bodies(bodies, j)
+    rot_a, rot_b = jb["rot_a"], jb["rot_b"]
+    inv_ia, inv_ib = jb["inv_ia"], jb["inv_ib"]
+    m = _point_inv_effective_mass(inv_ia, inv_ib, jb["inv_ma"], jb["inv_mb"],
+                                  jb["rel_a"], jb["rel_b"])
+    bias = st.gate((jb["gb"] - jb["ga"]) * st.gain(BALL_BETA))
+
+    # relative rotation decomposition (constraints.cpp:1823-1846)
+    btoa = quat_mul(quat_conj(rot_a), rot_b)
+    axis_compare = quat_rotate(btoa, j.local_axis_b)
+    swing_rotation = rotate_from_to(j.local_axis_a.expand_as(axis_compare),
+                                    axis_compare)
+    twist_tan_a = quat_rotate(swing_rotation, j.local_tangent_a)
+    twist_bitan_a = quat_rotate(swing_rotation, j.local_bitangent_a)
+    tan_compare = quat_rotate(btoa, j.local_tangent_b)
+    twist_angle = fm.atan2(dot(tan_compare, twist_bitan_a),
+                           dot(tan_compare, twist_tan_a))
+    swing_axis_l, swing_angle = _get_axis_rotation_fm(swing_rotation)
+    neg = swing_angle < 0.0
+    swing_angle = torch.where(neg, -swing_angle, swing_angle)
+    swing_axis_l = torch.where(neg[..., None], -swing_axis_l, swing_axis_l)
+    swing_limit, twist_limit = j.limit_min, j.limit_max
+
+    # swing limit (1848-1865)
+    swing_axis = quat_rotate(rot_a, swing_axis_l)
+    swing_limit_bias = st.gate((swing_limit - swing_angle)
+                               * st.gain(HINGE_LIMIT_BETA))
+
+    # swing motor (1867-1905): velocity motor about a tangent-plane axis,
+    # or position motor toward the target direction
+    ax_x = torch.cos(controls.ct_swing_axis_angle)
+    ax_y = torch.sin(controls.ct_swing_axis_angle)
+    local_sm_axis = (ax_x[..., None] * j.local_tangent_a
+                     + ax_y[..., None] * j.local_bitangent_a)
+    sm_axis_vel = quat_rotate(rot_a, local_sm_axis)
+    target_angle = torch.where(
+        swing_limit >= 0.0,
+        _clip(controls.ct_swing_target, -swing_limit, swing_limit),
+        controls.ct_swing_target)
+    local_target_dir = quat_rotate(
+        quat_from_axis_angle(local_sm_axis, target_angle), j.local_axis_a)
+    local_sm_axis_pos = noz(cross(axis_compare, local_target_dir))
+    sm_axis_pos = quat_rotate(rot_a, local_sm_axis_pos)
+    cos_angle = dot(local_target_dir, axis_compare)
+    delta_angle = fm.acos(torch.clamp(cos_angle, 0.0, 1.0))
+    sm_vel_p = st.gate(delta_angle * inv_dt * 0.2)
+    is_pos = controls.ct_swing_motor_type == 1
+    sm_axis = torch.where(is_pos[..., None], sm_axis_pos, sm_axis_vel)
+    sm_vel = torch.where(is_pos, sm_vel_p, controls.ct_swing_target)
+
+    # twist limit & motor (1907-1946)
+    min_tw = (twist_limit >= 0.0) & (twist_angle <= -twist_limit)
+    max_tw = (twist_limit >= 0.0) & (twist_angle >= twist_limit)
+    twist_axis = quat_rotate(rot_a, j.local_axis_a)
+    limit = torch.where(twist_limit >= 0.0, twist_limit, np.pi)
+    tw_target = _clip(controls.ct_twist_target, -limit, limit)
+    tw_vel_p = st.gate((tw_target - twist_angle) * inv_dt)
+    tw_vel = torch.where(controls.ct_twist_motor_type == 1, tw_vel_p,
+                         controls.ct_twist_target)
+    d = torch.where(min_tw, twist_limit + twist_angle,
+                    twist_limit - twist_angle)
+    return ConeTwistPrep(
+        body_a=jb["a"], body_b=jb["b"], rel_a=jb["rel_a"], rel_b=jb["rel_b"],
+        bias=bias, inv_eff_mass=m,
+        solve_swing_limit=(swing_limit >= 0.0) & (swing_angle >= swing_limit),
+        swing_axis=swing_axis,
+        eff_swing_limit_mass=_axial_mass(swing_axis, inv_ia, inv_ib),
+        swing_limit_bias=swing_limit_bias,
+        sl_to_wa=_mat_vec(inv_ia, swing_axis),
+        sl_to_wb=_mat_vec(inv_ib, swing_axis),
+        solve_twist_limit=min_tw | max_tw, twist_axis=twist_axis,
+        eff_twist_mass=_axial_mass(twist_axis, inv_ia, inv_ib),
+        twist_limit_sign=torch.where(min_tw, 1.0, -1.0),
+        twist_limit_bias=st.gate(d * TWIST_LIMIT_BETA * inv_dt),
+        tw_to_wa=_mat_vec(inv_ia, twist_axis),
+        tw_to_wb=_mat_vec(inv_ib, twist_axis),
+        solve_swing_motor=controls.ct_swing_max_torque > 0.0,
+        swing_motor_axis=sm_axis,
+        eff_swing_motor_mass=_axial_mass(sm_axis, inv_ia, inv_ib),
+        swing_motor_velocity=sm_vel,
+        max_swing_motor_impulse=torch.clamp(controls.ct_swing_max_torque,
+                                            min=0.0) * float(st.dt),
+        sm_to_wa=_mat_vec(inv_ia, sm_axis), sm_to_wb=_mat_vec(inv_ib, sm_axis),
+        solve_twist_motor=controls.ct_twist_max_torque > 0.0,
+        twist_motor_velocity=tw_vel,
+        max_twist_motor_impulse=torch.clamp(controls.ct_twist_max_torque,
+                                            min=0.0) * float(st.dt))
+
+
+@dataclass
+class SliderPrep:
+    body_a: torch.Tensor
+    body_b: torch.Tensor
+    r_au_x_t: torch.Tensor
+    r_au_x_b: torch.Tensor
+    r_b_x_t: torch.Tensor
+    r_b_x_b: torch.Tensor
+    tangent: torch.Tensor
+    bitangent: torch.Tensor
+    inv_eff_trans_mass: torch.Tensor   # (B, J, 2, 2)
+    translation_bias: torch.Tensor     # (B, J, 2)
+    inv_eff_rot_mass: torch.Tensor     # (B, J, 3, 3)
+    rotation_bias: torch.Tensor        # (B, J, 3)
+    axis: torch.Tensor
+    solve_limit: torch.Tensor
+    eff_axial_mass: torch.Tensor
+    limit_bias: torch.Tensor
+    limit_sign: torch.Tensor
+    r_au_x_s: torch.Tensor
+    r_b_x_s: torch.Tensor
+    l_to_wa: torch.Tensor
+    l_to_wb: torch.Tensor
+    solve_motor: torch.Tensor
+    motor_velocity: torch.Tensor
+    max_motor_impulse: torch.Tensor
+
+
+def prep_slider(bodies: SolverBodies, j, controls, dt) -> SliderPrep:
+    """constraints.cpp:2638-2752."""
+    st = _Step(dt)
+    jb = _joint_bodies(bodies, j)
+    rel_b = jb["rel_b"]
+    inv_ia, inv_ib = jb["inv_ia"], jb["inv_ib"]
+    axis = quat_rotate(jb["rot_a"], j.local_axis_a)
+    tangent, bitangent = get_tangents(axis)
+    u = jb["gb"] - jb["ga"]
+    r_au = jb["rel_a"] + u
+    rbxt = cross(rel_b, tangent)
+    rbxb = cross(rel_b, bitangent)
+    rauxt = cross(r_au, tangent)
+    rauxb = cross(r_au, bitangent)
+    ia_rauxt = _mat_vec(inv_ia, rauxt)
+    ia_rauxb = _mat_vec(inv_ia, rauxb)
+    ib_rbxt = _mat_vec(inv_ib, rbxt)
+    ib_rbxb = _mat_vec(inv_ib, rbxb)
+    inv_mass_sum = jb["inv_ma"] + jb["inv_mb"]
+    mt = _stack2(dot(rauxt, ia_rauxt) + dot(rbxt, ib_rbxt) + inv_mass_sum,
+                 dot(rauxt, ia_rauxb) + dot(rbxt, ib_rbxb),
+                 dot(rauxb, ia_rauxt) + dot(rbxb, ib_rbxt),
+                 dot(rauxb, ia_rauxb) + dot(rbxb, ib_rbxb) + inv_mass_sum)
+    tb = st.gate(torch.stack([dot(u, tangent), dot(u, bitangent)], -1)
+                 * st.gain(SLIDER_BETA))
+
+    # limit (2702-2733)
+    dist = dot(u, axis)
+    min_v = (j.limit_min <= 0.0) & (dist < j.limit_min)
+    max_v = (j.limit_max >= 0.0) & (dist > j.limit_max)
+    rauxs = cross(r_au, axis)
+    rbxs = cross(rel_b, axis)
+    im_ax = (inv_mass_sum + dot(rauxs, _mat_vec(inv_ia, rauxs))
+             + dot(rbxs, _mat_vec(inv_ib, rbxs)))
+    err = torch.where(min_v, dist - j.limit_min, j.limit_max - dist)
+
+    # motor (2735-2752)
+    min_l = torch.where(j.limit_min <= 0.0, j.limit_min, -np.inf)
+    max_l = torch.where(j.limit_max >= 0.0, j.limit_max, np.inf)
+    target = _clip(controls.slider_target, min_l, max_l)
+    vel_p = st.gate((target - dist) * float(st.inv_dt))
+    return SliderPrep(
+        body_a=jb["a"], body_b=jb["b"], r_au_x_t=rauxt, r_au_x_b=rauxb,
+        r_b_x_t=rbxt, r_b_x_b=rbxb, tangent=tangent, bitangent=bitangent,
+        inv_eff_trans_mass=mt, translation_bias=tb,
+        inv_eff_rot_mass=inv_ia + inv_ib,
+        rotation_bias=_rotation_error_bias(jb, j, st), axis=axis,
+        solve_limit=min_v | max_v, eff_axial_mass=_inv_or_zero(im_ax),
+        limit_bias=st.gate(err * st.gain(SLIDER_LIMIT_BETA)),
+        limit_sign=torch.where(min_v, 1.0, -1.0),
+        r_au_x_s=rauxs, r_b_x_s=rbxs,
+        l_to_wa=_mat_vec(inv_ia, rauxs), l_to_wb=_mat_vec(inv_ib, rbxs),
+        solve_motor=controls.slider_max_force > 0.0,
+        motor_velocity=torch.where(controls.slider_motor_type == 1, vel_p,
+                                   controls.slider_target),
+        max_motor_impulse=torch.clamp(controls.slider_max_force, min=0.0)
+        * float(st.dt))
+
+
+def prep_joints(scene, bodies: SolverBodies, controls, dt):
+    """The preps of every joint type present in `scene`, in
+    batched_solver.scene_joint_ab (reference solve) order."""
+    from dxk_tpu_torch.ops.kernels.batched_solver import scene_joint_types
+    out = []
+    for name in scene_joint_types(scene):
+        j = getattr(scene, name)
+        if name in ("distance", "ball", "fixed"):
+            out.append(_PREPS[name](bodies, j, dt))
+        else:
+            out.append(_PREPS[name](bodies, j, controls, dt))
+    return tuple(out)
+
+
+_PREPS = {"distance": prep_distance, "ball": prep_ball, "fixed": prep_fixed,
+          "hinge": prep_hinge, "cone_twist": prep_cone_twist,
+          "slider": prep_slider}

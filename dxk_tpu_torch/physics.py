@@ -10,9 +10,9 @@ package's physics.py):
   6. integrate velocities
 
 Two branches, as in the JAX package: the fused step (``solver_mode=
-"fused"`` on a scene the fused kernel takes), where 3 and 5 run inside one
-kernel (ops/kernels/fused_step.py); and the reference step for every other
-scene, where "fused" falls back to "jacobi". The reference step is ported
+"fused"`` or ``"fused_seq"`` on a scene the fused kernel takes), where 3
+and 5 run inside one kernel (ops/kernels/fused_step.py); and the reference
+step for every other scene, where "fused" falls back to "jacobi". The reference step is ported
 for box-box contacts in the "jacobi" and "colored" modes; "scan", the other
 contact buckets, joints, heightfields, overlaps and cloth raise
 NotImplementedError.
@@ -51,11 +51,11 @@ def controls_pack(scene: Scene, controls, dt) -> torch.Tensor:
     """(B, R+1) controls pack for the fused step: per joint type in solve
     order, per joint, the type's control fields as float32 (distance, ball
     and fixed joints have none); dt last."""
-    from dxk_tpu_torch.ops.kernels.batched_solver import scene_joint_ab
+    from dxk_tpu_torch.ops.kernels.batched_solver import scene_joint_types
     from dxk_tpu_torch.ops.kernels.cm_joint_prep import CTL_ATTRS, CTL_FIELDS
     like = controls.hinge_target                            # (B, Jh)
     cols = []
-    for name, _ab in scene_joint_ab(scene):
+    for name in scene_joint_types(scene):
         per_field = [getattr(controls, CTL_ATTRS[name][f]).to(torch.float32)
                      for f in CTL_FIELDS[name]]             # each (B, J)
         if per_field:
@@ -257,25 +257,43 @@ def _physics_step_reference(scene, state, settings, dt):
     return new_state, info
 
 
+def joint_inputs(scene, bodies, controls, dt32, prep_in_kernel):
+    """What the fused step reads its joint rows from: the controls pack
+    when the kernel preps the joints itself, else ops/solver.py's preps of
+    the integrated `bodies`, each joint type packed into its table
+    (batched_solver.pack_joint_type), in scene_joint_ab order."""
+    if prep_in_kernel:
+        return controls_pack(scene, controls, dt32)
+    from dxk_tpu_torch.ops.kernels.batched_solver import (pack_joint_type,
+                                                          scene_joint_types)
+    from dxk_tpu_torch.ops.solver import prep_joints
+    preps = prep_joints(scene, bodies, controls, dt32)
+    return tuple(pack_joint_type(name, prep) for name, prep
+                 in zip(scene_joint_types(scene), preps))
+
+
 def _physics_step_fused(scene, state, settings, dt):
     """Fused-pipeline step: everything between force integration and
-    velocity integration runs inside the fused-step kernel."""
+    velocity integration runs inside the fused-step kernel. The sequential
+    solve (``"fused_seq"``) always takes joint rows prepared outside the
+    kernel, as in the JAX package (its physics.py:66-72)."""
     from dxk_tpu_torch.ops.kernels.fused_step import make_fused_step_solver
 
     controls = state.controls if state.controls is not None \
         else scene.batched_controls(state.pos.shape[0])
     dt32 = np.float32(dt)
+    sequential = settings.solver_mode == "fused_seq"
+    jp_in_kernel = settings.joint_prep_in_kernel and not sequential
 
     w = world_colliders(scene, state.pos, state.rot)
     bodies = integrate_forces(scene, state, float(dt32))
-    ctl = controls_pack(scene, controls, dt32)
+    joints = joint_inputs(scene, bodies, controls, dt32, jp_in_kernel)
 
     fused = make_fused_step_solver(
         scene, settings.num_rigid_solver_iterations, settings.sor_omega,
-        sequential=settings.solver_mode == "fused_seq",
-        joint_prep_in_kernel=settings.joint_prep_in_kernel)
+        sequential=sequential, joint_prep_in_kernel=jp_in_kernel)
     inv_dt = float(np.float32(1.0) / dt32)
-    v_new, w_new, imp_n, point_mask = fused(bodies, w, ctl, inv_dt)
+    v_new, w_new, imp_n, point_mask = fused(bodies, w, joints, inv_dt)
     live = point_mask != 0
     bodies = bodies.replace(v=v_new, w=w_new)
 

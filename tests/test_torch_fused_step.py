@@ -253,8 +253,12 @@ def test_cuda_tensor_never_takes_plain_version(envs):
 @pytest.mark.parametrize("kwargs", [
     dict(sequential=True), dict(joint_prep_in_kernel=False)])
 def test_unported_solver_options_raise(envs, kwargs):
+    """Both options are ported; a scene the fused step does not take (a
+    dynamic broadphase, whose reference step with joints is not ported)
+    still raises under each."""
+    scene = envs[1].scene.replace(broadphase_k=8)
     with pytest.raises(NotImplementedError):
-        fs.make_fused_step_solver(envs[1].scene, 10, **kwargs)
+        fs.make_fused_step_solver(scene, 10, **kwargs)
 
 
 def test_unported_solver_mode_raises(envs, states):

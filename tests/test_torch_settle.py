@@ -8,13 +8,14 @@ the capsule-hull, box-hull and hull-hull recipes against the JAX package's
 
 The scenes are chip_smoke.py's copies, so the scenes the card runs are the
 ones held against the JAX package here. The JAX fused step runs unbatched
-and eagerly: its unbatched branch is the same `_fused_core` the Pallas
-kernel runs, with one env lane. A compiled JAX program of these scenes is
+and eagerly, op by op under jax.disable_jit(): its unbatched branch is the
+same `_fused_core` the Pallas kernel runs, with one env lane. A compiled JAX program of these scenes is
 out of reach on the CPU (jit(vmap(physics_step)) of config 3 in interpret
 mode, and even the unbatched jit, ran out of memory past 24 GB), and the
 eager step costs about half a minute, so the step tests run one env."""
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -160,7 +161,10 @@ def _trajectory(name, state, steps):
     tsettings = PhysicsSettings(num_rigid_solver_iterations=ITERS)
     out = []
     for _ in range(steps):
-        jst = jax_physics_step(jscene, jst, jsettings, DT)[0]
+        # op by op, as tests/test_torch_shapes.py runs its JAX steps: a
+        # third quicker than each jnp call compiling on its own here
+        with jax.disable_jit():
+            jst = jax_physics_step(jscene, jst, jsettings, DT)[0]
         tst, info = physics_step(tscene, tst, tsettings, DT)
         out.append((jst, tst, info))
     return out
