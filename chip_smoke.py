@@ -12,6 +12,11 @@ checkout and holding each against its plain PyTorch version on the card:
   - the golden mixed-shape drop (a hull, a cylinder and a capsule onto a
     box ramp) and sphere bounce of tests/test_golden_trajectories.py, 256
     and 4096 envs x 1000 steps, on the fused step;
+  - the golden fidelity row: the six golden scenes at one env x 1000 steps
+    on the sequential fused step ("fused_seq");
+  - BASELINE config 4's heightfield terrain under config 3's ragdoll and
+    four pieces of shape debris, 256 and 4096 envs, on the fused step with
+    the terrain rows prepared outside the kernel and passed in;
   - bench.py's 1k-box stack (64 towers of 16 boxes, 32 envs) on the
     reference step under each of the three broadphases (table, K-select,
     sort-and-sweep).
@@ -21,9 +26,10 @@ checkout and holding each against its plain PyTorch version on the card:
 
 Phases, one JSON line each; any failure raises and the exit code is non-zero:
   device     a CUDA device is present; its name and power limit
-  build      nvcc compiles csrc/fused_step.cu (twice: without and with the
-             sphere and cylinder recipes) and csrc/broadphase.cu, side by
-             side
+  build      nvcc compiles csrc/fused_step.cu three times (without and with
+             the sphere and cylinder recipes, and the prepped build: joint
+             and contact rows prepared outside the kernel, the sequential
+             solve) and csrc/broadphase.cu, all side by side
   kernels    fused-step kernel vs plain version on rolled-out states, times,
              bound
   serve      policy rollout and zero-action rollout, checks on the results
@@ -43,16 +49,26 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
              sphere and cylinder recipes and their branches; then 1000 steps
              of each scene at each batch: launches, finiteness, the lowest
              point of any body, body-steps/s, the kernel's times and bound
+  fidelity   the prepped kernel vs its plain version on the six golden
+             scenes in both modes, then each scene 1000 fused_seq steps from
+             its golden start: launches, deviation from tests/golden/,
+             steps/s, the kernel's times at 4096 envs
+  terrain    the prepped kernel with prep-passed terrain rows vs its plain
+             version in both modes (initial, after 60 steps, terrain poses);
+             live terrain rows by shape and window and live safety
+             contacts; then 600 steps at each batch: launches, finiteness,
+             no body's centre deep below the terrain, body-steps/s, host and
+             device ms and launches per step, the kernel's times and bound,
+             and the fused_seq kernel's times
   box_stack  the three broadphase kernels vs their plain versions (equal
              integers) on the initial and a rolled-out state, pair sets equal
              across the broadphases, then the box stack stepped in each
              broadphase: launches per step, overflow, agreement with the
              table broadphase, body-steps/s
 The line before the last is the card's name and power limit; the line before
-that lists every kernel (the fused step four times: loco, zoo, settle and
-shapes).
-The last line
-is {"ok": true, "device": {...}}.
+that lists every kernel (the fused step once per phase that runs it: loco,
+zoo, settle, shapes, fidelity and terrain; then the three broadphase
+kernels). The last line is {"ok": true, "device": {...}}.
 
 Imports torch and the port only; nothing of JAX.
 """
@@ -88,6 +104,7 @@ FLOPS_CONTACT_POINT = 124        # friction + normal update of one live point
 FLOPS_ROW_DELTA = 24             # 12 subtractions + 12 adds into body sums
 FLOPS_BODY_APPLY = 3             # per body component and pass: scale, add
 FLOPS_PREP_POINT = 183
+POINT_FIELDS_PASSED = 28         # floats read per passed-in point
 # per row of the recipes whose work does not depend on the data, by recipe id
 # (fused_step.RECIPE_NAMES): capsule-capsule, capsule-box, box-box,
 # sphere-sphere, sphere-capsule, sphere-cylinder, sphere-box, capsule-cylinder
@@ -193,16 +210,18 @@ def load_policy(env):
 def kernel_inputs(scene, state, dt, prep_in_kernel=True):
     """What physics_step hands the fused step for `state`, with the joint
     rows prepared in the kernel (the controls pack) or outside it (the
-    packed tables of ops/solver.py's preps)."""
+    packed tables of ops/solver.py's preps), and the prepared heightfield
+    rows of a scene with terrain (else None)."""
     from dxk_tpu_torch.ops.integrator import integrate_forces
     from dxk_tpu_torch.ops.shapes import world_colliders
-    from dxk_tpu_torch.physics import joint_inputs
+    from dxk_tpu_torch.physics import joint_inputs, terrain_inputs
     dt32 = np.float32(dt)
     wcol = world_colliders(scene, state.pos, state.rot)
     bodies = integrate_forces(scene, state, float(dt32))
     joints = joint_inputs(scene, bodies, state.controls, dt32,
                           prep_in_kernel)
-    return bodies, wcol, joints, float(np.float32(1.0) / dt32)
+    return (bodies, wcol, joints, float(np.float32(1.0) / dt32),
+            terrain_inputs(scene, wcol, bodies, dt32))
 
 
 def time_ms(fn, reps):
@@ -238,9 +257,11 @@ def recipe_flops(tab, branches, batch):
     deep rows, projection rounds)."""
     from dxk_tpu_torch.ops.kernels import fused_step as fs
     V, F, FU, LM, EU = tab.hull_dims
-    rows = {fs.RECIPE_NAMES[fs.CM_RECIPES[m["key"]]]: 0 for m in tab.metas}
+    rows = {}
     for m in tab.metas:
-        rows[fs.RECIPE_NAMES[fs.CM_RECIPES[m["key"]]]] += m["pg"]
+        if m["native"]:
+            name = fs.RECIPE_NAMES[fs.CM_RECIPES[m["key"]]]
+            rows[name] = rows.get(name, 0) + m["pg"]
     flops = 0
     for name, c, deep in (("capsule_hull", FLOPS_CAPSULE_HULL, "overlap"),
                           ("sphere_hull", FLOPS_SPHERE_HULL, "inside")):
@@ -274,16 +295,22 @@ def bound_ms(tab, live, batch, data_work=0, prepped=False, sequential=False):
     manifold points only; `data_work` is the count of the rows whose work
     follows the data (recipe_flops). `prepped`: the joint rows are read
     from device memory instead of prepared in the kernel; `sequential`: the
-    sequential solve, which has no velocity deltas to sum and apply."""
+    sequential solve, which has no velocity deltas to sum and apply. A
+    scene's prep-passed contact points (heightfield rows) are read from
+    device memory, and their prep is not the kernel's work."""
     nb, C, P = tab.num_bodies, tab.num_colliders, tab.num_rows
     floats_in = nb * (3 + 3 + 9 + 3 + 4) + C * 10 + (
-        tab.joint_row_floats if prepped else tab.ctl_rows + 1)
+        tab.joint_row_floats if prepped else tab.ctl_rows + 1) \
+        + POINT_FIELDS_PASSED * tab.passed_points
     floats_out = nb * 6 + P * 4
     nbytes = batch * (4 * (floats_in + floats_out) + P) \
         + 4 * (tab.itab.numel() + tab.ftab.numel() + nb)
     lv = live.to(torch.int32)
     live_rows = int((lv != 0).sum())
     live_points = int(sum(((lv >> k) & 1).sum() for k in range(4)))
+    n_passed = tab.passed_points // 4
+    passed_points = int(sum(((lv[:, P - n_passed:] >> k) & 1).sum()
+                            for k in range(4))) if n_passed else 0
     types = tab.itab[tab.ioffs[0]:tab.ioffs[0] + 8 * P].view(P, 8)[:, 0].tolist()
     narrow = sum(FLOPS_NARROW.get(t, 0) for t in types)
     counts = tab.joint_counts
@@ -299,12 +326,14 @@ def bound_ms(tab, live, batch, data_work=0, prepped=False, sequential=False):
     flops = (batch * (per_env_once + ITERATIONS * per_env_iter) + data_work
              + live_points * (FLOPS_PREP_POINT
                               + ITERATIONS * FLOPS_CONTACT_POINT)
+             - passed_points * FLOPS_PREP_POINT
              + (0 if sequential else live_rows * ITERATIONS * FLOPS_ROW_DELTA))
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations",
             dict(bytes=nbytes, flops=flops, live_rows=live_rows,
-                 live_points=live_points, bytes_ms=t_bytes, ops_ms=t_ops))
+                 live_points=live_points, live_passed_points=passed_points,
+                 bytes_ms=t_bytes, ops_ms=t_ops))
 
 
 def joint_flags(tab, bodies, ctl, inv_dt):
@@ -336,19 +365,19 @@ def compare_kernel(scene, state, batch, dt):
         controls=type(state.controls)(**{
             k: v[:batch].contiguous()
             for k, v in vars(state.controls).items()}))
-    bodies, wcol, ctl, inv_dt = kernel_inputs(scene, sub, dt)
+    bodies, wcol, ctl, inv_dt, passed = kernel_inputs(scene, sub, dt)
     tab = fs.fused_tables(scene, state.pos.device)
     solver = fs.make_fused_step_solver(scene, ITERATIONS, 1.0)
 
     def run_kernel():
-        return solver(bodies, wcol, ctl, inv_dt)
+        return solver(bodies, wcol, ctl, inv_dt, passed)
 
     def run_plain():
         vw0 = torch.cat([bodies.v, bodies.w], dim=-1)
         return fs._fused_core(tab, ITERATIONS, 1.0, inv_dt, vw0,
                               bodies.inv_mass, bodies.inv_inertia,
                               bodies.pos_cog, bodies.rot, ctl, wcol.a, wcol.b,
-                              wcol.rot)
+                              wcol.rot, passed=passed)
 
     kv, kw, kimp, klive = run_kernel()
     torch.cuda.synchronize()
@@ -1814,15 +1843,20 @@ FIDELITY_LIBRARY_REASON = ("no single PyTorch call computes the fused step "
 
 def _envs(inputs, lo, hi):
     """Envs lo:hi of kernel_inputs' batched tensors."""
+    import dataclasses
     from types import SimpleNamespace
-    bodies, wcol, joints, inv_dt = inputs
+    bodies, wcol, joints, inv_dt, passed = inputs
     sl = slice(lo, hi)
     b = bodies.replace(**{k: getattr(bodies, k)[sl] for k in (
         "rot", "pos_cog", "inv_inertia", "v", "w")})
     w = SimpleNamespace(a=wcol.a[sl], b=wcol.b[sl], rot=wcol.rot[sl])
     j = joints[sl] if isinstance(joints, torch.Tensor) \
         else tuple(t[sl] for t in joints)
-    return b, w, j, inv_dt
+    if passed is not None:
+        passed = dataclasses.replace(passed, **{
+            f.name: getattr(passed, f.name)[sl]
+            for f in dataclasses.fields(passed) if f.name != "phase_sizes"})
+    return b, w, j, inv_dt, passed
 
 
 def hold_modes(scene, states, dt, sequential, prep_in_kernel=False):
@@ -1839,14 +1873,14 @@ def hold_modes(scene, states, dt, sequential, prep_in_kernel=False):
             k: torch.cat([getattr(states[n].controls, k) for n in names])
             for k in vars(states[names[0]].controls)}))
     inputs = kernel_inputs(scene, cat, dt, prep_in_kernel)
-    bodies, wcol, joints, inv_dt = inputs
+    bodies, wcol, joints, inv_dt, passed = inputs
     tab = fs.fused_tables(scene, DEVICE)
     tables = None if prep_in_kernel else joints
     pvw, pimp, plive = fs._fused_core(
         tab, ITERATIONS, 1.0, inv_dt, torch.cat([bodies.v, bodies.w], -1),
         bodies.inv_mass, bodies.inv_inertia, bodies.pos_cog, bodies.rot,
         joints if prep_in_kernel else None, wcol.a, wcol.b, wcol.rot,
-        joint_tables=tables, sequential=sequential)
+        joint_tables=tables, sequential=sequential, passed=passed)
     solver = fs.make_fused_step_solver(scene, ITERATIONS, 1.0,
                                        sequential=sequential,
                                        joint_prep_in_kernel=prep_in_kernel)
@@ -1865,6 +1899,9 @@ def hold_modes(scene, states, dt, sequential, prep_in_kernel=False):
             moved_velocities_by=float(torch.maximum(
                 (kv - bodies.v[lo:hi]).abs().max(),
                 (kw - bodies.w[lo:hi]).abs().max())),
+            v_scale=max(1.0, float(pvw[lo:hi, :, :3].abs().max())),
+            w_scale=max(1.0, float(pvw[lo:hi, :, 3:].abs().max())),
+            imp_scale=max(1.0, float(pimp[lo:hi].abs().max())),
             finite=bool(torch.isfinite(kv).all() and torch.isfinite(kw).all()
                         and torch.isfinite(kimp).all()))
         lo = hi
@@ -1975,7 +2012,7 @@ def fidelity_phase(seed, loco):
         for _ in range(FIDELITY_WARM):
             st, _info = physics_step(scene, st, seq, FIDELITY_DT)
         inputs = kernel_inputs(scene, st, FIDELITY_DT, False)
-        bodies, wcol, joints, inv_dt = inputs
+        bodies, wcol, joints, inv_dt, _passed = inputs
         tab = fs.fused_tables(scene, DEVICE)
         t = {}
         for iters in (0, ITERATIONS):
@@ -2055,6 +2092,400 @@ def fidelity_phase(seed, loco):
         "ms": big["ms"], "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
         "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
+# heightfield terrain under a ragdoll and shape debris on the fused step
+
+TERRAIN_DT = 1.0 / 120.0
+TERRAIN_NODES = 33                        # bench.py:372-376 (config 4)
+TERRAIN_CELL = 1.0
+TERRAIN_CORNER = (-16.0, 0.0, -16.0)
+# shape debris, clear of the ragdoll, each dropped into a basin of the terrain
+# (its lowest point 0.5 m above the basin's floor at -0.4 m): (kind, size,
+# centre x, z); window K 2, 4, 2 and 8 on the 1 m cells
+TERRAIN_DEBRIS = (("sphere", 0.2, 7.56, 3.63), ("box", 0.35, -8.15, -12.07),
+                  ("cylinder", (0.25, 0.2), 7.56, -12.07),
+                  ("sphere", 1.6, -8.15, 3.63))
+
+
+def terrain_heights():
+    """bench.py:372-376, copied: 33 x 33 nodes, H = 0.4 sin(0.4 i) cos(0.4 j)
+    at row i, column j (rows run along z, columns along x)."""
+    xs, zs = np.meshgrid(np.arange(TERRAIN_NODES), np.arange(TERRAIN_NODES),
+                         indexing="ij")
+    return (0.4 * np.sin(xs * 0.4) * np.cos(zs * 0.4)).astype(np.float32)
+
+
+def terrain_builder(builder, add_ragdoll=None):
+    """BASELINE config 4's terrain (bench.py:372-376: cell 1.0, friction 1.0,
+    window 8) with no ground box under config 3's ragdoll (bench.py:340,
+    hip at (0, 1.6, 0)) and four pieces of shape debris (TERRAIN_DEBRIS): a
+    0.2 m sphere, a box of half extent 0.35 m, a cylinder of radius 0.25 m
+    and half length 0.2 m lying on its side, and a 1.6 m sphere. Without
+    `add_ragdoll`, the debris alone. `builder` is a SceneBuilder class and
+    `add_ragdoll` its package's ragdoll; the result is finalized by the
+    caller with no arguments (uncapped static tables)."""
+    b = builder()
+    b.set_heightfield(terrain_heights(), cell_size=TERRAIN_CELL,
+                      min_corner=TERRAIN_CORNER, friction=1.0, window=8)
+    if add_ragdoll is not None:
+        add_ragdoll(b, initial_hip_position=(0.0, 1.6, 0.0))
+    for kind, size, x, z in TERRAIN_DEBRIS:
+        low = -0.4 + 0.5
+        if kind == "sphere":
+            body = b.add_body(position=(x, low + size, z))
+            b.add_sphere_collider(body, (0, 0, 0), size)
+        elif kind == "box":
+            body = b.add_body(position=(x, low + size, z))
+            b.add_box_collider(body, (0, 0, 0), (size, size, size))
+        else:
+            r, half = size
+            body = b.add_body(position=(x, low + r, z))
+            b.add_cylinder_collider(body, (-half, 0, 0), (half, 0, 0), r)
+    return b
+
+
+def terrain_scene(device=DEVICE):
+    from dxk_tpu_torch.models.ragdoll import add_ragdoll
+    from dxk_tpu_torch.scene import SceneBuilder
+    return terrain_builder(SceneBuilder, add_ragdoll).finalize(device=device)
+
+
+def terrain_initial_state(scene, batch, seed):
+    """`batch` envs of the drop with the seeded 0.01 m/s velocity noise of
+    zoo_initial_state."""
+    return zoo_initial_state(scene, batch, seed)
+
+
+def terrain_lowest(scene, w):
+    """Each collider's lowest support point (B, C, 3) by its shape type, as
+    the terrain's safety contact finds it (ops/heightmap.py); hulls get the
+    collider's position."""
+    from dxk_tpu_torch.ops.heightmap import lowest_support
+    out = w.a.clone()
+    for code, tag in ((0, "sphere"), (1, "capsule"), (2, "cylinder"),
+                      (3, "box")):
+        m = w.ctype == code
+        if bool(m.any()):
+            out[:, m] = lowest_support(tag, w.a[:, m], w.b[:, m],
+                                       w.r[m].expand(w.a.shape[0], -1),
+                                       w.rot[:, m])
+    return out
+
+
+def terrain_poses(scene, batch, seed):
+    """`batch` envs of the terrain scene set down into the terrain: the
+    ragdoll as one rigid piece (moved by up to 4 m across the terrain, its
+    initial pose kept), each piece of debris on its own (moved by up to 1 m
+    and tilted by up to 40 degrees), each lowered until its lowest support
+    point is a seeded 0-3 cm below the terrain there (about one piece in
+    four 0-1 cm above it instead), which makes the safety contact live.
+    Velocities get the seeded noise of terrain_initial_state."""
+    from dxk_tpu_torch.core.maths import quat_mul
+    from dxk_tpu_torch.ops.heightmap import height_at
+    from dxk_tpu_torch.ops.shapes import world_colliders
+    st = terrain_initial_state(scene, batch, seed)
+    rng = np.random.default_rng(seed)
+    dev = st.pos.device
+    pos, rot = st.pos.clone(), st.rot.clone()
+    joined = sorted({int(x) for n in ("hinge", "cone_twist")
+                     if getattr(scene, n) is not None
+                     for x in torch.cat([getattr(scene, n).body_a,
+                                         getattr(scene, n).body_b]).tolist()
+                     if x < scene.num_bodies})
+    pieces = ([joined] if joined else []) + [
+        [n] for n in range(scene.num_bodies) if n not in joined]
+    for piece in pieces:
+        reach = 4.0 if len(piece) > 1 else 1.0
+        shift = torch.from_numpy(rng.uniform(-reach, reach, (batch, 1, 3))
+                                 * np.array([1.0, 0.0, 1.0])).float().to(dev)
+        pos[:, piece] += shift
+        if len(piece) == 1:
+            axis = rng.normal(size=(batch, 3))
+            ang = np.radians(rng.uniform(0, 40, batch))
+            q = torch.from_numpy(np.concatenate(
+                [axis / np.linalg.norm(axis, axis=-1, keepdims=True)
+                 * np.sin(ang / 2)[:, None], np.cos(ang / 2)[:, None]],
+                -1)).float().to(dev)
+            rot[:, piece[0]] = quat_mul(q, rot[:, piece[0]])
+    w = world_colliders(scene, pos, rot)
+    low = terrain_lowest(scene, w)
+    body = scene.colliders.body.long()
+    for piece in pieces:
+        cols = [c for c in range(body.shape[0]) if int(body[c]) in piece]
+        gap = low[:, cols, 1] - height_at(scene.heightfield,
+                                          low[:, cols, 0], low[:, cols, 2])
+        depth = torch.from_numpy(np.where(rng.uniform(size=batch) < 0.25,
+                                          -rng.uniform(0, 0.01, batch),
+                                          rng.uniform(0, 0.03, batch))
+                                 ).float().to(dev)
+        pos[:, piece, 1] -= (gap.amin(dim=1) + depth)[:, None]
+    return st.replace(pos=pos, rot=rot)
+
+
+TERRAIN_BATCHES = (256, 4096)             # bench.py's on-chip batch; 4096
+TERRAIN_RAGGED = 1000
+TERRAIN_STEPS = 600
+TERRAIN_WARM = 60
+TERRAIN_PROFILED = 3                      # steps under torch.profiler
+TERRAIN_TAGS = ("sphere", "capsule", "box", "cylinder")
+TERRAIN_WINDOWS = (2, 4, 8)
+TERRAIN_TOL_REASON = (
+    "velocities and impulses held relative to the largest one (at least 1): "
+    "the 1.6 m debris sphere weighs 17 t, so its terrain impulses reach ~1e3, "
+    "where a float32 ulp is 1e-4, and in the averaged solve the plain version "
+    "sums per-body deltas with index_add_ atomics in no fixed order on the "
+    "card; live masks exactly")
+TERRAIN_SINK_TOL = 0.25                   # m below the terrain, any centre
+TERRAIN_SINK_REASON = (
+    "no dynamic body's centre deeper than 0.25 m below the terrain height at "
+    "its (x, z) at any 25th step: a body through the terrain falls 0.25 m in "
+    "27 steps. Centres do dip below the surface: the ragdoll's limbs and "
+    "torso sink into it on impact and come back (the reference's soft "
+    "contact, Baumgarte factor 0.1, and capsule-triangle normals that point "
+    "down once the axis is below the surface), up to 0.128 m at 4096 envs on "
+    "an H100; the JAX package does the same: tools/replay_shapes_state_cpu.py "
+    "--run terrain.B4096 steps both packages from a state with the toes' "
+    "centre 4.8 cm below the terrain to positions 2.4e-7 apart, the toes "
+    "still 1.9 cm below after 3 steps (PERF.md)")
+
+
+def terrain_counts(scene, inputs, live):
+    """Live terrain rows by shape tag and by window K (heightfield_plan's
+    buckets) and live safety-contact points, from the live bits `live`
+    (B, P) of a solve on kernel_inputs `inputs`: a safety contact is the
+    slot-3 point of a collider whose lowest support point lies below the
+    terrain there."""
+    from dxk_tpu_torch.ops.heightmap import height_at, heightfield_plan
+    _bodies, wcol, *_rest = inputs
+    C = scene.colliders.ctype.shape[0]
+    rows = live[:, -C:].to(torch.int32)
+    by_tag, by_k = {}, {}
+    for tag, K, idx in heightfield_plan(scene)["groups"]:
+        n = int((rows[:, torch.from_numpy(idx).to(rows.device)] != 0).sum())
+        by_tag[tag] = by_tag.get(tag, 0) + n
+        by_k[K] = by_k.get(K, 0) + n
+    low = terrain_lowest(scene, wcol)
+    below = low[..., 1] < height_at(scene.heightfield, low[..., 0],
+                                    low[..., 2])
+    safety = int((below & ((rows >> 3) & 1).bool()).sum())
+    return by_tag, by_k, safety
+
+
+def profile_steps(step, n):
+    """Device busy ms, device kernel launches and fused-step kernel ms per
+    call of `step` over `n` calls under torch.profiler, and the top device
+    kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        # device-side events only: an operator's row repeats the time of
+        # the kernels it launched
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", 0) or 0
+        if dev_us > 0:
+            rows.append((ev.key, dev_us, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    return dict(
+        device_busy_ms_per_step=sum(r[1] for r in rows) / 1e3 / n,
+        fused_kernel_ms_per_step=sum(
+            r[1] for r in rows if "fused_step_kernel" in r[0]) / 1e3 / n,
+        device_launches_per_step=sum(r[2] for r in rows) / n,
+        top_device_kernels=[{"name": r[0][:80], "ms_per_step": r[1] / 1e3 / n,
+                             "calls_per_step": r[2] / n} for r in rows[:8]])
+
+
+def terrain_phase(seed):
+    """BASELINE config 4's heightfield terrain under config 3's ragdoll and
+    shape debris on the fused step, its terrain rows prepared outside the
+    kernel and passed in (the prepped library): kernel vs plain version in
+    both solve modes, every terrain tag, window and the safety contact live,
+    then the main path at each batch."""
+    from dxk_tpu_torch.ops.heightmap import height_at
+    from dxk_tpu_torch.ops.kernels import broadphase_kernel as bk
+    from dxk_tpu_torch.ops.kernels import fused_step as fs
+    from dxk_tpu_torch.ops.kernels import kselect_broadphase as ks
+    from dxk_tpu_torch.ops.kernels import sap_broadphase as sp
+    from dxk_tpu_torch.physics import PhysicsSettings, physics_step
+
+    t_phase = time.perf_counter()
+    counters = {"fused_step": fs, "aabb_overlap_matrix": bk,
+                "kselect_broadphase": ks, "sap_broadphase": sp}
+    scene = terrain_scene()
+    tab = fs.fused_tables(scene, DEVICE)
+    settings = PhysicsSettings(num_rigid_solver_iterations=ITERATIONS,
+                               solver_mode="fused")
+
+    def gaps(st):
+        """Each dynamic body's centre height over the terrain there."""
+        p = st.pos[:, :scene.num_bodies]
+        return p[..., 1] - height_at(scene.heightfield, p[..., 0], p[..., 2])
+
+    # ---- kernel vs plain version, both modes: bench's batch and a ragged
+    # one, initial and after TERRAIN_WARM steps, and the terrain poses
+    states = {}
+    for batch in (TERRAIN_BATCHES[0], TERRAIN_RAGGED):
+        st = terrain_initial_state(scene, batch, seed)
+        states[f"B{batch}_initial"] = st
+        for _ in range(TERRAIN_WARM):
+            st, _info = physics_step(scene, st, settings, TERRAIN_DT)
+        states[f"B{batch}_after_{TERRAIN_WARM}_steps"] = st
+    states["terrain_poses"] = terrain_poses(scene, TERRAIN_BATCHES[0], seed)
+    checks = {
+        "fused": hold_modes(scene, states, TERRAIN_DT, False,
+                            prep_in_kernel=True),
+        "fused_seq": hold_modes(scene, states, TERRAIN_DT, True)}
+    by_tag, by_k, safety = {}, {}, 0
+    solver = fs.make_fused_step_solver(scene, ITERATIONS, 1.0)
+    for st in states.values():
+        inputs = kernel_inputs(scene, st, TERRAIN_DT)
+        t, k, n = terrain_counts(scene, inputs, solver(*inputs)[3])
+        for key, v in t.items():
+            by_tag[key] = by_tag.get(key, 0) + v
+        for key, v in k.items():
+            by_k[key] = by_k.get(key, 0) + v
+        safety += n
+
+    # ---- the main path at each batch, counts from zero just before it
+    runs, timing = {}, {}
+    for batch in TERRAIN_BATCHES:
+        st = terrain_initial_state(scene, batch, seed + 1)
+        finite = torch.ones((), dtype=torch.bool, device=DEVICE)
+        above = torch.full((scene.num_bodies,), float("inf"), device=DEVICE)
+        for mod in counters.values():
+            mod.reset_launch_count()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(TERRAIN_STEPS):
+            st, _info = physics_step(scene, st, settings, TERRAIN_DT)
+            finite &= torch.isfinite(st.pos).all() & torch.isfinite(
+                st.lin_vel).all() & torch.isfinite(st.ang_vel).all()
+            if i % 25 == 24:
+                above = torch.minimum(above, gaps(st).amin(dim=0))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {n: mod.launch_count() for n, mod in counters.items()}
+        launches["fused_step.prepped"] = fs.launch_count("prepped")
+        holder = [st]
+
+        def step():
+            holder[0] = physics_step(scene, holder[0], settings,
+                                     TERRAIN_DT)[0]
+        prof = profile_steps(step, TERRAIN_PROFILED)
+        # the env whose body centre ends deepest below the terrain, for a
+        # replay on the CPU (tools/replay_shapes_state_cpu.py --run
+        # terrain.B<batch>)
+        end = gaps(st)
+        env, body = divmod(int(end.argmin()), scene.num_bodies)
+        deepest = dict(env=env, body=body, centre_over_terrain_m=float(
+            end[env, body]), **{k: getattr(st, k)[env].tolist() for k in (
+                "pos", "rot", "lin_vel", "ang_vel")})
+        runs[batch] = dict(
+            steps=TERRAIN_STEPS, seconds=secs,
+            body_steps_per_s=scene.num_bodies * batch * TERRAIN_STEPS / secs,
+            ms_per_step=secs / TERRAIN_STEPS * 1e3, launches=launches,
+            finite=bool(finite),
+            min_centre_over_terrain_m=[float(x) for x in above],
+            end_centres_below_terrain=int((end < 0).sum()),
+            deepest_env_state=deepest,
+            **{k: v for k, v in prof.items() if k != "top_device_kernels"},
+            device_idle_share=1.0 - prof["device_busy_ms_per_step"]
+            / (secs / TERRAIN_STEPS * 1e3))
+        # the kernel at this batch on the state after the run
+        inputs = kernel_inputs(scene, st, TERRAIN_DT)
+        bodies, wcol, ctl, inv_dt, passed = inputs
+        for _ in range(3):
+            out = solver(*inputs)
+        klive = out[3]
+
+        def run_plain():
+            return fs._fused_core(
+                tab, ITERATIONS, 1.0, inv_dt,
+                torch.cat([bodies.v, bodies.w], -1), bodies.inv_mass,
+                bodies.inv_inertia, bodies.pos_cog, bodies.rot, ctl, wcol.a,
+                wcol.b, wcol.rot, passed=passed)
+        work = recipe_flops(tab, fs.recipe_branches(tab, wcol.a, wcol.b,
+                                                    wcol.rot), batch)
+        b_ms, b_by, b_detail = bound_ms(tab, klive, batch, work,
+                                        prepped=False)
+        timing[batch] = dict(ms=time_ms(lambda: solver(*inputs), 20),
+                             plain_ms=time_ms(run_plain, 2), bound_ms=b_ms,
+                             bound_by=b_by, bound_detail=b_detail,
+                             recipe_flops=work,
+                             live_terrain_rows=int(
+                                 (klive[:, -tab.num_colliders:] != 0).sum()))
+
+    # ---- one fused_seq kernel call at the largest batch, on its state after
+    # the run, at 0 and at 30 iterations (joint rows prepared outside)
+    big = TERRAIN_BATCHES[-1]
+    seq_inputs = kernel_inputs(scene, st, TERRAIN_DT, False)
+    seq = {}
+    for iters in (0, ITERATIONS):
+        sol = fs.make_fused_step_solver(scene, iters, 1.0, sequential=True,
+                                        joint_prep_in_kernel=False)
+        for _ in range(3):
+            out = sol(*seq_inputs)
+        seq[f"ms_{iters}_iterations"] = time_ms(lambda: sol(*seq_inputs), 5)
+    seq["bound_ms"], seq["bound_by"], _d = bound_ms(
+        tab, out[3], big, recipe_flops(tab, fs.recipe_branches(
+            tab, seq_inputs[1].a, seq_inputs[1].b, seq_inputs[1].rot), big),
+        prepped=True, sequential=True)
+    seconds = time.perf_counter() - t_phase
+    emit("terrain", bodies=scene.num_bodies, colliders=tab.num_colliders,
+         pair_rows=tab.num_rows - tab.num_colliders,
+         terrain_rows=tab.num_colliders, joints=tab.joint_counts,
+         heightfield=dict(nodes=list(scene.heightfield.size),
+                          cell=scene.heightfield.cell_size,
+                          window=scene.heightfield.window),
+         iterations=ITERATIONS, dt=TERRAIN_DT, threads=tab.threads(),
+         smem_bytes=tab.shared_floats() * 4, tolerance=KERNEL_TOL,
+         tolerance_reason=TERRAIN_TOL_REASON, checks=checks,
+         live_terrain_rows_by_tag=by_tag,
+         live_terrain_rows_by_window={str(k): v for k, v in by_k.items()},
+         live_safety_points=safety, sink_tol=TERRAIN_SINK_TOL,
+         sink_reason=TERRAIN_SINK_REASON,
+         runs=runs, kernel=timing, kernel_fused_seq=seq, seconds=seconds)
+    for mode, cs_ in checks.items():
+        for name, c in cs_.items():
+            worst = max(c["err_v"] / c["v_scale"], c["err_w"] / c["w_scale"],
+                        c["err_imp"] / c["imp_scale"])
+            if (not c["finite"] or c["mask_mismatch"]
+                    or not worst <= KERNEL_TOL):
+                raise RuntimeError(f"terrain {mode} {name}: the kernel "
+                                   f"disagrees with its plain version: {c}")
+    dead = ([t for t in TERRAIN_TAGS if by_tag.get(t, 0) == 0]
+            + [f"K{k}" for k in TERRAIN_WINDOWS if by_k.get(k, 0) == 0]
+            + ([] if safety else ["safety"]))
+    if dead:
+        raise RuntimeError(f"terrain: never live in the compared states: "
+                           f"{dead}")
+    for batch, r in runs.items():
+        want = {n: (TERRAIN_STEPS if n == "fused_step" else 0)
+                for n in counters}
+        want["fused_step.prepped"] = TERRAIN_STEPS
+        if r["launches"] != want or not r["finite"]:
+            raise RuntimeError(f"terrain B={batch}: launches {r['launches']} "
+                               f"(expected {want}), finite {r['finite']}")
+        if not min(r["min_centre_over_terrain_m"]) > -TERRAIN_SINK_TOL:
+            raise RuntimeError(f"terrain B={batch}: a body's centre went "
+                               f"{TERRAIN_SINK_TOL} m below the terrain: {r}")
+    return {
+        "name": "fused_step_terrain", "route": "cuda",
+        "source": "dxk_tpu_torch/ops/kernels/csrc/fused_step.cu",
+        "replaces": "dxk_tpu/ops/pallas/fused_step.py:1177",
+        "launches": runs[big]["launches"]["fused_step.prepped"],
+        "max_abs_err": max(max(c["err_v"], c["err_w"], c["err_imp"])
+                           for cs_ in checks.values() for c in cs_.values()),
+        "ms": timing[big]["ms"], "plain_ms": timing[big]["plain_ms"],
+        "bound_ms": timing[big]["bound_ms"],
+        "bound_by": timing[big]["bound_by"], "library_ms": None}
 
 
 def main():
@@ -2142,6 +2573,9 @@ def main():
     # ---- the golden fidelity row on fused_seq
     fidelity_kernel = fidelity_phase(args.seed + 7, (env.scene, state))
 
+    # ---- heightfield terrain under a ragdoll and shape debris
+    terrain_kernel = terrain_phase(args.seed + 8)
+
     # ---- the box stack on the reference step, each broadphase
     box_kernels = box_stack_phase(args.seed + 3)
 
@@ -2154,7 +2588,7 @@ def main():
                                   "err_imp")),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None}, zoo_kernel, settle_kernel,
-        shapes_kernel, fidelity_kernel]
+        shapes_kernel, fidelity_kernel, terrain_kernel]
         + box_kernels}),
         flush=True)
     print(smi, flush=True)

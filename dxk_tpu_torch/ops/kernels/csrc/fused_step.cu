@@ -63,7 +63,16 @@
 //     joint in JOINT_ORDER, then every live pair row in phase order with its
 //     live points in order, both bodies' velocities stored after each joint and
 //     each row. There is no parallelism to take within an env there; one thread
-//     per env is slow on paper, and several envs per block is a later step.
+//     per env is slow on paper, and several envs per block is a later step;
+//   * contact rows prepared outside the kernel (the prep-passed pseudo-group of
+//     a heightfield scene: one row per collider against the static dummy, 4
+//     points each, prepared by dxk_tpu_torch/ops/solver.py's prep_contacts):
+//     the block copies the env's prepared points from device memory straight
+//     into their point slots, coalesced, in the same field-major layout; these
+//     rows (kind PASSED_ROW, the trailing phase) skip the narrowphase, point k
+//     is live where its eff_n > 0, and the solve loops take them like any
+//     other row (the kernel's invm[body_a] equals the prep's inv_ma on every
+//     live row).
 // The other two builds compile none of this code.
 
 #include <cuda_runtime.h>
@@ -2592,6 +2601,8 @@ DF void joint_pass(const JointDesc& d, bool joint_warp, int lane, const int* jab
 }
 
 #if DXK_PREPPED_JOINTS
+constexpr int PASSED_ROW = 15;     // fused_step.PASSED_ROW
+
 DF void st_vel(float* vw, int a, int b, const Vel& u) {
   float* ra = vw + 6 * a;
   float* rb = vw + 6 * b;
@@ -2641,6 +2652,7 @@ __global__ void __launch_bounds__(256, 2) fused_step_kernel(
     const float* __restrict__ g_col_b, const float* __restrict__ g_col_rot,
 #if DXK_PREPPED_JOINTS
     const float* __restrict__ g_jrows, int sequential, int rows_passed,
+    const float* __restrict__ g_crows, int crow_pts,
 #endif
     const int* __restrict__ itab, const float* __restrict__ ftab,
     float* __restrict__ o_v, float* __restrict__ o_w, float* __restrict__ o_imp,
@@ -2713,6 +2725,16 @@ __global__ void __launch_bounds__(256, 2) fused_step_kernel(
   } else {
     for (int i = tid; i < D.R1; i += T) ctl[i] = g_ctl[(size_t)env * D.R1 + i];
   }
+  // prep-passed contact points: the last crow_pts slots, fields 0-27 as
+  // prepared, both accumulated impulses zero
+  if (crow_pts) {
+    const float* src = g_crows + (size_t)env * (POINT_FIELDS - 2) * crow_pts;
+    float* dst = pts + (np - crow_pts);
+    for (int i = tid; i < POINT_FIELDS * crow_pts; i += T) {
+      int f = i / crow_pts;
+      dst[f * np + (i - f * crow_pts)] = f < POINT_FIELDS - 2 ? src[i] : 0.0f;
+    }
+  }
 #else
   for (int i = tid; i < D.R1; i += T) ctl[i] = g_ctl[(size_t)env * D.R1 + i];
 #endif
@@ -2726,6 +2748,16 @@ __global__ void __launch_bounds__(256, 2) fused_step_kernel(
       const int* ri = rows_i + r * ROW_INTS;
       int type = ri[0], K = ri[1], ca = ri[2], cb = ri[3], ba = ri[4], bb = ri[5];
       int slot0 = ri[6], stride = ri[7];
+#if DXK_PREPPED_JOINTS
+      if (type == PASSED_ROW) {
+        int m = 0;
+        for (int k = 0; k < K; ++k)
+          if (pts[24 * np + slot0 + k * stride] > 0.0f) m |= 1 << k;
+        rmask[r] = m;
+        o_live[(size_t)env * P + r] = (unsigned char)m;
+        continue;
+      }
+#endif
       const float* A = col + 10 * ca;
       const float* Bc = col + 10 * cb;
       Manifold mf;
@@ -2888,14 +2920,17 @@ __global__ void __launch_bounds__(256, 2) fused_step_kernel(
 // Launches one block per env on `stream`. Returns the CUDA error code of the
 // launch (0 = success); does not synchronise and allocates nothing. The prepped
 // build's entry also takes the env's prepared joint rows (`jrows`, read when
-// `rows_passed`; `ctl` is then not read) and the `sequential` flag.
+// `rows_passed`; `ctl` is then not read), the `sequential` flag and the env's
+// prep-passed contact points (`crows`, (POINT_FIELDS - 2) x `crow_pts` floats
+// per env, field-major; none when `crow_pts` is 0).
 #if DXK_PREPPED_JOINTS
 extern "C" int dxk_fused_step_prepped_launch(
     const int* dims, float omega, float inv_dt,
     const void* v, const void* w, const void* inv_mass, const void* inv_inertia,
     const void* pos_cog, const void* rot, const void* ctl, const void* col_a,
     const void* col_b, const void* col_rot, const void* jrows, int sequential,
-    int rows_passed, const void* itab, const void* ftab,
+    int rows_passed, const void* crows, int crow_pts, const void* itab,
+    const void* ftab,
     void* v_out, void* w_out, void* imp_out, void* live_out,
     int threads, int smem_bytes, void* stream) {
 #else
@@ -2934,7 +2969,7 @@ extern "C" int dxk_fused_step_launch(
       (const float*)ctl, (const float*)col_a, (const float*)col_b,
       (const float*)col_rot,
 #if DXK_PREPPED_JOINTS
-      (const float*)jrows, sequential, rows_passed,
+      (const float*)jrows, sequential, rows_passed, (const float*)crows, crow_pts,
 #endif
       (const int*)itab, (const float*)ftab,
       (float*)v_out, (float*)w_out, (float*)imp_out, (unsigned char*)live_out);

@@ -42,21 +42,24 @@ order with its points in order, both bodies' velocities stored after each
 joint and each row (reference Gauss-Seidel, the JAX package's ``scan``
 semantics); see batched_solver.py. Joint rows are prepared in the kernel
 from the motor controls, or outside it (ops/solver.py's preps, packed by
-batched_solver.pack_joint_type) and passed in.
+batched_solver.pack_joint_type) and passed in. A scene with a heightfield
+adds a prep-passed pseudo-group: its terrain contact rows (ops/heightmap.py,
+prepared by ops/solver.py's prep_contacts) come in prepared, one row per
+collider, and are solved with the kernel's own rows as the last phase slice.
 
 Three builds of ``csrc/fused_step.cu``: "base" (averaged, joint prep in the
 kernel, no sphere or cylinder recipes), "shapes" (the same with the sphere
 and cylinder recipes) and "prepped" (every recipe, passed joint rows or
-in-kernel prep, averaged or sequential solve by a run-time flag). The
-first two serve ``"fused"`` with ``joint_prep_in_kernel=True``; the third
+in-kernel prep, prep-passed contact rows or none, averaged or sequential
+solve, all by run-time flags). The first two serve ``"fused"`` with
+``joint_prep_in_kernel=True`` on scenes without a heightfield; the third
 every other combination.
 
 Ported: all 15 shape-pair recipes (sphere, capsule, cylinder, box and
 hull against each other; the hull recipes over the distance GJK of
 gjk_distance.py, cm_hull.py, and the polytope SAT of cm_polytope.py), all
 six joint types (distance, ball, fixed, hinge, cone-twist, slider), one
-contact phase or several, both solve modes. Prep-passed groups
-(heightfield) raise NotImplementedError.
+contact phase or several, both solve modes, heightfield terrain rows.
 """
 
 from __future__ import annotations
@@ -92,7 +95,10 @@ RECIPE_NAMES = {0: "capsule_capsule", 1: "capsule_box", 2: "box_box",
                 6: "sphere_sphere", 7: "sphere_capsule", 8: "sphere_cylinder",
                 9: "sphere_box", 10: "sphere_hull", 11: "capsule_cylinder",
                 12: "cylinder_cylinder", 13: "cylinder_box",
-                14: "cylinder_hull"}
+                14: "cylinder_hull", 15: "passed"}
+# row kind of the prep-passed pseudo-group: contact points prepared outside
+# the kernel (heightfield terrain), read from device memory, no narrowphase
+PASSED_ROW = 15
 HULL_RECIPES = {(0, 4), (1, 4), (2, 4), (3, 4), (4, 4)}
 # largest padded hull the kernel's polytope recipes hold per thread: world
 # vertices of each side, and clip slots 2 * LM (csrc/fused_step.cu)
@@ -102,6 +108,9 @@ MAX_HULL_LOOP = 16
 # floats one contact point keeps in the kernel's shared memory: 8 vec3
 # fields + eff_n, eff_t, bias, friction + the two accumulated impulses
 POINT_FIELDS = 30
+POINT_VEC_FIELDS = ("rel_a", "rel_b", "normal", "tangent", "n_to_wa",
+                    "n_to_wb", "t_to_wa", "t_to_wb")
+POINT_SCALAR_FIELDS = ("eff_mass_n", "eff_mass_t", "bias", "friction")
 ROW_INTS = 8      # type, k, col_a, col_b, body_a, body_b, pt_base, pt_stride
 # ints of one joint type's descriptor in the kernel's launch dims: joint
 # count, offsets of its rows, accumulated impulses and controls in shared
@@ -126,11 +135,10 @@ def fused2_eligible(scene) -> bool:
 def _group_static(scene):
     """Per-group static info, groups in ascending phase order: pair count,
     K, collider and body indices, type pair, friction/restitution
-    constants (numpy)."""
-    if scene.heightfield is not None:
-        raise NotImplementedError(
-            "heightfield terrain (prep-passed pseudo-group) is not ported "
-            "to the fused step yet")
+    constants (numpy). A scene with a heightfield gets a trailing
+    prep-passed pseudo-group (`native` False): one row per collider, 4
+    points, body A the collider's body, body B the dummy, in a phase of
+    its own after every other (the JAX package's heightfield rows)."""
     body_of = scene.colliders.body.cpu().numpy()
     fric = scene.colliders.friction.cpu().numpy()
     rest = scene.colliders.restitution.cpu().numpy()
@@ -150,13 +158,23 @@ def _group_static(scene):
         pf = np.clip(np.sqrt(fric[ca] * fric[cb2]), 0.0, 1.0)
         pr = np.clip(np.maximum(rest[ca], rest[cb2]), 0.0, 1.0)
         out.append(dict(
-            hull_a=hull_id[ca], hull_b=hull_id[cb2],
+            hull_a=hull_id[ca], hull_b=hull_id[cb2], native=True,
             pg=pairs.shape[0], k=TYPE_MAX_POINTS[key], ta=ta, tb=tb, key=key,
             col_a=ca.astype(np.int64), col_b=cb2.astype(np.int64),
             body_a=body_of[ca].astype(np.int64),
             body_b=body_of[cb2].astype(np.int64),
             fric=pf.astype(np.float32), rest=pr.astype(np.float32),
             phase=int(g.phase)))
+    if scene.heightfield is not None:
+        C = body_of.shape[0]
+        cols = np.arange(C, dtype=np.int64)
+        out.append(dict(
+            hull_a=None, hull_b=None, native=False, pg=C, k=4, ta=-1, tb=-1,
+            key=None, col_a=cols, col_b=cols,
+            body_a=body_of.astype(np.int64),
+            body_b=np.full(C, scene.num_bodies, np.int64),
+            fric=np.zeros(C, np.float32), rest=np.zeros(C, np.float32),
+            phase=max((m["phase"] for m in out), default=0) + 1))
     return out
 
 
@@ -240,8 +258,13 @@ class FusedTables:
         self.phase_groups = phase_partition([m["phase"] for m in metas])
         # rows of a sphere or cylinder recipe (ids from 6 on): only the
         # library built with those recipes launches for them
-        self.has_shapes = any(CM_RECIPES[m["key"]] >= 6 for m in metas)
+        self.has_shapes = any(m["native"] and CM_RECIPES[m["key"]] >= 6
+                              for m in metas)
         self.num_rows = sum(m["pg"] for m in metas)
+        # contact points prepared outside the kernel (the heightfield
+        # pseudo-group, last): only the prepped library takes them
+        self.passed_points = sum(m["pg"] * m["k"] for m in metas
+                                 if not m["native"])
         self.col_r = scene.colliders.r.to(dev).float().contiguous()
 
         # ---- joints ---------------------------------------------------
@@ -280,7 +303,8 @@ class FusedTables:
                 m = metas[g]
                 for p in range(m["pg"]):
                     r = row0 + p
-                    rows_i.append([CM_RECIPES[m["key"]], m["k"],
+                    rows_i.append([CM_RECIPES[m["key"]] if m["native"]
+                                   else PASSED_ROW, m["k"],
                                    m["col_a"][p], m["col_b"][p],
                                    m["body_a"][p], m["body_b"][p],
                                    pt_base + p, m["pg"]])
@@ -685,9 +709,45 @@ def joint_table_rows(tab: FusedTables, tables):
     return out
 
 
+def passed_rows(tab: FusedTables, prep):
+    """The prep-passed pseudo-group's ContactPrep (B, C, 4, ...: the
+    heightfield rows of ops/solver.py's prep_contacts) as the kernel's
+    point layout: (B, 28, 4, C), field-major like the block's point slots
+    (rel_a, rel_b, normal, tangent, n_to_wa, n_to_wb, t_to_wa, t_to_wb as
+    three components each, then eff_mass_n, eff_mass_t, bias, friction),
+    point k of row p at [k, p]."""
+    C = tab.passed_points // 4
+    if prep is None or tuple(prep.eff_mass_n.shape[1:]) != (C, 4):
+        raise ValueError(
+            f"fused_step: the scene has {C} prep-passed contact rows, got "
+            f"{None if prep is None else tuple(prep.eff_mass_n.shape)}")
+    vec = [getattr(prep, f).permute(0, 3, 2, 1) for f in POINT_VEC_FIELDS]
+    sca = [getattr(prep, f).transpose(1, 2)[:, None]
+           for f in POINT_SCALAR_FIELDS]
+    return torch.cat(vec + sca, dim=1).contiguous()
+
+
+def _passed_fields(rows, prep):
+    """Per-point (cv, cs) lane tuples of passed_rows' layout, the rows'
+    inverse masses (from the prep, as the JAX package reads them) and the
+    live bits: point k is live where its eff_mass_n > 0."""
+    fields = []
+    for k in range(rows.shape[2]):
+        x = rows[:, :, k]                                  # (B, 28, C)
+        cv = tuple(tuple(x[:, 3 * i + c] for c in range(3))
+                   for i in range(len(POINT_VEC_FIELDS)))
+        cs = tuple(x[:, 24 + i] for i in range(len(POINT_SCALAR_FIELDS)))
+        fields.append((cv, cs))
+    live = torch.zeros_like(rows[:, 0, 0], dtype=torch.uint8)
+    for k, (_cv, cs) in enumerate(fields):
+        live = live | ((cs[0] > 0.0).to(torch.uint8) << k)
+    return fields, prep.inv_ma, prep.inv_mb, live
+
+
 def _fused_core(tab: FusedTables, num_iterations, omega, inv_dt,
                 vw0, inv_mass, inv_inertia, pos_cog, rot, ctl,
-                col_a, col_b, col_rot, joint_tables=None, sequential=False):
+                col_a, col_b, col_rot, joint_tables=None, sequential=False,
+                passed=None):
     """The whole contact pipeline in plain PyTorch on (B, rows) lanes.
 
     vw0 (B, NB, 6); inv_mass (NB,); inv_inertia (B, NB, 3, 3);
@@ -696,12 +756,17 @@ def _fused_core(tab: FusedTables, num_iterations, omega, inv_dt,
     when `joint_tables` (joint_table_rows' input) brings them prepared;
     col_a/col_b (B, C, 3), col_rot (B, C, 4) world collider params; inv_dt
     a 0-dim float32 tensor. `sequential` selects the sequential solve.
+    `passed`: the ContactPrep of the prep-passed pseudo-group (the scene's
+    heightfield rows), or None when the scene has none.
 
     Returns (vw (B, NB, 6), imp_n (B, P, 4), live (B, P) uint8) with the
     pair rows P in ascending phase order; bit k of `live` says that
     manifold point k of the row is live."""
     B, nb = vw0.shape[0], vw0.shape[1]
     inv_dt = torch.as_tensor(inv_dt, dtype=torch.float32, device=vw0.device)
+    if passed is not None and not tab.passed_points:
+        raise ValueError("fused_step: prep-passed contact rows given for a "
+                         "scene without a heightfield")
 
     # ---- joint rows: prepared here, or passed in ------------------------
     if joint_tables is None:
@@ -710,9 +775,15 @@ def _fused_core(tab: FusedTables, num_iterations, omega, inv_dt,
     else:
         joint_ts = joint_table_rows(tab, joint_tables)
 
-    # ---- narrowphase + prep per group -----------------------------------
+    # ---- narrowphase + prep per group; prep-passed rows as given ---------
     group_fields, group_live = [], []
     for grp in tab.groups:
+        if not grp.meta["native"]:
+            fields, inv_ma, inv_mb, live = _passed_fields(
+                passed_rows(tab, passed), passed)
+            group_fields.append((fields, inv_ma, inv_mb))
+            group_live.append(live)
+            continue
         pts, dps, normal, masks = _narrow_native(
             grp, _side(tab, grp.col_a, col_a, col_b, col_rot),
             _side(tab, grp.col_b, col_a, col_b, col_rot))
@@ -821,7 +892,7 @@ def _sequential_solve(tab, num_iterations, vw0, inv_mass, inv_inertia,
         for p, (a, b) in enumerate(grp.ab):
             points = [(tuple(tuple(c[:, p] for c in v) for v in cv),
                        tuple(c[:, p] for c in cs)) for cv, cs in fields]
-            rows.append((a, b, inv_ma[p], inv_mb[p], points))
+            rows.append((a, b, inv_ma[..., p], inv_mb[..., p], points))
     imp_n = [[zero] * len(pts) for *_x, pts in rows]
     imp_t = [[zero] * len(pts) for *_x, pts in rows]
 
@@ -914,8 +985,9 @@ def load_library(verbose: bool = False, shapes: bool = False,
     fn.argtypes = (
         [ctypes.POINTER(ctypes.c_int), fl, fl]      # dims, omega, inv_dt
         + [p] * 10                                  # per-env inputs
-        + ([p, i, i] if prepped else [])            # jrows, sequential,
-                                                    # rows passed
+        + ([p, i, i, p, i] if prepped else [])      # jrows, sequential,
+                                                    # rows passed, passed
+                                                    # contact rows, points
         + [p, p]                                    # itab, ftab
         + [p] * 4                                   # outputs
         + [i, i, p])                                # threads, smem, stream
@@ -941,11 +1013,12 @@ def joint_rows_field_major(tab: FusedTables, tables, like):
 
 def _launch(tab: FusedTables, num_iterations, omega, inv_dt, v, w, inv_mass,
             inv_inertia, pos_cog, rot, ctl, col_a, col_b, col_rot,
-            joint_tables=None, sequential=False):
+            joint_tables=None, sequential=False, passed=None):
     """Check the inputs, allocate the outputs, launch the kernel on the
     current stream. No synchronisation. The base or shapes library serves
     the averaged solve with joint prep in the kernel (`ctl`); the prepped
-    library the sequential solve and passed joint rows (`joint_tables`)."""
+    library the sequential solve, passed joint rows (`joint_tables`) and
+    scenes with prep-passed contact rows (`passed`, a ContactPrep)."""
     V, _F, _FU, LM, _EU = tab.hull_dims
     if any(m["key"] in HULL_RECIPES for m in tab.metas) and (
             V > MAX_HULL_VERTS or LM > MAX_HULL_LOOP):
@@ -953,7 +1026,7 @@ def _launch(tab: FusedTables, num_iterations, omega, inv_dt, v, w, inv_mass,
             f"fused_step: hulls of {V} vertices and {LM} points per face "
             f"loop; the kernel holds at most {MAX_HULL_VERTS} and "
             f"{MAX_HULL_LOOP}")
-    prepped = sequential or joint_tables is not None
+    prepped = sequential or joint_tables is not None or tab.passed_points > 0
     name = "prepped" if prepped else ("shapes" if tab.has_shapes else "base")
     lib = load_library(shapes=tab.has_shapes, prepped=prepped)
     B, nb, C = v.shape[0], tab.num_bodies, tab.num_colliders
@@ -976,6 +1049,14 @@ def _launch(tab: FusedTables, num_iterations, omega, inv_dt, v, w, inv_mass,
         jrows = joint_rows_field_major(tab, joint_tables, v)
         build.check_cuda("fused_step", "joint rows", jrows,
                          (B, tab.joint_row_floats))
+    crows = None
+    if tab.passed_points:
+        crows = passed_rows(tab, passed)
+        build.check_cuda("fused_step", "passed contact rows", crows,
+                         (B, POINT_FIELDS - 2, 4, tab.passed_points // 4))
+    elif passed is not None:
+        raise ValueError("fused_step: prep-passed contact rows given for a "
+                         "scene without a heightfield")
     if v.device != tab.device:
         raise ValueError(f"fused_step: inputs on {v.device}, tables on "
                          f"{tab.device}")
@@ -997,7 +1078,9 @@ def _launch(tab: FusedTables, num_iterations, omega, inv_dt, v, w, inv_mass,
     if prepped:
         launch = lib.dxk_fused_step_prepped_launch
         inputs += [jrows.data_ptr() if jrows is not None else None,
-                   int(sequential), int(jrows is not None)]
+                   int(sequential), int(jrows is not None),
+                   crows.data_ptr() if crows is not None else None,
+                   tab.passed_points]
     else:
         launch = lib.dxk_fused_step_launch
     build.raise_on_error("fused_step", launch(
@@ -1021,7 +1104,7 @@ def fused_tables(scene, device) -> FusedTables:
 
 def make_fused_step_solver(scene, num_iterations, omega=1.0,
                            sequential=False, joint_prep_in_kernel=True):
-    """Returns fn(bodies, world_colliders, joints, inv_dt) ->
+    """Returns fn(bodies, world_colliders, joints, inv_dt, passed=None) ->
     (v (B, NB, 3), w (B, NB, 3), imp_n (B, P, 4), live (B, P) uint8 with
     bit k set when manifold point k of the pair row is live).
 
@@ -1030,7 +1113,9 @@ def make_fused_step_solver(scene, num_iterations, omega=1.0,
     (motor-control columns in cm_joint_prep.CTL_FIELDS order per joint, dt
     in the last column); without, the tuple of packed joint tables
     (batched_solver.pack_joint_type of ops/solver.py's preps, one per joint
-    type of the scene in scene_joint_ab order); inv_dt: float.
+    type of the scene in scene_joint_ab order); inv_dt: float; passed: for
+    a scene with a heightfield, ops/solver.py's ContactPrep of its terrain
+    rows (B, C, 4, ...), the trailing rows of the outputs.
     `sequential` selects the sequential solve (``solver_mode="fused_seq"``).
 
     CUDA tensors go through the kernel of csrc/fused_step.cu; CPU tensors
@@ -1040,7 +1125,7 @@ def make_fused_step_solver(scene, num_iterations, omega=1.0,
             "scene is not eligible for the fused step (capped pair tables "
             "or dynamic broadphase), and no other solver path is ported")
 
-    def fused(bodies, wcol, joints, inv_dt):
+    def fused(bodies, wcol, joints, inv_dt, passed=None):
         dev = bodies.v.device
         tab = fused_tables(scene, dev)
         ctl, tables = (joints, None) if joint_prep_in_kernel \
@@ -1051,11 +1136,12 @@ def make_fused_step_solver(scene, num_iterations, omega=1.0,
                 tab, num_iterations, omega, inv_dt, vw0, bodies.inv_mass,
                 bodies.inv_inertia, bodies.pos_cog, bodies.rot, ctl,
                 wcol.a, wcol.b, wcol.rot, joint_tables=tables,
-                sequential=sequential)
+                sequential=sequential, passed=passed)
             return vw[..., :3], vw[..., 3:], imp, live
         return _launch(tab, num_iterations, omega, inv_dt, bodies.v,
                        bodies.w, bodies.inv_mass, bodies.inv_inertia,
                        bodies.pos_cog, bodies.rot, ctl, wcol.a, wcol.b,
-                       wcol.rot, joint_tables=tables, sequential=sequential)
+                       wcol.rot, joint_tables=tables, sequential=sequential,
+                       passed=passed)
 
     return fused

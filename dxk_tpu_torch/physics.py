@@ -11,11 +11,12 @@ package's physics.py):
 
 Two branches, as in the JAX package: the fused step (``solver_mode=
 "fused"`` or ``"fused_seq"`` on a scene the fused kernel takes), where 3
-and 5 run inside one kernel (ops/kernels/fused_step.py); and the reference
-step for every other scene, where "fused" falls back to "jacobi". The reference step is ported
-for box-box contacts in the "jacobi" and "colored" modes; "scan", the other
-contact buckets, joints, heightfields, overlaps and cloth raise
-NotImplementedError.
+and 5 run inside one kernel (ops/kernels/fused_step.py), heightfield
+terrain contacts prepared beside it and passed in; and the reference step
+for every other scene, where "fused" falls back to "jacobi". The reference
+step is ported for box-box contacts in the "jacobi" and "colored" modes;
+"scan", the other contact buckets, joints, heightfields, overlaps and cloth
+raise NotImplementedError there, and cloth raises on both branches.
 """
 
 from __future__ import annotations
@@ -68,9 +69,8 @@ def controls_pack(scene: Scene, controls, dt) -> torch.Tensor:
 def physics_step(scene: Scene, state: State, settings: PhysicsSettings,
                  dt: float) -> Tuple[State, StepInfo]:
     """One fixed substep of a batch of environments."""
-    if scene.cloth is not None or scene.heightfield is not None:
-        raise NotImplementedError(
-            "cloth and heightfield terrain are not ported yet")
+    if scene.cloth is not None:
+        raise NotImplementedError("cloth is not ported yet")
     if scene.overlap_pairs is not None and scene.overlap_pairs.shape[0] > 0:
         raise NotImplementedError(
             "trigger / force-field overlaps are not ported yet")
@@ -78,6 +78,10 @@ def physics_step(scene: Scene, state: State, settings: PhysicsSettings,
         from dxk_tpu_torch.ops.kernels.fused_step import fused2_eligible
         if fused2_eligible(scene):
             return _physics_step_fused(scene, state, settings, dt)
+    if scene.heightfield is not None:
+        raise NotImplementedError(
+            "heightfield terrain on the reference step is not ported yet; "
+            "the fused step takes it")
     return _physics_step_reference(scene, state, settings, dt)
 
 
@@ -272,11 +276,32 @@ def joint_inputs(scene, bodies, controls, dt32, prep_in_kernel):
                  in zip(scene_joint_types(scene), preps))
 
 
+def terrain_inputs(scene, w, bodies, dt32):
+    """The prep-passed contact rows the fused step reads for a scene with a
+    heightfield: the terrain contacts of the colliders `w` (before the
+    step), prepared by prep_contacts on the integrated `bodies`; None
+    without a heightfield."""
+    if scene.heightfield is None:
+        return None
+    from dxk_tpu_torch.ops.heightmap import (heightfield_contacts,
+                                             heightfield_plan)
+    from dxk_tpu_torch.ops.solver import prep_contacts
+    mn, mx = collider_aabbs(scene, w)
+    hpts, hnrm, hdps, hba, hbb, hfr, hre, hcm = heightfield_contacts(
+        scene.heightfield, w, w.body, mn, mx, scene.num_bodies,
+        plan=heightfield_plan(scene))
+    return prep_contacts(bodies, hba, hbb, hpts, hnrm, hdps, hfr, hre,
+                         hcm.to(hpts.dtype), dt32)
+
+
 def _physics_step_fused(scene, state, settings, dt):
     """Fused-pipeline step: everything between force integration and
     velocity integration runs inside the fused-step kernel. The sequential
     solve (``"fused_seq"``) always takes joint rows prepared outside the
-    kernel, as in the JAX package (its physics.py:66-72)."""
+    kernel, as in the JAX package (its physics.py:66-72). Heightfield
+    contacts are found on the colliders before the step and prepared on
+    the integrated bodies, then passed in (the JAX package's
+    physics.py:483-494)."""
     from dxk_tpu_torch.ops.kernels.fused_step import make_fused_step_solver
 
     controls = state.controls if state.controls is not None \
@@ -289,11 +314,14 @@ def _physics_step_fused(scene, state, settings, dt):
     bodies = integrate_forces(scene, state, float(dt32))
     joints = joint_inputs(scene, bodies, controls, dt32, jp_in_kernel)
 
+    passed = terrain_inputs(scene, w, bodies, dt32)
+
     fused = make_fused_step_solver(
         scene, settings.num_rigid_solver_iterations, settings.sor_omega,
         sequential=sequential, joint_prep_in_kernel=jp_in_kernel)
     inv_dt = float(np.float32(1.0) / dt32)
-    v_new, w_new, imp_n, point_mask = fused(bodies, w, joints, inv_dt)
+    v_new, w_new, imp_n, point_mask = fused(bodies, w, joints, inv_dt,
+                                            passed)
     live = point_mask != 0
     bodies = bodies.replace(v=v_new, w=w_new)
 
@@ -301,7 +329,13 @@ def _physics_step_fused(scene, state, settings, dt):
 
     order = sorted(range(len(scene.pair_groups)),
                    key=lambda gi: scene.pair_groups[gi].phase)
-    contact_pairs = torch.cat([scene.pair_groups[gi].pairs for gi in order])
+    pairs = [scene.pair_groups[gi].pairs for gi in order]
+    if scene.heightfield is not None:
+        # the terrain rows have no collider pair: (-1, -1) keeps
+        # contact_pairs index-aligned with contact_mask and contact_impulse
+        pairs.append(torch.full((scene.colliders.ctype.shape[0], 2), -1,
+                                dtype=pairs[0].dtype, device=pairs[0].device))
+    contact_pairs = torch.cat(pairs)
     n_live = torch.sum(live.to(torch.int32), dim=-1, dtype=torch.int32)
     info = StepInfo(
         num_broadphase_overlaps=n_live,

@@ -9,10 +9,10 @@ in the JAX package, so both builders round the same values to float32);
 
 Ported so far: rigid bodies, statics, sphere/capsule/cylinder/box colliders,
 convex hull geometry (from triangle faces or a point cloud) and hull
-colliders, all six joint types, static pair tables (capped or not, in contact phases or
-not, pruned by `candidate_margin` or not) and the K-select /
-sort-and-sweep broadphase settings. Everything else raises
-NotImplementedError naming what is missing.
+colliders, heightfield terrain, all six joint types, static pair tables
+(capped or not, in contact phases or not, pruned by `candidate_margin` or
+not) and the K-select / sort-and-sweep broadphase settings. Everything
+else raises NotImplementedError naming what is missing.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from dxk_tpu_torch.ops.heightmap import make_heightfield
 from dxk_tpu_torch.scene.scene import (
     SHAPE_SPHERE, SHAPE_CAPSULE, SHAPE_CYLINDER, SHAPE_BOX, SHAPE_HULL,
     OWNER_RIGID_BODY, OWNER_STATIC, OWNER_FORCE_FIELD, OWNER_TRIGGER,
@@ -149,6 +150,7 @@ class SceneBuilder:
         self._hull_geoms: List[np.ndarray] = []
         self._hull_props: list = []     # (mass, cog, inertia) per density
         self._hull_faces: list = []     # (normals, offsets) per hull
+        self._heightfield: Optional[dict] = None
         self.max_narrow_pairs_per_group: Optional[int] = None
 
     # -- bodies --------------------------------------------------------
@@ -385,8 +387,15 @@ class SceneBuilder:
             limit_min=float(min_limit), limit_max=float(max_limit))))
         return self._joint_index("slider")
 
-    def set_heightfield(self, *a, **k):
-        raise _later("heightfield terrain")
+    def set_heightfield(self, heights, cell_size, min_corner=(0.0, 0.0, 0.0),
+                        friction=1.0, restitution=0.0, window=8):
+        """Attach a heightfield terrain collider (reference
+        heightmap_collider_component; heights already in world units,
+        indexed [z, x])."""
+        self._heightfield = dict(
+            heights=np.array(heights, np.float32), cell_size=cell_size,
+            min_corner=min_corner, friction=friction,
+            restitution=restitution, window=window)
 
     def add_cloth(self, *a, **k):
         raise _later("cloth")
@@ -786,7 +795,8 @@ class SceneBuilder:
             global_ff_force=f32(np.zeros(3)),
             ff_forces=f32(np.zeros((1, 3))),
             cloth=None,
-            heightfield=None,
+            heightfield=(make_heightfield(**self._heightfield, device=device)
+                         if self._heightfield is not None else None),
             init_pos=f32(init_pos),
             init_rot=f32(init_rot),
         )

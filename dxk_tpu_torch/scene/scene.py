@@ -223,7 +223,7 @@ class Scene(_Struct):
     global_ff_force: torch.Tensor = None     # (3,)
     ff_forces: torch.Tensor = None           # (F, 3)
     cloth: Optional[ClothParams] = None
-    heightfield: Any = None
+    heightfield: Any = None       # ops.heightmap.Heightfield or None
     init_pos: torch.Tensor = None
     init_rot: torch.Tensor = None
 

@@ -98,9 +98,20 @@ def test_ragdoll_tables():
     assert trag.SCALE == jrag.SCALE
 
 
+def _heightfield_on_reference_step(b):
+    """A heightfield scene stepped on the reference step ("jacobi"): the
+    builder and the fused step take heightfields, the reference step not
+    yet."""
+    from dxk_tpu_torch.physics import PhysicsSettings, physics_step
+    b.set_heightfield(np.zeros((4, 4)), 1.0)
+    scene = b.finalize(device="cpu")
+    physics_step(scene, scene.initial_state(1),
+                 PhysicsSettings(solver_mode="jacobi"), 1 / 120)
+
+
 @pytest.mark.parametrize("call", [
     lambda b: b.add_cloth(1.0, 1.0, 4, 4, 1.0),
-    lambda b: b.set_heightfield(np.zeros((4, 4)), 1.0),
+    _heightfield_on_reference_step,
     lambda b: b.finalize(orbit_margin=0.25, device="cpu"),
 ])
 def test_unported_builder_features_raise(call):

@@ -20,12 +20,14 @@ cone-twist prep calls them) may differ by float rounding.
 
 With --library prepped it builds the third library instead (every recipe,
 -DDXK_PREPPED_JOINTS=1: joint rows prepared outside the kernel, averaged or
-sequential solve) and holds it against the plain version on the six golden
-scenes of tests/test_golden_trajectories.py, in both modes it serves:
-"fused_seq" (sequential) and "fused" with joint_prep_in_kernel=False
-(averaged), each on the initial state and after --shapes-steps and
---late-steps steps of the "fused" step (the states the comparison reads;
-contacts are live by then).
+sequential solve, prep-passed heightfield rows) and holds it against the
+plain version on the six golden scenes of tests/test_golden_trajectories.py,
+in both modes it serves: "fused_seq" (sequential) and "fused" with
+joint_prep_in_kernel=False (averaged), each on the initial state and after
+--shapes-steps and --late-steps steps of the "fused" step (the states the
+comparison reads; contacts are live by then); and on chip_smoke.py's
+terrain scene (initial, after --shapes-steps steps, terrain poses) in
+"fused_seq" and "fused" with the joint prep outside and inside the kernel.
 
     python3 tools/emulate_fused_step_cpu.py [--chains 2] [--batch 5]
                                             [--shapes-steps 60]
@@ -33,7 +35,7 @@ contacts are live by then).
     python3 tools/emulate_fused_step_cpu.py --library prepped [--batch 5]
                                             [--shapes-steps 60]
                                             [--late-steps 150]
-                                            [--only-scene NAME ...]
+                                            [--only-scene NAME|terrain ...]
 
 Needs g++ with C++20; writes only under <repo>/build/emulate/.
 """
@@ -57,7 +59,8 @@ from dxk_tpu_torch.ops.integrator import integrate_forces  # noqa: E402
 from dxk_tpu_torch.ops.kernels import fused_step as fs  # noqa: E402
 from dxk_tpu_torch.ops.shapes import world_colliders  # noqa: E402
 from dxk_tpu_torch.physics import (PhysicsSettings, controls_pack,  # noqa: E402
-                                   joint_inputs, physics_step)
+                                   joint_inputs, physics_step,
+                                   terrain_inputs)
 
 GROUPS = ("zoo", "settle", "shapes", "loco")
 
@@ -138,20 +141,23 @@ def build(library="shapes"):
         else dll.dxk_fused_step_launch
     fn.restype = i
     fn.argtypes = ([ctypes.POINTER(i), fl, fl] + [p] * 10
-                   + ([p, i, i] if prepped else []) + [p] * 6 + [i, i, p])
+                   + ([p, i, i, p, i] if prepped else []) + [p] * 6
+                   + [i, i, p])
     return fn
 
 
-def compare(launch, scene, state, dt, mode=None):
+def compare(launch, scene, state, dt, mode=None, prep_in_kernel=False):
     """Largest differences, emulated kernel vs plain version, one solve:
     the averaged solve with joint prep in the kernel (`mode` None, the
     shapes library), or "fused_seq" / "fused" on prepared joint rows (the
-    prepped library)."""
+    prepped library; "fused" with `prep_in_kernel` preps them in the
+    kernel). A heightfield scene's terrain rows are passed in prepared."""
     tab = fs.fused_tables(scene, "cpu")
     dt32 = np.float32(dt)
     w = world_colliders(scene, state.pos, state.rot)
     b = integrate_forces(scene, state, float(dt32))
     ctl = controls_pack(scene, state.controls, dt32)
+    passed = terrain_inputs(scene, w, b, dt32)
     inv_dt = float(np.float32(1.0) / dt32)
     B, P = b.v.shape[0], tab.num_rows
     v, wv = torch.empty_like(b.v), torch.empty_like(b.w)
@@ -163,9 +169,14 @@ def compare(launch, scene, state, dt, mode=None):
     ins = [x.contiguous().data_ptr() for x in ins]
     tables, extra = None, []
     if mode is not None:
-        tables = joint_inputs(scene, b, state.controls, dt32, False)
-        jrows = fs.joint_rows_field_major(tab, tables, b.v)
-        extra = [jrows.data_ptr(), int(mode == "fused_seq"), 1]
+        crows = fs.passed_rows(tab, passed) if passed is not None else None
+        extra = [None, int(mode == "fused_seq"), 0,
+                 crows.data_ptr() if crows is not None else None,
+                 tab.passed_points]
+        if not prep_in_kernel:
+            tables = joint_inputs(scene, b, state.controls, dt32, False)
+            jrows = fs.joint_rows_field_major(tab, tables, b.v)
+            extra[0], extra[2] = jrows.data_ptr(), 1
     err = launch(
         (ctypes.c_int * len(dims))(*dims), 1.0, inv_dt, *ins, *extra,
         tab.itab.data_ptr(), tab.ftab.data_ptr(), v.data_ptr(),
@@ -176,7 +187,7 @@ def compare(launch, scene, state, dt, mode=None):
     vw, pimp, plive = fs._fused_core(
         tab, cs.ITERATIONS, 1.0, inv_dt, torch.cat([b.v, b.w], -1),
         b.inv_mass, b.inv_inertia, b.pos_cog, b.rot, ctl, w.a, w.b, w.rot,
-        joint_tables=tables, sequential=mode == "fused_seq")
+        joint_tables=tables, sequential=mode == "fused_seq", passed=passed)
     def bits(x):
         return x.contiguous().view(torch.int32)
     return dict(err_v=float((v - vw[..., :3]).abs().max()),
@@ -190,12 +201,39 @@ def compare(launch, scene, state, dt, mode=None):
                 live_rows=int((plive != 0).sum()))
 
 
+def terrain_main(launch, args):
+    """The prepped library on the terrain scene (prep-passed heightfield
+    rows): initial, after --shapes-steps steps and on terrain poses, in
+    "fused_seq", "fused" on prepared joint rows and "fused" with the joint
+    prep in the kernel (what physics_step launches for "fused")."""
+    settings = PhysicsSettings(num_rigid_solver_iterations=cs.ITERATIONS,
+                               solver_mode="fused")
+    scene = cs.terrain_scene("cpu")
+    st = cs.terrain_initial_state(scene, args.batch, 0)
+    states = {"terrain_initial": st}
+    for _ in range(args.shapes_steps):
+        st, _info = physics_step(scene, st, settings, cs.TERRAIN_DT)
+    states[f"terrain_after_{args.shapes_steps}_steps"] = st
+    states["terrain_poses"] = cs.terrain_poses(scene, 2 * args.batch, 0)
+    for name, st in states.items():
+        for mode, jp in (("fused_seq", False), ("fused", False),
+                         ("fused", True)):
+            print(json.dumps({"scene": name, "mode": mode,
+                              "joint_prep_in_kernel": jp, **compare(
+                                  launch, scene, st, cs.TERRAIN_DT, mode,
+                                  jp)}), flush=True)
+
+
 def prepped_main(args):
-    """The prepped library on the six golden scenes, both modes."""
+    """The prepped library on the six golden scenes, both modes, and on the
+    terrain scene."""
     launch = build("prepped")
     settings = PhysicsSettings(num_rigid_solver_iterations=cs.ITERATIONS,
                                solver_mode="fused")
-    for name in args.only_scene or cs.GOLDEN_SCENES:
+    for name in args.only_scene or cs.GOLDEN_SCENES + ("terrain",):
+        if name == "terrain":
+            terrain_main(launch, args)
+            continue
         scene = cs.shapes_scene(name, "cpu")
         st = cs.shapes_initial_state(scene, args.batch, 0)
         marks = {0, args.shapes_steps, args.late_steps}
@@ -219,9 +257,10 @@ def main():
     ap.add_argument("--late-steps", type=int, default=150)
     ap.add_argument("--only", choices=GROUPS, action="append",
                     help="run only these scene groups (default: all)")
-    ap.add_argument("--only-scene", choices=cs.GOLDEN_SCENES,
+    ap.add_argument("--only-scene", choices=cs.GOLDEN_SCENES + ("terrain",),
                     action="append",
-                    help="with --library prepped: only these golden scenes")
+                    help="with --library prepped: only these golden scenes "
+                         "or the terrain scene")
     args = ap.parse_args()
     if args.library == "prepped":
         prepped_main(args)
