@@ -17,6 +17,7 @@ checkout and holding each against its plain PyTorch version on the card:
   - BASELINE config 4's heightfield terrain under config 3's ragdoll and
     four pieces of shape debris, 256 and 4096 envs, on the fused step with
     the terrain rows prepared outside the kernel and passed in;
+  - a 1,081-row pile of 46 boxes, 256 and 1000 envs, on the fused step;
   - bench.py's 1k-box stack (64 towers of 16 boxes, 32 envs) on the
     reference step under each of the three broadphases (table, K-select,
     sort-and-sweep).
@@ -60,6 +61,11 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
              no body's centre deep below the terrain, body-steps/s, host and
              device ms and launches per step, the kernel's times and bound,
              and the fused_seq kernel's times
+  bigpile    the fused-step kernel vs plain version on a 1,081-row box pile
+             (46 boxes on a ground box, all pairs; more shared memory than
+             a block holds in the one-env-per-block layout) at 256 and a
+             ragged 1000 envs, initial and after 60 steps; the kernel's
+             times and launch plans
   box_stack  the three broadphase kernels vs their plain versions (equal
              integers) on the initial and a rolled-out state, pair sets equal
              across the broadphases, then the box stack stepped in each
@@ -67,7 +73,8 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
              table broadphase, body-steps/s
 The line before the last is the card's name and power limit; the line before
 that lists every kernel (the fused step once per phase that runs it: loco,
-zoo, settle, shapes, fidelity and terrain; then the three broadphase
+zoo, settle, shapes, fidelity and terrain, each with the launch plan of its
+timed batch, envs per block and warps per env; then the three broadphase
 kernels). The last line is {"ok": true, "device": {...}}.
 
 Imports torch and the port only; nothing of JAX.
@@ -239,6 +246,18 @@ def time_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def plans_by_batch(tab, batches):
+    """The fused kernel's launch plan for each batch: envs per block (E),
+    warps per env (W), threads and blocks of the grid, shared bytes."""
+    return {str(b): vars(tab.launch_plan(b)) for b in batches}
+
+
+def plan_fields(tab, batch):
+    """The launch plan's (E, W) for the `kernels` line."""
+    plan = tab.launch_plan(batch)
+    return {"envs_per_block": plan.envs, "warps_per_env": plan.warps}
 
 
 def polytope_flops(nv_a, nf_a, ne_a, nv_b, nf_b, ne_b, lm):
@@ -1010,8 +1029,8 @@ def zoo_phase(seed):
     emit("zoo", chains=ZOO_CHAINS, bodies=n_bodies,
          colliders=tab.num_colliders, pair_rows=tab.num_rows,
          joints=tab.joint_counts, iterations=ITERATIONS, dt=ZOO_DT,
-         threads=tab.threads(), smem_bytes=tab.shared_floats() * 4,
-         shared_floats=tab.shared_floats(), tolerance=KERNEL_TOL,
+         plans=plans_by_batch(tab, ZOO_BATCHES + (ZOO_RAGGED,)),
+         tolerance=KERNEL_TOL,
          checks=checks, joints_on=joints_on, runs=runs, kernel=timing)
     for where, c in checks.items():
         hold_fused(c)
@@ -1037,7 +1056,8 @@ def zoo_phase(seed):
                            for c in checks.values()),
         "ms": timing[big]["ms"], "plain_ms": timing[big]["plain_ms"],
         "bound_ms": timing[big]["bound_ms"],
-        "bound_by": timing[big]["bound_by"], "library_ms": None}
+        "bound_by": timing[big]["bound_by"], "library_ms": None,
+        **plan_fields(tab, big)}
 
 
 # ---------------------------------------------------------------------------
@@ -1309,8 +1329,9 @@ def settle_phase(seed):
          colliders=tab.num_colliders, pair_rows=tab.num_rows,
          joints=tab.joint_counts, hull_dims=dict(zip(
              ("V", "F", "FU", "LM", "EU"), tab.hull_dims)),
-         iterations=ITERATIONS, dt=SETTLE_DT, threads=tab.threads(),
-         smem_bytes=tab.shared_floats() * 4, tolerance=KERNEL_TOL,
+         iterations=ITERATIONS, dt=SETTLE_DT,
+         plans=plans_by_batch(tab, SETTLE_BATCHES + (SETTLE_RAGGED,)),
+         tolerance=KERNEL_TOL,
          tolerance_reason=SETTLE_TOL_REASON,
          checks=checks, live_rows_by_recipe=live, branches=branches,
          pile=dict(steps=PILE_STEPS, finite=bool(pile_finite),
@@ -1347,7 +1368,8 @@ def settle_phase(seed):
                            for c in checks.values()),
         "ms": timing[big]["ms"], "plain_ms": timing[big]["plain_ms"],
         "bound_ms": timing[big]["bound_ms"],
-        "bound_by": timing[big]["bound_by"], "library_ms": None}
+        "bound_by": timing[big]["bound_by"], "library_ms": None,
+        **plan_fields(tab, big)}
 
 
 # ---------------------------------------------------------------------------
@@ -1754,11 +1776,11 @@ def shapes_phase(seed):
         n: dict(bodies=s.num_bodies, dynamic_bodies=SHAPES_BODIES[n],
                 colliders=fs.fused_tables(s, DEVICE).num_colliders,
                 pair_rows=fs.fused_tables(s, DEVICE).num_rows,
-                threads=fs.fused_tables(s, DEVICE).threads(),
-                smem_bytes=fs.fused_tables(s, DEVICE).shared_floats() * 4)
+                plans=plans_by_batch(fs.fused_tables(s, DEVICE),
+                                     SHAPES_BATCHES + (SHAPES_RAGGED,)))
         for n, s in scenes.items()},
-         pile=dict(pair_rows=ptab.num_rows, threads=ptab.threads(),
-                   smem_bytes=ptab.shared_floats() * 4),
+         pile=dict(pair_rows=ptab.num_rows, plans=plans_by_batch(
+             ptab, (SHAPES_BATCHES[0],))),
          iterations=ITERATIONS, dt=SHAPES_DT, tolerance=KERNEL_TOL,
          tolerance_reason=SHAPES_TOL_REASON, sink_tolerance=SHAPES_SINK_TOL,
          sink_gated=SHAPES_SINK_GATED, sink_reason=SHAPES_SINK_REASON,
@@ -1798,7 +1820,9 @@ def shapes_phase(seed):
                            for c in checks.values()),
         "ms": timing[big]["ms"], "plain_ms": timing[big]["plain_ms"],
         "bound_ms": timing[big]["bound_ms"],
-        "bound_by": timing[big]["bound_by"], "library_ms": None}
+        "bound_by": timing[big]["bound_by"], "library_ms": None,
+        **plan_fields(fs.fused_tables(scenes["mixed_shape_drop"], DEVICE),
+                      SHAPES_BATCHES[-1])}
 
 
 # ---------------------------------------------------------------------------
@@ -2048,8 +2072,8 @@ def fidelity_phase(seed, loco):
         n: dict(bodies=s.num_bodies,
                 pair_rows=fs.fused_tables(s, DEVICE).num_rows,
                 joints=fs.fused_tables(s, DEVICE).joint_counts,
-                threads=fs.fused_tables(s, DEVICE).threads(),
-                smem_bytes=fs.fused_tables(s, DEVICE).shared_floats() * 4)
+                plans=plans_by_batch(fs.fused_tables(s, DEVICE),
+                                     (1, FIDELITY_TIMED_BATCH)))
         for n, s in scenes.items()},
          iterations=ITERATIONS, dt=FIDELITY_DT, tolerance=FIDELITY_TOL,
          short_gated=FIDELITY_SHORT, short_reason=FIDELITY_SHORT_REASON,
@@ -2091,7 +2115,9 @@ def fidelity_phase(seed, loco):
                            for c in checks.values()),
         "ms": big["ms"], "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
-        "library_ms": None}
+        "library_ms": None,
+        **plan_fields(fs.fused_tables(scenes["ragdoll_settle"], DEVICE),
+                      FIDELITY_TIMED_BATCH)}
 
 
 # ---------------------------------------------------------------------------
@@ -2444,8 +2470,9 @@ def terrain_phase(seed):
          heightfield=dict(nodes=list(scene.heightfield.size),
                           cell=scene.heightfield.cell_size,
                           window=scene.heightfield.window),
-         iterations=ITERATIONS, dt=TERRAIN_DT, threads=tab.threads(),
-         smem_bytes=tab.shared_floats() * 4, tolerance=KERNEL_TOL,
+         iterations=ITERATIONS, dt=TERRAIN_DT,
+         plans=plans_by_batch(tab, TERRAIN_BATCHES + (TERRAIN_RAGGED,)),
+         tolerance=KERNEL_TOL,
          tolerance_reason=TERRAIN_TOL_REASON, checks=checks,
          live_terrain_rows_by_tag=by_tag,
          live_terrain_rows_by_window={str(k): v for k, v in by_k.items()},
@@ -2485,7 +2512,106 @@ def terrain_phase(seed):
                            for cs_ in checks.values() for c in cs_.values()),
         "ms": timing[big]["ms"], "plain_ms": timing[big]["plain_ms"],
         "bound_ms": timing[big]["bound_ms"],
-        "bound_by": timing[big]["bound_by"], "library_ms": None}
+        "bound_by": timing[big]["bound_by"], "library_ms": None,
+        **plan_fields(tab, big)}
+
+
+# ---------------------------------------------------------------------------
+# a 1,081-row box pile: a scene the one-env-per-block kernel refused
+
+BIGPILE_BOXES = 46
+BIGPILE_HALF = 0.2
+BIGPILE_LAYERS = (16, 16, 14)            # boxes per layer, on a 4 x 4 grid
+BIGPILE_GAP = 0.01                       # m between neighbours in a layer
+BIGPILE_SINK = 0.002                     # m each layer rests in the one below
+BIGPILE_BATCHES = (256,)
+BIGPILE_RAGGED = 1000
+BIGPILE_WARM = 60
+BIGPILE_DT = 1.0 / 120.0
+BIGPILE_TOL_REASON = (
+    "velocities and impulses held relative to the largest one, as in the "
+    "settle phase: on the card the plain version sums per-body deltas with "
+    "index_add_ atomics in no fixed order, so after steps the two differ by "
+    "float rounding; on the initial states 0.0 is expected")
+
+
+def bigpile_builder(builder):
+    """46 boxes of 0.4 m in three layers on a 4 x 4 grid on a ground box
+    (40 x 2 x 40, top at y = 0), each layer a few millimetres into the one
+    below; finalize()'s default all-pairs tables give 47 * 46 / 2 = 1,081
+    box-box rows and 4,324 point slots, whose one-env-per-block shared
+    memory (581,632 bytes) no block holds."""
+    b = builder()
+    ground = b.add_static()
+    b.add_box_collider(ground, (0, -1, 0), (20, 1, 20))
+    h, step = BIGPILE_HALF, 2 * BIGPILE_HALF + BIGPILE_GAP
+    for layer, n in enumerate(BIGPILE_LAYERS):
+        y = h - BIGPILE_SINK + layer * (2 * h - BIGPILE_SINK)
+        for i in range(n):
+            x, z = (i % 4 - 1.5) * step, (i // 4 - 1.5) * step
+            body = b.add_body(position=(x, y, z))
+            b.add_box_collider(body, (0, 0, 0), (h, h, h))
+    return b
+
+
+def bigpile_scene(device=DEVICE):
+    from dxk_tpu_torch.scene import SceneBuilder
+    return bigpile_builder(SceneBuilder).finalize(device=device)
+
+
+def one_block_per_env_bytes(tab):
+    """Shared memory the one-env-per-block kernel carved for a scene: every
+    body's state, collider params, controls, joint rows and impulses, one
+    joint pass's deltas, all point slots' 30 fields, every row's deltas,
+    inverse degrees and masks."""
+    from dxk_tpu_torch.ops.kernels import fused_step as fs
+    nb, C = tab.num_bodies, tab.num_colliders
+    return 4 * (nb * 23 + C * 10 + tab.ctl_rows + 1 + tab.joint_row_floats
+                + tab.joint_acc_floats
+                + 12 * max(max(tab.joint_counts.values()), 1)
+                + fs.POINT_FIELDS * tab.num_points + 13 * tab.num_rows
+                + tab.num_phases * nb)
+
+
+def bigpile_phase(seed):
+    """The 1,081-row box pile on the fused step: kernel vs plain version on
+    the card at B=256 and a ragged 1000, on the initial state and after 60
+    steps, and the kernel's times at each."""
+    from dxk_tpu_torch.ops.kernels import fused_step as fs
+    from dxk_tpu_torch.physics import PhysicsSettings, physics_step
+    scene = bigpile_scene()
+    tab = fs.fused_tables(scene, DEVICE)
+    settings = PhysicsSettings(num_rigid_solver_iterations=ITERATIONS,
+                               solver_mode="fused")
+    checks, timing = {}, {}
+    for batch in BIGPILE_BATCHES + (BIGPILE_RAGGED,):
+        st = zoo_initial_state(scene, batch, seed)
+        checks[f"B{batch}_initial"] = compare_kernel(scene, st, batch,
+                                                     BIGPILE_DT)[0]
+        for _ in range(BIGPILE_WARM):
+            st, _info = physics_step(scene, st, settings, BIGPILE_DT)
+        cmp, run_kernel, run_plain, _tab, klive = compare_kernel(
+            scene, st, batch, BIGPILE_DT)
+        checks[f"B{batch}_after_{BIGPILE_WARM}_steps"] = cmp
+        for _ in range(3):
+            run_kernel()
+        b_ms, b_by, b_detail = bound_ms(tab, klive, batch)
+        timing[batch] = dict(ms=time_ms(run_kernel, 20),
+                             plain_ms=time_ms(run_plain, 1), bound_ms=b_ms,
+                             bound_by=b_by, bound_detail=b_detail)
+    emit("bigpile", bodies=scene.num_bodies, colliders=tab.num_colliders,
+         pair_rows=tab.num_rows, point_slots=tab.num_points,
+         one_block_per_env_smem_bytes=one_block_per_env_bytes(tab),
+         iterations=ITERATIONS, dt=BIGPILE_DT,
+         plans=plans_by_batch(tab, BIGPILE_BATCHES + (BIGPILE_RAGGED,
+                                                      NUM_ENVS)),
+         tolerance=KERNEL_TOL, tolerance_reason=BIGPILE_TOL_REASON,
+         checks=checks, kernel=timing)
+    for c in checks.values():
+        hold_fused(c, relative=True)
+    if not all(c["live_rows_per_env"] > 0 for k, c in checks.items()
+               if "after" in k):
+        raise RuntimeError("bigpile: no live contact row after the steps")
 
 
 def main():
@@ -2538,7 +2664,7 @@ def main():
          kernel_ms=kernel_ms,
          kernel_ms_again=kernel_ms2, plain_ms=plain_ms, bound_ms=b_ms,
          bound_by=b_by, bound_detail=b_detail,
-         threads=tab.threads(), smem_bytes=tab.shared_floats() * 4)
+         plans=plans_by_batch(tab, (NUM_ENVS, RAGGED_ENVS)))
     for c in (cmp_full, cmp_ragged, cmp_phased):
         hold_fused(c)
         if min(c["live_rows_by_recipe"].values()) == 0:
@@ -2576,6 +2702,9 @@ def main():
     # ---- heightfield terrain under a ragdoll and shape debris
     terrain_kernel = terrain_phase(args.seed + 8)
 
+    # ---- a 1,081-row box pile, past the one-env-per-block kernel's limit
+    bigpile_phase(args.seed + 9)
+
     # ---- the box stack on the reference step, each broadphase
     box_kernels = box_stack_phase(args.seed + 3)
 
@@ -2587,7 +2716,8 @@ def main():
             cmp_full[k] for k in ("err_v", "err_w", "err_pos", "err_rot",
                                   "err_imp")),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": None}, zoo_kernel, settle_kernel,
+        "bound_by": b_by, "library_ms": None,
+        **plan_fields(tab, NUM_ENVS)}, zoo_kernel, settle_kernel,
         shapes_kernel, fidelity_kernel, terrain_kernel]
         + box_kernels}),
         flush=True)

@@ -64,7 +64,7 @@ class Heightfield(_Struct):
 
 def make_heightfield(heights, cell_size, min_corner=(0.0, 0.0, 0.0),
                      friction=1.0, restitution=0.0, window=8,
-                     device="cpu") -> Heightfield:
+                     device="cuda") -> Heightfield:
     return Heightfield(
         heights=torch.from_numpy(np.ascontiguousarray(
             heights, dtype=np.float32)).to(device),

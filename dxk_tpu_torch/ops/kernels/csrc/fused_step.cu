@@ -11,33 +11,42 @@
 // ops/kernels/fused_step.py::_fused_core; this file follows it operation for
 // operation, so the two agree to rounding.
 //
-// What bounds it on an H100: operations, not bytes. One env reads ~0.6k floats
-// and writes ~0.8k, but runs a branch-heavy narrowphase over ~150 pair rows and
-// then `iters` rounds of short, dependent joint and contact solves. The
-// iteration loop is latency bound (13 joints and a few dozen live contact rows
-// per env in the ragdoll scene, 96 joints in the constraint zoo), so the design
-// keeps everything the loop touches on chip and runs several envs on an SM side
-// by side:
-//   * one block per env; body velocities, inverse inertias, the joint rows,
-//     every contact point's 30 solver fields and the per-row velocity deltas
-//     live in shared memory for the whole solve (~50 KB for the ragdoll scene,
-//     ~87 KB for the 16-chain constraint zoo; shared memory would hold four
-//     resp. two envs per SM, the register count of the untuned build two);
-//   * threads [0, T-32) own pair rows, the last warp owns the joints, so the
-//     narrowphase and the joint prep run side by side; the joint types are
-//     solved one pass each, in JOINT_ORDER, from a small descriptor per type
-//     (count and offsets); a type with no joints costs nothing;
-//   * dead rows and dead manifold points are skipped (they contribute exactly
-//     zero in the plain version);
-//   * per-body delta sums walk static incidence lists in a fixed order - no
-//     atomics, results are reproducible from run to run;
+// What bounds it on an H100: latency, not bytes or operations. One env reads
+// ~0.6k floats and writes ~0.8k, runs a branch-heavy narrowphase over ~150
+// pair rows and then `iters` rounds of short, dependent joint and contact
+// solves whose work fits one warp (13 joints and ~6 live pair rows per env in
+// the ragdoll scene, 16 joints of each type in the constraint zoo). Each round
+// is a chain of loads, a few dozen flops and a barrier, so the card is kept
+// busy by having many envs in flight, each on as few lanes as its work needs:
+//   * envs are packed several to a block, each on a team of whole warps
+//     (FusedTables.launch_plan picks envs per block and warps per env from
+//     the scene's shared memory and the batch: one warp per env at large
+//     batch, up to eight when the batch would leave SMs idle). Inside the
+//     iteration loop a team meets only itself: __syncwarp for one warp, a
+//     named barrier for several; no block-wide barrier follows the staging
+//     of the block's one copy of the static inverse masses;
+//   * shared memory holds what the solve rewrites (body velocities, joint
+//     rows and impulses, one joint pass's deltas, inverse inertias) and the
+//     live lists, a few KB per env; the contact points' 30 fields and the
+//     row deltas live in the wrapper's device-memory scratch, written and
+//     read for live rows and points only (a handful per env, L1/L2 resident),
+//     so shared memory does not grow with the point slots and a scene of
+//     1,000+ pair rows fits a block;
+//   * every lane of a team works: pair rows and then joints are spread over
+//     its lanes for the narrowphase and the preps; the team's first warp then
+//     lists each phase's live rows in row order (ballot + popc) and each
+//     phase's and body's live incidence entries in the static lists' order
+//     (a shuffle scan), so contact passes and their per-body sums touch live
+//     rows only; joint passes and every per-body sum run across the team;
+//   * per-body delta sums walk incidence lists in a fixed order - no atomics,
+//     results are reproducible from run to run;
 //   * static scene data (pair -> collider/body indices, friction/restitution,
 //     joint wiring and parameters, inverse degrees, each hull geometry's local
 //     vertices, planes and merged-face topology) comes in as two small device
 //     tables, so one compiled library serves any scene of these types;
 //   * the hull recipes (a distance GJK, an exact polytope SAT and a
 //     reference-face clip) and the cylinder recipes (alternating projections
-//     and candidate-axis SATs) run one thread per pair row, out of line, with
+//     and candidate-axis SATs) run one lane per pair row, out of line, with
 //     a polytope side's world vertices and the clip slots in per-thread local
 //     memory; their fixed-count loops stop a row once further rounds could
 //     not change its result.
@@ -45,34 +54,32 @@
 // break ties within 1e-4 relative, and a fused multiply-add can put a value on
 // the other side of a tie than the plain version's separately rounded ops.
 //
-// Deliberately not done yet: no cp.async/TMA staging of the inputs, several
-// envs are not packed into one block to fill lanes during the joint passes (in
-// the constraint zoo 208 of 224 threads wait through each joint pass), no
-// tuning of block size or register budget.
+// Not done yet: no cp.async/TMA staging of the inputs, the sequential chain
+// still runs on one lane per env, a heavy narrowphase row (hull, cylinder) on
+// one lane, no CUDA graph around the host's launches.
 //
 // Built with -DDXK_PREPPED_JOINTS=1 (and the sphere and cylinder recipes), the
 // same kernel also replaces the TPU kernel's two other modes, behind the entry
 // point dxk_fused_step_prepped_launch:
 //   * joint rows prepared outside the kernel (the JAX package's XLA preps,
 //     ops/solver.py; here dxk_tpu_torch/ops/solver.py) come in as one row of
-//     floats per env and are copied into the block's joint rows in place of the
+//     floats per env and are copied into the env's joint rows in place of the
 //     in-kernel joint prep;
 //   * the sequential solve of solver_mode "fused_seq" (_fused_core with
 //     sequential=True): after the parallel narrowphase and contact prep, one
-//     thread of the block walks the whole dependent chain - per iteration each
-//     joint in JOINT_ORDER, then every live pair row in phase order with its
-//     live points in order, both bodies' velocities stored after each joint and
-//     each row. There is no parallelism to take within an env there; one thread
-//     per env is slow on paper, and several envs per block is a later step;
+//     lane of the env's team walks the whole dependent chain - per iteration
+//     each joint in JOINT_ORDER, then every live pair row in phase order with
+//     its live points in order, both bodies' velocities stored after each
+//     joint and each row. There is no parallelism to take within an env
+//     there; the teams of a block walk their envs' chains side by side;
 //   * contact rows prepared outside the kernel (the prep-passed pseudo-group of
 //     a heightfield scene: one row per collider against the static dummy, 4
 //     points each, prepared by dxk_tpu_torch/ops/solver.py's prep_contacts):
-//     the block copies the env's prepared points from device memory straight
-//     into their point slots, coalesced, in the same field-major layout; these
-//     rows (kind PASSED_ROW, the trailing phase) skip the narrowphase, point k
-//     is live where its eff_n > 0, and the solve loops take them like any
-//     other row (the kernel's invm[body_a] equals the prep's inv_ma on every
-//     live row).
+//     the row's lane copies the env's live prepared points (eff_n > 0) into
+//     their slots of the scratch (a point's 30 floats side by side); these rows
+//     (kind PASSED_ROW, the trailing phase) skip the narrowphase, and the
+//     solve loops take them like any other row (the kernel's invm[body_a]
+//     equals the prep's inv_ma on every live row).
 // The other two builds compile none of this code.
 
 #include <cuda_runtime.h>
@@ -186,6 +193,10 @@ DF float fm_acos(float x) {
 }
 
 // ---- narrowphase recipes (ops/kernels/cm_narrowphase.py) --------------------
+
+// A / B: each side's world collider params in device memory, the point or
+// first end (a3), the second end or half extents (b3) and the rotation (q4)
+struct ColSide { const float *a3, *b3, *q4; };
 
 struct Manifold {
   V3 pt[4];
@@ -1748,39 +1759,39 @@ DN void cylinder_hull(V3 ca, V3 cb2, float cr, V3 hp, Q4 hq, const float* hb,
 }
 
 // the recipe of a sphere or cylinder row (recipe ids 6-14, fused_step.CM_RECIPES)
-DN void shapes_row(int type, int ca, int cb, const float* A, const float* Bc,
+DN void shapes_row(int type, int ca, int cb, ColSide A, ColSide Bc,
                    const float* col_r, const int* hull_id, const int* hull_llen,
                    const float* hull_base, const HullDims& hd, Manifold& mf) {
   switch (type) {
     case 6:
-      sphere_sphere_row(ld3(A), col_r[ca], ld3(Bc), col_r[cb], mf);
+      sphere_sphere_row(ld3(A.a3), col_r[ca], ld3(Bc.a3), col_r[cb], mf);
       break;
     case 7:
-      sphere_capsule(ld3(A), col_r[ca], ld3(Bc), ld3(Bc + 3), col_r[cb], mf);
+      sphere_capsule(ld3(A.a3), col_r[ca], ld3(Bc.a3), ld3(Bc.b3), col_r[cb], mf);
       break;
     case 8:
-      sphere_cylinder(ld3(A), col_r[ca], ld3(Bc), ld3(Bc + 3), col_r[cb], mf);
+      sphere_cylinder(ld3(A.a3), col_r[ca], ld3(Bc.a3), ld3(Bc.b3), col_r[cb], mf);
       break;
     case 9:
-      sphere_box(ld3(A), col_r[ca], ld3(Bc), ld3(Bc + 3), ld4(Bc + 6), mf);
+      sphere_box(ld3(A.a3), col_r[ca], ld3(Bc.a3), ld3(Bc.b3), ld4(Bc.q4), mf);
       break;
     case 10:
-      sphere_hull(ld3(A), col_r[ca], ld3(Bc), ld4(Bc + 6),
+      sphere_hull(ld3(A.a3), col_r[ca], ld3(Bc.a3), ld4(Bc.q4),
                   hull_base + hb_size(hd) * hull_id[cb], hd, mf);
       break;
     case 11:
-      capsule_cylinder(ld3(A), ld3(A + 3), col_r[ca], ld3(Bc), ld3(Bc + 3), col_r[cb],
+      capsule_cylinder(ld3(A.a3), ld3(A.b3), col_r[ca], ld3(Bc.a3), ld3(Bc.b3), col_r[cb],
                        mf);
       break;
     case 12:
-      cylinder_cylinder(ld3(A), ld3(A + 3), col_r[ca], ld3(Bc), ld3(Bc + 3), col_r[cb],
+      cylinder_cylinder(ld3(A.a3), ld3(A.b3), col_r[ca], ld3(Bc.a3), ld3(Bc.b3), col_r[cb],
                         mf);
       break;
     case 13:
-      cylinder_box(ld3(A), ld3(A + 3), col_r[ca], ld3(Bc), ld3(Bc + 3), ld4(Bc + 6), mf);
+      cylinder_box(ld3(A.a3), ld3(A.b3), col_r[ca], ld3(Bc.a3), ld3(Bc.b3), ld4(Bc.q4), mf);
       break;
     case 14:
-      cylinder_hull(ld3(A), ld3(A + 3), col_r[ca], ld3(Bc), ld4(Bc + 6),
+      cylinder_hull(ld3(A.a3), ld3(A.b3), col_r[ca], ld3(Bc.a3), ld4(Bc.q4),
                     hull_base + hb_size(hd) * hull_id[cb],
                     hull_llen + hd.FU * hull_id[cb], hd, mf);
       break;
@@ -1790,7 +1801,8 @@ DN void shapes_row(int type, int ca, int cb, const float* A, const float* Bc,
 #endif  // DXK_SHAPE_RECIPES
 
 // ---- contact prep (fused_step.py::_prep_points) -----------------------------
-// Point fields in shared memory, layout [field][slot]:
+// Point fields in device memory (the wrapper's scratch), a point's 30 floats
+// side by side ([slot][field]; the functions take a field stride):
 //   0 rel_a, 3 rel_b, 6 normal, 9 tangent, 12 n_to_wa, 15 n_to_wb, 18 t_to_wa,
 //   21 t_to_wb, 24 eff_n, 25 eff_t, 26 bias, 27 friction, 28 imp_n, 29 imp_t
 
@@ -2518,21 +2530,48 @@ DF void st_delta(float* d, const Vel& u, const Vel& u0) {
   x = sub(u.wb, u0.wb); d[9] = x.x; d[10] = x.y; d[11] = x.z;
 }
 
-// vw[n][c] += (sum of the deltas incident on body n, in list order) * scale[n]
-DF void apply_deltas(float* vw, const float* delta, const int* ptr, const int* idx,
-                     const float* scale, float omega, int nb, int tid, int nthreads) {
-  for (int i = tid; i < nb * 6; i += nthreads) {
-    int n = i / 6, c = i - 6 * n;
-    float s = 0.0f;
-    for (int e = ptr[n]; e < ptr[n + 1]; ++e) s = s + delta[6 * idx[e] + c];
-    vw[i] = vw[i] + s * (omega * scale[n]);
+// The lanes that work on one env: `warps` whole warps of the block. Inside
+// the iteration loop they meet only each other: __syncwarp for one warp, a
+// named barrier (1 + team id; 0 is __syncthreads') for several.
+struct Team {
+  int id, warps, lane, size;
+  DF void sync() const {
+    if (warps == 1) {
+      __syncwarp();
+    } else {
+      asm volatile("bar.sync %0, %1;" : : "r"(id + 1), "r"(32 * warps) : "memory");
+    }
+  }
+};
+
+// vw[6 n + c] += (sum over body n's entries, in list order, of
+// delta[6 * ent[e] + c]) * (omega * scale[n]) for the `nbod` bodies listed in
+// `bodies`, or for bodies 0..nbod-1 when `bodies` is null; a lane per body,
+// its six components side by side
+template <class Idx>
+DF void apply_deltas(float* vw, const float* delta, const Idx* ptr, const Idx* ent,
+                     const float* scale, float omega, const int* bodies, int nbod,
+                     const Team& tm) {
+  for (int i = tm.lane; i < nbod; i += tm.size) {
+    int n = bodies ? bodies[i] : i;
+    float s[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for (int e = ptr[n]; e < ptr[n + 1]; ++e) {
+      const float* d = delta + 6 * (int)ent[e];
+      #pragma unroll
+      for (int c = 0; c < 6; ++c) s[c] = s[c] + d[c];
+    }
+    float f = omega * scale[n];
+    #pragma unroll
+    for (int c = 0; c < 6; ++c) vw[6 * n + c] = vw[6 * n + c] + s[c] * f;
   }
 }
 
 // one joint type: its joint count; offsets of its rows, accumulated impulses and
-// controls in shared memory (floats); index of its first joint in the wiring and
-// static tables; offsets of its incidence lists (itab) and inverse degrees (ftab)
-struct JointDesc { int n, row, acc, ctl, base, ptr, idx, idg; };
+// controls (floats, in the env's shared rows / impulses and in its controls
+// row); index of its first joint in the wiring and static tables; offsets of
+// its incidence lists (itab) and inverse degrees (ftab); offset (itab) and
+// count of the bodies its joints touch
+struct JointDesc { int n, row, acc, ctl, base, ptr, idx, idg, tb, ntb; };
 
 struct Dims {
   int B, nb, C, P, nphase, R1, npts, iters;
@@ -2542,9 +2581,48 @@ struct Dims {
   int hull_col, hull_llen, hull_base;   // itab: collider -> hull id, loop lengths;
                                         // ftab: first hull block
   HullDims hd;                          // padded hull counts (0 without hulls)
+  int envs, warps;                      // envs per block, warps per env
 };
 
-// prep of joint j of type T (all joint bodies' data staged in shared memory)
+// One env's part of the block's shared memory, offsets in 4-byte words, each
+// part 16-byte aligned (fused_step.py's FusedTables.shared_layout mirrors it).
+// What the iteration loop reads and rewrites on every pass, and nothing whose
+// size follows the point slots: body velocities, inverse inertias, joint rows, accumulated
+// joint impulses, one joint pass's deltas, contact inverse degrees per phase
+// slice, and the live lists built after the narrowphase: per phase the live
+// pair rows in row order (lrow from lph[ph]) and per phase and body its live
+// incidence entries in the static lists' order (lent from lptr), all u16,
+// and the rows' live-point masks (u8).
+struct EnvLayout { int vw, invI, jrow, jimp, jdelta, idg, lptr, lph, lrow, lent, rmask, words; };
+
+__host__ __device__ inline int words16(int w) { return (w + 3) & ~3; }
+
+__host__ __device__ inline EnvLayout env_layout(const Dims& D, int& nrow_f, int& nacc_f,
+                                                int& nJmax) {
+  nJmax = 1; nrow_f = 0; nacc_f = 0;
+  for (int t = 0; t < NJT; ++t) {
+    nJmax = D.jd[t].n > nJmax ? D.jd[t].n : nJmax;
+    nrow_f += joint_rows(t) * D.jd[t].n;
+    nacc_f += joint_accs(t) * D.jd[t].n;
+  }
+  EnvLayout L;
+  int o = 0;
+  L.vw = o;     o += words16(6 * D.nb);
+  L.invI = o;   o += words16(9 * D.nb);
+  L.jrow = o;   o += words16(nrow_f);
+  L.jimp = o;   o += words16(nacc_f);
+  L.jdelta = o; o += words16(12 * nJmax);
+  L.idg = o;    o += words16(D.nphase * D.nb);
+  L.lptr = o;   o += words16((D.nphase * (D.nb + 1) + 1) / 2);
+  L.lph = o;    o += words16((D.nphase + 2) / 2);
+  L.lrow = o;   o += words16((D.P + 1) / 2);
+  L.lent = o;   o += words16(D.P);
+  L.rmask = o;  o += words16((D.P + 3) / 4);
+  L.words = o;
+  return L;
+}
+
+// prep of joint j of type T
 template <int T>
 DF void joint_prep(const JointDesc& d, int j, const int* jab,
                    const float* jstat, const float* rot, const float* pos,
@@ -2567,37 +2645,40 @@ DF void joint_prep(const JointDesc& d, int j, const int* jab,
   if (T == J_SLIDER) slider_prep(js, c, bd, dt, inv_dt, out, d.n);
 }
 
-// one averaged pass over the joints of type T: each joint of the joint warp
-// solves against the pass-start velocities and writes its deltas; then all
-// threads apply the degree-averaged per-body sums
+// one averaged pass over the joints of type T: the team's lanes solve its
+// joints against the pass-start velocities and write their deltas; then the
+// lanes apply the degree-averaged per-body sums to the bodies the type's
+// joints touch. The plain version adds (+0) * scale to every other body,
+// which turns a -0.0 into +0.0 and leaves any other value as it is; a value
+// that is not -0.0 never becomes one through vw + s * f (s is a sum that
+// starts at +0.0). So only the solve's first pass (`all`) needs every body.
 template <int T>
-DF void joint_pass(const JointDesc& d, bool joint_warp, int lane, const int* jab,
-                   const int* itab, const float* ftab, const float* jrow, float* jimp,
-                   float* jdelta, float* vw, const float* invm, const float* invI,
-                   float omega, int nb, int tid, int nthreads) {
+DF void joint_pass(const JointDesc& d, const Team& tm, const int* jab, const int* itab,
+                   const float* ftab, const float* jrow, float* jimp, float* jdelta,
+                   float* vw, const float* invm, const float* invI, float omega,
+                   bool& all, int nb) {
   if (d.n == 0) return;
-  if (joint_warp) {
-    for (int j = lane; j < d.n; j += 32) {
-      int a = jab[2 * (d.base + j)], b = jab[2 * (d.base + j) + 1];
-      Vel u0, u;
-      ld_vel(vw, a, b, u0);
-      u = u0;
-      const float* f = jrow + d.row + j;
-      float* imps = jimp + d.acc + joint_accs(T) * j;
-      const float *ia = invI + 9 * a, *ib = invI + 9 * b;
-      if (T == J_DISTANCE) distance_solve(f, d.n, invm[a], invm[b], u);
-      if (T == J_BALL) ball_solve(f, d.n, invm[a], invm[b], ia, ib, u);
-      if (T == J_FIXED) fixed_solve(f, d.n, invm[a], invm[b], ia, ib, u);
-      if (T == J_HINGE) hinge_solve(f, d.n, invm[a], invm[b], ia, ib, u, imps);
-      if (T == J_CONE_TWIST) cone_twist_solve(f, d.n, invm[a], invm[b], ia, ib, u, imps);
-      if (T == J_SLIDER) slider_solve(f, d.n, invm[a], invm[b], ia, ib, u, imps);
-      st_delta(jdelta + 12 * j, u, u0);
-    }
+  for (int j = tm.lane; j < d.n; j += tm.size) {
+    int a = jab[2 * (d.base + j)], b = jab[2 * (d.base + j) + 1];
+    Vel u0, u;
+    ld_vel(vw, a, b, u0);
+    u = u0;
+    const float* f = jrow + d.row + j;
+    float* imps = jimp + d.acc + joint_accs(T) * j;
+    const float *ia = invI + 9 * a, *ib = invI + 9 * b;
+    if (T == J_DISTANCE) distance_solve(f, d.n, invm[a], invm[b], u);
+    if (T == J_BALL) ball_solve(f, d.n, invm[a], invm[b], ia, ib, u);
+    if (T == J_FIXED) fixed_solve(f, d.n, invm[a], invm[b], ia, ib, u);
+    if (T == J_HINGE) hinge_solve(f, d.n, invm[a], invm[b], ia, ib, u, imps);
+    if (T == J_CONE_TWIST) cone_twist_solve(f, d.n, invm[a], invm[b], ia, ib, u, imps);
+    if (T == J_SLIDER) slider_solve(f, d.n, invm[a], invm[b], ia, ib, u, imps);
+    st_delta(jdelta + 12 * j, u, u0);
   }
-  __syncthreads();
-  apply_deltas(vw, jdelta, itab + d.ptr, itab + d.idx, ftab + d.idg, omega, nb, tid,
-               nthreads);
-  __syncthreads();
+  tm.sync();
+  apply_deltas(vw, jdelta, itab + d.ptr, itab + d.idx, ftab + d.idg, omega,
+               all ? nullptr : itab + d.tb, all ? nb : d.ntb, tm);
+  all = false;
+  tm.sync();
 }
 
 #if DXK_PREPPED_JOINTS
@@ -2637,12 +2718,10 @@ DF void joint_seq(const JointDesc& d, const int* jab, const float* jrow, float* 
 
 }  // namespace
 
-// At most 256 threads (224 row threads + the joint warp) and at least two
-// blocks per SM: caps the kernel at 128 registers. The register count is one
-// number for the whole call graph, so without the cap the out-of-line hull
-// recipes (163 registers) would set it for every scene and leave one
-// 224-thread block per SM where two fit (the constraint zoo's kernel took
-// 1.8x as long).
+// At most 256 threads and at least two blocks per SM: caps the kernel at 128
+// registers, 16 warps per SM. The register count is one number for the whole
+// call graph, so without the cap the out-of-line hull recipes (163 registers)
+// would set it for every scene.
 __global__ void __launch_bounds__(256, 2) fused_step_kernel(
     Dims D, float omega, float inv_dt,
     const float* __restrict__ g_v, const float* __restrict__ g_w,
@@ -2655,14 +2734,19 @@ __global__ void __launch_bounds__(256, 2) fused_step_kernel(
     const float* __restrict__ g_crows, int crow_pts,
 #endif
     const int* __restrict__ itab, const float* __restrict__ ftab,
+    float* g_pts, float* g_rdelta,
     float* __restrict__ o_v, float* __restrict__ o_w, float* __restrict__ o_imp,
     unsigned char* __restrict__ o_live) {
   extern __shared__ float smem[];
-  const int env = blockIdx.x;
-  const int tid = threadIdx.x, T = blockDim.x;
-  const int RT = T - 32;              // row threads; the last warp owns the joints
+  const int tid = threadIdx.x;
+  Team tm;
+  tm.warps = D.warps;
+  tm.size = 32 * D.warps;
+  tm.id = tid / tm.size;
+  tm.lane = tid - tm.id * tm.size;
+  const int T = tm.size, tl = tm.lane;
+  const int env = blockIdx.x * D.envs + tm.id;
   const int nb = D.nb, C = D.C, P = D.P, np = D.npts;
-  const bool joint_warp = tid >= RT;
 
   const int* rows_i = itab + D.io[0];
   const int* phase_rows = itab + D.io[1];
@@ -2674,217 +2758,247 @@ __global__ void __launch_bounds__(256, 2) fused_step_kernel(
   const float* col_r = ftab + D.fo[0];
   const float* rows_f = ftab + D.fo[1];
   const float* jstat = ftab + D.fo[2];
-  int nJmax = 1, nrow_f = 0, nacc_f = 0;
-  #pragma unroll
-  for (int t = 0; t < NJT; ++t) {
-    nJmax = D.jd[t].n > nJmax ? D.jd[t].n : nJmax;
-    nrow_f += joint_rows(t) * D.jd[t].n;
-    nacc_f += joint_accs(t) * D.jd[t].n;
-  }
+  int nrow_f, nacc_f, nJmax;
+  const EnvLayout L = env_layout(D, nrow_f, nacc_f, nJmax);
 
-  // ---- shared memory carve-up (floats) --------------------------------------
-  float* vw = smem;                         // nb*6
-  float* invm = vw + nb * 6;                // nb
-  float* invI = invm + nb;                  // nb*9
-  float* pos = invI + nb * 9;               // nb*3
-  float* rot = pos + nb * 3;                // nb*4
-  float* col = rot + nb * 4;                // C*10: a3 b3 rot4
-  float* ctl = col + C * 10;                // R1
-  float* jrow = ctl + D.R1;                 // sum of joint_rows*n, per type at jd.row
-  float* jimp = jrow + nrow_f;              // sum of joint_accs*n, per type at jd.acc
-  float* jdelta = jimp + nacc_f;            // nJmax*12
-  float* pts = jdelta + nJmax * 12;         // POINT_FIELDS*np, [field][slot]
-  float* rdelta = pts + POINT_FIELDS * np;  // P*12
-  float* idg_con = rdelta + P * 12;         // nphase*nb
-  int* rmask = reinterpret_cast<int*>(idg_con + D.nphase * nb);   // P
+  // ---- the block's one copy of the static inverse masses; the last block's
+  // missing envs leave after it (no block-wide barrier follows) --------------
+  float* invm = smem;
+  for (int i = tid; i < nb; i += blockDim.x) invm[i] = g_inv_mass[i];
+  __syncthreads();
+  if (env >= D.B) return;
 
-  // ---- stage the env's state -------------------------------------------------
-  for (int i = tid; i < nb * 3; i += T) {
+  // ---- the env's shared words, its device-memory scratch and inputs ---------
+  float* es = smem + words16(nb) + tm.id * L.words;
+  float* vw = es + L.vw;
+  float* invI = es + L.invI;
+  float* jrow = es + L.jrow;
+  float* jimp = es + L.jimp;
+  float* jdelta = es + L.jdelta;
+  float* idg_con = es + L.idg;
+  unsigned short* lptr = reinterpret_cast<unsigned short*>(es + L.lptr);
+  unsigned short* lph = reinterpret_cast<unsigned short*>(es + L.lph);
+  unsigned short* lrow = reinterpret_cast<unsigned short*>(es + L.lrow);
+  unsigned short* lent = reinterpret_cast<unsigned short*>(es + L.lent);
+  unsigned char* rmask = reinterpret_cast<unsigned char*>(es + L.rmask);
+  float* pts = g_pts + (size_t)env * np * POINT_FIELDS;   // [slot][field]
+  float* rdelta = g_rdelta + (size_t)env * P * 12;        // 12 per live row
+  const float* pos = g_pos + (size_t)env * nb * 3;
+  const float* rot = g_rot + (size_t)env * nb * 4;
+  const float* cwa = g_col_a + (size_t)env * C * 3;
+  const float* cwb = g_col_b + (size_t)env * C * 3;
+  const float* cwq = g_col_rot + (size_t)env * C * 4;
+
+  // ---- stage the env's velocities and inverse inertias ----------------------
+  for (int i = tl; i < nb * 3; i += T) {
     int n = i / 3, c = i - 3 * n;
     vw[6 * n + c] = g_v[(size_t)env * nb * 3 + i];
     vw[6 * n + 3 + c] = g_w[(size_t)env * nb * 3 + i];
-    pos[i] = g_pos[(size_t)env * nb * 3 + i];
   }
-  for (int i = tid; i < nb; i += T) invm[i] = g_inv_mass[i];
-  for (int i = tid; i < nb * 9; i += T) invI[i] = g_inv_inertia[(size_t)env * nb * 9 + i];
-  for (int i = tid; i < nb * 4; i += T) rot[i] = g_rot[(size_t)env * nb * 4 + i];
-  for (int i = tid; i < C * 3; i += T) {
-    int n = i / 3, c = i - 3 * n;
-    col[10 * n + c] = g_col_a[(size_t)env * C * 3 + i];
-    col[10 * n + 3 + c] = g_col_b[(size_t)env * C * 3 + i];
-  }
-  for (int i = tid; i < C * 4; i += T) {
-    int n = i / 4, c = i - 4 * n;
-    col[10 * n + 6 + c] = g_col_rot[(size_t)env * C * 4 + i];
-  }
+  for (int i = tl; i < nb * 9; i += T) invI[i] = g_inv_inertia[(size_t)env * nb * 9 + i];
+  for (int i = tl; i < nacc_f; i += T) jimp[i] = 0.0f;
 #if DXK_PREPPED_JOINTS
   // joint rows prepared outside the kernel, already in the field-major layout
   // of jrow; the controls are then not read at all
-  if (rows_passed) {
-    for (int i = tid; i < nrow_f; i += T) jrow[i] = g_jrows[(size_t)env * nrow_f + i];
-  } else {
-    for (int i = tid; i < D.R1; i += T) ctl[i] = g_ctl[(size_t)env * D.R1 + i];
-  }
-  // prep-passed contact points: the last crow_pts slots, fields 0-27 as
-  // prepared, both accumulated impulses zero
-  if (crow_pts) {
-    const float* src = g_crows + (size_t)env * (POINT_FIELDS - 2) * crow_pts;
-    float* dst = pts + (np - crow_pts);
-    for (int i = tid; i < POINT_FIELDS * crow_pts; i += T) {
-      int f = i / crow_pts;
-      dst[f * np + (i - f * crow_pts)] = f < POINT_FIELDS - 2 ? src[i] : 0.0f;
-    }
-  }
-#else
-  for (int i = tid; i < D.R1; i += T) ctl[i] = g_ctl[(size_t)env * D.R1 + i];
+  if (rows_passed)
+    for (int i = tl; i < nrow_f; i += T) jrow[i] = g_jrows[(size_t)env * nrow_f + i];
 #endif
-  for (int i = tid; i < P * 12; i += T) rdelta[i] = 0.0f;
-  for (int i = tid; i < nacc_f; i += T) jimp[i] = 0.0f;
-  __syncthreads();
+  tm.sync();
 
-  // ---- narrowphase + contact prep (row threads), joint prep (last warp) ------
-  if (tid < RT) {
-    for (int r = tid; r < P; r += RT) {
-      const int* ri = rows_i + r * ROW_INTS;
-      int type = ri[0], K = ri[1], ca = ri[2], cb = ri[3], ba = ri[4], bb = ri[5];
-      int slot0 = ri[6], stride = ri[7];
+  // ---- narrowphase + contact prep, then the joint prep, over the team's lanes;
+  // only live points are written -----------------------------------------------
+  for (int r = tl; r < P; r += T) {
+    const int* ri = rows_i + r * ROW_INTS;
+    int type = ri[0], K = ri[1], ca = ri[2], cb = ri[3], ba = ri[4], bb = ri[5];
+    int slot0 = ri[6], stride = ri[7];
 #if DXK_PREPPED_JOINTS
-      if (type == PASSED_ROW) {
-        int m = 0;
-        for (int k = 0; k < K; ++k)
-          if (pts[24 * np + slot0 + k * stride] > 0.0f) m |= 1 << k;
-        rmask[r] = m;
-        o_live[(size_t)env * P + r] = (unsigned char)m;
-        continue;
-      }
-#endif
-      const float* A = col + 10 * ca;
-      const float* Bc = col + 10 * cb;
-      Manifold mf;
-      mf.mask = 0;
-      // the recipe of the row's shape pair (fused_step.CM_RECIPES)
-      switch (type) {
-        case 0:
-          capsule_capsule(ld3(A), ld3(A + 3), col_r[ca], ld3(Bc), ld3(Bc + 3), col_r[cb], mf);
-          break;
-        case 1:
-          capsule_box(ld3(A), ld3(A + 3), col_r[ca], ld3(Bc), ld3(Bc + 3), ld4(Bc + 6), mf);
-          break;
-        case 2:
-          box_box(ld3(A), ld3(A + 3), ld4(A + 6), ld3(Bc), ld3(Bc + 3), ld4(Bc + 6), mf);
-          break;
-        case 3:
-          capsule_hull(ld3(A), ld3(A + 3), col_r[ca], ld3(Bc), ld4(Bc + 6),
-                       ftab + D.hull_base + hb_size(D.hd) * hull_id[cb], D.hd, mf);
-          break;
-        case 4:
-          box_hull(ld3(A), ld3(A + 3), ld4(A + 6), ld3(Bc), ld4(Bc + 6),
-                   ftab + D.hull_base + hb_size(D.hd) * hull_id[cb],
-                   hull_llen + D.hd.FU * hull_id[cb], D.hd, mf);
-          break;
-        // hull-hull stays the default case: with an explicit case 5 and an
-        // empty default the settle kernel took 3 % longer on an H100
-#if DXK_SHAPE_RECIPES
-        case 6: case 7: case 8: case 9: case 10: case 11: case 12: case 13: case 14:
-          shapes_row(type, ca, cb, A, Bc, col_r, hull_id, hull_llen, ftab + D.hull_base,
-                     D.hd, mf);
-          break;
-#endif
-        default:
-          hull_hull(ld3(A), ld4(A + 6), ftab + D.hull_base + hb_size(D.hd) * hull_id[ca],
-                    hull_llen + D.hd.FU * hull_id[ca], ld3(Bc), ld4(Bc + 6),
-                    ftab + D.hull_base + hb_size(D.hd) * hull_id[cb],
-                    hull_llen + D.hd.FU * hull_id[cb], D.hd, mf);
-      }
-      rmask[r] = mf.mask;
-      o_live[(size_t)env * P + r] = (unsigned char)mf.mask;
-      float fric = rows_f[2 * r], rest = rows_f[2 * r + 1];
-      V3 pa = ld3(pos + 3 * ba), pb = ld3(pos + 3 * bb);
-      Vel u0;
-      ld_vel(vw, ba, bb, u0);
+    // prep-passed contact points: the last crow_pts slots, fields 0-27 as
+    // prepared, both accumulated impulses zero; point k is live where its
+    // eff_n > 0
+    if (type == PASSED_ROW) {
+      const float* src = g_crows + (size_t)env * (POINT_FIELDS - 2) * crow_pts;
+      int m = 0;
       for (int k = 0; k < K; ++k) {
-        float* pf = pts + slot0 + k * stride;
-        if (mf.mask >> k & 1) {
-          prep_point(mf.pt[k], mf.dp[k], mf.n, pa, pb, u0.va, u0.wa, u0.vb, u0.wb,
-                     invI + 9 * ba, invI + 9 * bb, invm[ba], invm[bb], fric, rest,
-                     inv_dt, pf, np);
-        } else {
-          pf[28 * np] = 0.0f;     // dead point: only its impulse is ever read
+        int s = slot0 + k * stride, i = s - (np - crow_pts);
+        if (src[24 * crow_pts + i] > 0.0f) {
+          m |= 1 << k;
+          float* pf = pts + POINT_FIELDS * s;
+          for (int f = 0; f < POINT_FIELDS - 2; ++f) pf[f] = src[f * crow_pts + i];
+          pf[28] = 0.0f;
+          pf[29] = 0.0f;
         }
       }
+      rmask[r] = (unsigned char)m;
+      o_live[(size_t)env * P + r] = (unsigned char)m;
+      continue;
     }
-  } else
+#endif
+    ColSide A = {cwa + 3 * ca, cwb + 3 * ca, cwq + 4 * ca};
+    ColSide Bc = {cwa + 3 * cb, cwb + 3 * cb, cwq + 4 * cb};
+    Manifold mf;
+    mf.mask = 0;
+    // the recipe of the row's shape pair (fused_step.CM_RECIPES)
+    switch (type) {
+      case 0:
+        capsule_capsule(ld3(A.a3), ld3(A.b3), col_r[ca], ld3(Bc.a3), ld3(Bc.b3), col_r[cb],
+                        mf);
+        break;
+      case 1:
+        capsule_box(ld3(A.a3), ld3(A.b3), col_r[ca], ld3(Bc.a3), ld3(Bc.b3), ld4(Bc.q4), mf);
+        break;
+      case 2:
+        box_box(ld3(A.a3), ld3(A.b3), ld4(A.q4), ld3(Bc.a3), ld3(Bc.b3), ld4(Bc.q4), mf);
+        break;
+      case 3:
+        capsule_hull(ld3(A.a3), ld3(A.b3), col_r[ca], ld3(Bc.a3), ld4(Bc.q4),
+                     ftab + D.hull_base + hb_size(D.hd) * hull_id[cb], D.hd, mf);
+        break;
+      case 4:
+        box_hull(ld3(A.a3), ld3(A.b3), ld4(A.q4), ld3(Bc.a3), ld4(Bc.q4),
+                 ftab + D.hull_base + hb_size(D.hd) * hull_id[cb],
+                 hull_llen + D.hd.FU * hull_id[cb], D.hd, mf);
+        break;
+      // hull-hull stays the default case: with an explicit case 5 and an
+      // empty default the settle kernel took 3 % longer on an H100
+#if DXK_SHAPE_RECIPES
+      case 6: case 7: case 8: case 9: case 10: case 11: case 12: case 13: case 14:
+        shapes_row(type, ca, cb, A, Bc, col_r, hull_id, hull_llen, ftab + D.hull_base,
+                   D.hd, mf);
+        break;
+#endif
+      default:
+        hull_hull(ld3(A.a3), ld4(A.q4), ftab + D.hull_base + hb_size(D.hd) * hull_id[ca],
+                  hull_llen + D.hd.FU * hull_id[ca], ld3(Bc.a3), ld4(Bc.q4),
+                  ftab + D.hull_base + hb_size(D.hd) * hull_id[cb],
+                  hull_llen + D.hd.FU * hull_id[cb], D.hd, mf);
+    }
+    rmask[r] = (unsigned char)mf.mask;
+    o_live[(size_t)env * P + r] = (unsigned char)mf.mask;
+    if (!mf.mask) continue;
+    float fric = rows_f[2 * r], rest = rows_f[2 * r + 1];
+    V3 pa = ld3(pos + 3 * ba), pb = ld3(pos + 3 * bb);
+    Vel u0;
+    ld_vel(vw, ba, bb, u0);
+    for (int k = 0; k < K; ++k)
+      if (mf.mask >> k & 1)
+        prep_point(mf.pt[k], mf.dp[k], mf.n, pa, pb, u0.va, u0.wa, u0.vb, u0.wb,
+                   invI + 9 * ba, invI + 9 * bb, invm[ba], invm[bb], fric, rest, inv_dt,
+                   pts + POINT_FIELDS * (slot0 + k * stride), 1);
+  }
 #if DXK_PREPPED_JOINTS
   if (!rows_passed)
 #endif
   {
-    int lane = tid - RT;
+    const float* ctl = g_ctl + (size_t)env * D.R1;
     float dt = ctl[D.R1 - 1];
 #define DXK_PREP(JT)                                                                   \
-  for (int j = lane; j < D.jd[JT].n; j += 32)                                         \
+  for (int j = tl; j < D.jd[JT].n; j += T)                                            \
     joint_prep<JT>(D.jd[JT], j, jab, jstat, rot, pos, invI, invm, ctl, dt, inv_dt, jrow);
     DXK_PREP(J_DISTANCE) DXK_PREP(J_BALL) DXK_PREP(J_FIXED)
     DXK_PREP(J_HINGE) DXK_PREP(J_CONE_TWIST) DXK_PREP(J_SLIDER)
 #undef DXK_PREP
   }
-  __syncthreads();
+  tm.sync();
 
-  // ---- contact inverse degrees from live rows, per phase slice ---------------
-  for (int i = tid; i < D.nphase * nb; i += T) {
-    float deg = 0.0f;
-    for (int e = con_ptr[i]; e < con_ptr[i + 1]; ++e)
-      deg = deg + (rmask[con_idx[e] >> 1] ? 1.0f : 0.0f);
-    idg_con[i] = 1.0f / fmaxf(deg, 1.0f);
+  // ---- the live lists, by the team's first warp: per phase its live rows in
+  // row order (ballot + popc), per phase and body its live incidence entries in
+  // list order (a shuffle scan of the counts) and the contact inverse degree ---
+  if (tl < 32) {
+    const unsigned full = 0xffffffffu;
+    const unsigned below = (1u << tl) - 1u;
+    int cnt = 0;
+    for (int ph = 0; ph < D.nphase; ++ph) {
+      if (tl == 0) lph[ph] = (unsigned short)cnt;
+      int r_end = phase_rows[ph + 1];
+      for (int r0 = phase_rows[ph]; r0 < r_end; r0 += 32) {
+        int r = r0 + tl;
+        bool live = r < r_end && rmask[r] != 0;
+        unsigned bits = __ballot_sync(full, live);
+        if (live) lrow[cnt + __popc(bits & below)] = (unsigned short)r;
+        cnt += __popc(bits);
+      }
+    }
+    if (tl == 0) lph[D.nphase] = (unsigned short)cnt;
+    int run = 0;
+    for (int ph = 0; ph < D.nphase; ++ph) {
+      unsigned short* lp = lptr + ph * (nb + 1);
+      for (int n0 = 0; n0 < nb; n0 += 32) {
+        int n = n0 + tl, c = 0, e0 = 0, e1 = 0;
+        if (n < nb) {
+          e0 = con_ptr[ph * nb + n];
+          e1 = con_ptr[ph * nb + n + 1];
+          for (int e = e0; e < e1; ++e) c += rmask[con_idx[e] >> 1] != 0;
+        }
+        int incl = c;
+        for (int o = 1; o < 32; o <<= 1) {
+          int x = __shfl_up_sync(full, incl, o);
+          if (tl >= o) incl += x;
+        }
+        if (n < nb) {
+          int p = run + incl - c;
+          lp[n] = (unsigned short)p;
+          idg_con[ph * nb + n] = 1.0f / fmaxf((float)c, 1.0f);
+          for (int e = e0; e < e1; ++e)
+            if (rmask[con_idx[e] >> 1]) lent[p++] = (unsigned short)con_idx[e];
+        }
+        run += __shfl_sync(full, incl, 31);
+      }
+      if (tl == 0) lp[nb] = (unsigned short)run;
+    }
   }
-  __syncthreads();
+  tm.sync();
 
   // ---- the solve ---------------------------------------------------------------
 #if DXK_PREPPED_JOINTS
-  // sequential: one thread walks the chain; joints in JOINT_ORDER, then the
-  // rows in phase order, live points only (a dead point's effective masses
-  // and friction are zero: solving it could change no more than the sign of
-  // a zero)
-  if (sequential && tid == 0) {
-    for (int it = 0; it < D.iters; ++it) {
-      joint_seq<J_DISTANCE>(D.jd[J_DISTANCE], jab, jrow, jimp, vw, invm, invI);
-      joint_seq<J_BALL>(D.jd[J_BALL], jab, jrow, jimp, vw, invm, invI);
-      joint_seq<J_FIXED>(D.jd[J_FIXED], jab, jrow, jimp, vw, invm, invI);
-      joint_seq<J_HINGE>(D.jd[J_HINGE], jab, jrow, jimp, vw, invm, invI);
-      joint_seq<J_CONE_TWIST>(D.jd[J_CONE_TWIST], jab, jrow, jimp, vw, invm, invI);
-      joint_seq<J_SLIDER>(D.jd[J_SLIDER], jab, jrow, jimp, vw, invm, invI);
-      for (int r = 0; r < P; ++r) {
-        int mask = rmask[r];
-        if (!mask) continue;
-        const int* ri = rows_i + r * ROW_INTS;
-        int K = ri[1], ba = ri[4], bb = ri[5], slot0 = ri[6], stride = ri[7];
-        Vel u;
-        ld_vel(vw, ba, bb, u);
-        float inv_ma = invm[ba], inv_mb = invm[bb];
-        for (int k = 0; k < K; ++k)
-          if (mask >> k & 1) contact_point(pts + slot0 + k * stride, np, inv_ma, inv_mb, u);
-        st_vel(vw, ba, bb, u);
+  // sequential: one lane of the team walks the chain; joints in JOINT_ORDER,
+  // then the live rows in phase order with their live points in order (a dead
+  // point's effective masses and friction are zero: solving it could change
+  // no more than the sign of a zero)
+  if (sequential) {
+    if (tl == 0) {
+      for (int it = 0; it < D.iters; ++it) {
+        joint_seq<J_DISTANCE>(D.jd[J_DISTANCE], jab, jrow, jimp, vw, invm, invI);
+        joint_seq<J_BALL>(D.jd[J_BALL], jab, jrow, jimp, vw, invm, invI);
+        joint_seq<J_FIXED>(D.jd[J_FIXED], jab, jrow, jimp, vw, invm, invI);
+        joint_seq<J_HINGE>(D.jd[J_HINGE], jab, jrow, jimp, vw, invm, invI);
+        joint_seq<J_CONE_TWIST>(D.jd[J_CONE_TWIST], jab, jrow, jimp, vw, invm, invI);
+        joint_seq<J_SLIDER>(D.jd[J_SLIDER], jab, jrow, jimp, vw, invm, invI);
+        for (int i = 0; i < lph[D.nphase]; ++i) {
+          int r = lrow[i], mask = rmask[r];
+          const int* ri = rows_i + r * ROW_INTS;
+          int K = ri[1], ba = ri[4], bb = ri[5], slot0 = ri[6], stride = ri[7];
+          Vel u;
+          ld_vel(vw, ba, bb, u);
+          float inv_ma = invm[ba], inv_mb = invm[bb];
+          for (int k = 0; k < K; ++k)
+            if (mask >> k & 1)
+            contact_point(pts + POINT_FIELDS * (slot0 + k * stride), 1, inv_ma, inv_mb, u);
+          st_vel(vw, ba, bb, u);
+        }
       }
     }
+    tm.sync();
   }
-  __syncthreads();
-  for (int it = 0; it < (sequential ? 0 : D.iters); ++it) {
+  const int avg_iters = sequential ? 0 : D.iters;
 #else
-  for (int it = 0; it < D.iters; ++it) {
+  const int avg_iters = D.iters;
 #endif
+  bool all = true;           // the first joint pass applies to every body
+  for (int it = 0; it < avg_iters; ++it) {
     // joint passes in JOINT_ORDER; a type with no joints is skipped
 #define DXK_PASS(JT)                                                                   \
-  joint_pass<JT>(D.jd[JT], joint_warp, tid - RT, jab, itab, ftab, jrow, jimp, jdelta,  \
-                 vw, invm, invI, omega, nb, tid, T);
+  joint_pass<JT>(D.jd[JT], tm, jab, itab, ftab, jrow, jimp, jdelta, vw, invm, invI,    \
+                 omega, all, nb);
     DXK_PASS(J_DISTANCE) DXK_PASS(J_BALL) DXK_PASS(J_FIXED)
     DXK_PASS(J_HINGE) DXK_PASS(J_CONE_TWIST) DXK_PASS(J_SLIDER)
 #undef DXK_PASS
-    // contact phase slices: every row reads the slice-start velocities and
-    // solves its live points in order; the summed deltas are degree-averaged
+    // contact phase slices: every live row reads the slice-start velocities
+    // and solves its live points in order; the summed deltas of the live rows
+    // are degree-averaged (a dead row's delta is +0.0, and a sum that starts
+    // at +0.0 is never -0.0, so leaving it out changes no bit)
     for (int ph = 0; ph < D.nphase; ++ph) {
-      int r_end = phase_rows[ph + 1];
-      for (int r = phase_rows[ph] + tid; r < r_end; r += T) {
-        int mask = rmask[r];
-        if (!mask) continue;
+      for (int i = lph[ph] + tl; i < lph[ph + 1]; i += T) {
+        int r = lrow[i], mask = rmask[r];
         const int* ri = rows_i + r * ROW_INTS;
         int K = ri[1], ba = ri[4], bb = ri[5], slot0 = ri[6], stride = ri[7];
         Vel u0, u;
@@ -2892,37 +3006,43 @@ __global__ void __launch_bounds__(256, 2) fused_step_kernel(
         u = u0;
         float inv_ma = invm[ba], inv_mb = invm[bb];
         for (int k = 0; k < K; ++k)
-          if (mask >> k & 1) contact_point(pts + slot0 + k * stride, np, inv_ma, inv_mb, u);
+          if (mask >> k & 1)
+            contact_point(pts + POINT_FIELDS * (slot0 + k * stride), 1, inv_ma, inv_mb, u);
         st_delta(rdelta + 12 * r, u, u0);
       }
-      __syncthreads();
-      apply_deltas(vw, rdelta, con_ptr + ph * nb, con_idx, idg_con + ph * nb, omega, nb,
-                   tid, T);
-      __syncthreads();
+      tm.sync();
+      apply_deltas(vw, rdelta, lptr + ph * (nb + 1), lent, idg_con + ph * nb, omega,
+                   nullptr, nb, tm);
+      tm.sync();
     }
   }
 
-  // ---- results ---------------------------------------------------------------
-  for (int i = tid; i < nb * 3; i += T) {
+  // ---- results: a dead point's impulse is 0 -----------------------------------
+  for (int i = tl; i < nb * 3; i += T) {
     int n = i / 3, c = i - 3 * n;
     o_v[(size_t)env * nb * 3 + i] = vw[6 * n + c];
     o_w[(size_t)env * nb * 3 + i] = vw[6 * n + 3 + c];
   }
-  for (int i = tid; i < P * 4; i += T) {
+  for (int i = tl; i < P * 4; i += T) {
     int r = i >> 2, k = i & 3;
     const int* ri = rows_i + r * ROW_INTS;
     float v = 0.0f;
-    if (k < ri[1]) v = pts[28 * np + ri[6] + k * ri[7]];
+    if (k < ri[1] && (rmask[r] >> k & 1)) v = pts[POINT_FIELDS * (ri[6] + k * ri[7]) + 28];
     o_imp[(size_t)env * P * 4 + i] = v;
   }
 }
 
-// Launches one block per env on `stream`. Returns the CUDA error code of the
-// launch (0 = success); does not synchronise and allocates nothing. The prepped
-// build's entry also takes the env's prepared joint rows (`jrows`, read when
-// `rows_passed`; `ctl` is then not read), the `sequential` flag and the env's
-// prep-passed contact points (`crows`, (POINT_FIELDS - 2) x `crow_pts` floats
-// per env, field-major; none when `crow_pts` is 0).
+// Launches ceil(B / envs) blocks of envs * warps warps on `stream`: `envs` envs
+// a block, `warps` warps each (FusedTables.launch_plan). `pts` and `rdelta` are
+// the wrapper's scratch, POINT_FIELDS x npts and P x 12 floats per env, read
+// only where this launch wrote them. Returns the CUDA error code of the launch
+// (0 = success), cudaErrorInvalidValue when `smem_bytes` is not the layout's
+// size (env_layout) or the plan does not fit a block; does not synchronise and
+// allocates nothing. The prepped build's entry also takes the env's prepared
+// joint rows (`jrows`, read when `rows_passed`; `ctl` is then not read), the
+// `sequential` flag and the env's prep-passed contact points (`crows`,
+// (POINT_FIELDS - 2) x `crow_pts` floats per env, field-major; none when
+// `crow_pts` is 0).
 #if DXK_PREPPED_JOINTS
 extern "C" int dxk_fused_step_prepped_launch(
     const int* dims, float omega, float inv_dt,
@@ -2930,17 +3050,17 @@ extern "C" int dxk_fused_step_prepped_launch(
     const void* pos_cog, const void* rot, const void* ctl, const void* col_a,
     const void* col_b, const void* col_rot, const void* jrows, int sequential,
     int rows_passed, const void* crows, int crow_pts, const void* itab,
-    const void* ftab,
+    const void* ftab, void* pts, void* rdelta,
     void* v_out, void* w_out, void* imp_out, void* live_out,
-    int threads, int smem_bytes, void* stream) {
+    int envs, int warps, int smem_bytes, void* stream) {
 #else
 extern "C" int dxk_fused_step_launch(
     const int* dims, float omega, float inv_dt,
     const void* v, const void* w, const void* inv_mass, const void* inv_inertia,
     const void* pos_cog, const void* rot, const void* ctl, const void* col_a,
     const void* col_b, const void* col_rot, const void* itab, const void* ftab,
-    void* v_out, void* w_out, void* imp_out, void* live_out,
-    int threads, int smem_bytes, void* stream) {
+    void* pts, void* rdelta, void* v_out, void* w_out, void* imp_out, void* live_out,
+    int envs, int warps, int smem_bytes, void* stream) {
 #endif
   Dims D;
   D.B = dims[0]; D.nb = dims[1]; D.C = dims[2]; D.P = dims[3]; D.nphase = dims[4];
@@ -2948,21 +3068,30 @@ extern "C" int dxk_fused_step_launch(
   for (int i = 0; i < 5; ++i) D.io[i] = dims[8 + i];
   for (int i = 0; i < 3; ++i) D.fo[i] = dims[13 + i];
   for (int t = 0; t < NJT; ++t) {
-    const int* q = dims + 16 + 8 * t;
+    const int* q = dims + 16 + 10 * t;
     JointDesc& d = D.jd[t];
     d.n = q[0]; d.row = q[1]; d.acc = q[2]; d.ctl = q[3];
     d.base = q[4]; d.ptr = q[5]; d.idx = q[6]; d.idg = q[7];
+    d.tb = q[8]; d.ntb = q[9];
   }
-  const int* h = dims + 16 + 8 * NJT;
+  const int* h = dims + 16 + 10 * NJT;
   D.hull_col = h[0]; D.hull_llen = h[1]; D.hull_base = h[2];
   D.hd.V = h[3]; D.hd.F = h[4]; D.hd.FU = h[5]; D.hd.LM = h[6]; D.hd.EU = h[7];
+  D.envs = envs; D.warps = warps;
   // a scene with sphere or cylinder rows needs the library built with them
   if (h[8] != 0 && !DXK_SHAPE_RECIPES) return (int)cudaErrorInvalidValue;
+  int nrow_f, nacc_f, nJmax;
+  EnvLayout L = env_layout(D, nrow_f, nacc_f, nJmax);
+  int threads = 32 * envs * warps;
+  if (envs < 1 || warps < 1 || threads > 256 || (warps > 1 && envs > 15)
+      || smem_bytes != 4 * (words16(D.nb) + envs * L.words) || 2 * D.P > 65535)
+    return (int)cudaErrorInvalidValue;
   if (D.B <= 0) return 0;
   cudaError_t err = cudaFuncSetAttribute(
       fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  fused_step_kernel<<<D.B, threads, smem_bytes, (cudaStream_t)stream>>>(
+  int grid = (D.B + envs - 1) / envs;
+  fused_step_kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
       D, omega, inv_dt,
       (const float*)v, (const float*)w, (const float*)inv_mass,
       (const float*)inv_inertia, (const float*)pos_cog, (const float*)rot,
@@ -2971,7 +3100,7 @@ extern "C" int dxk_fused_step_launch(
 #if DXK_PREPPED_JOINTS
       (const float*)jrows, sequential, rows_passed, (const float*)crows, crow_pts,
 #endif
-      (const int*)itab, (const float*)ftab,
+      (const int*)itab, (const float*)ftab, (float*)pts, (float*)rdelta,
       (float*)v_out, (float*)w_out, (float*)imp_out, (unsigned char*)live_out);
   return (int)cudaGetLastError();
 }

@@ -21,19 +21,21 @@ Pallas TPU kernel behind ``solver_mode="fused"``). It holds
 The wrapper takes the plain version **only for tensors that lie on the
 CPU**. For CUDA tensors it launches the kernel or raises.
 
-What bounds the kernel on an H100: arithmetic, not bytes — one env reads
-about 0.6k floats and writes about 0.8k, and spends on the order of 10^5..10^6
-float operations in a branch-heavy narrowphase and a 30-iteration loop of
-dependent, few-lane joint and contact solves. The design therefore keeps all
-per-env state in shared memory for the whole solve (one block per env),
-skips dead pair rows and dead manifold points (they contribute exactly
-zero), and sums per-body deltas in a fixed order from static incidence
-lists, so results do not vary from run to run. Not done yet: no
-cp.async/TMA staging of the inputs, no packing of several envs into one
-block to fill the lanes during the joint passes, no tuning of the block
-size or register budget; the library is compiled with ``-fmad=false`` so
-that the narrowphase takes the same side of every tie-break as the plain
-version.
+What bounds the kernel on an H100: latency — one env reads about 0.6k
+floats and writes about 0.8k, and runs a branch-heavy narrowphase and a
+30-iteration loop of dependent joint and contact solves whose work fits
+one warp. The design therefore packs several envs into a block, each on a
+team of whole warps that synchronises only itself (`FusedTables.
+launch_plan` picks envs per block and warps per env from the scene's
+shared memory and the batch), keeps in shared memory what the solve
+rewrites, puts the contact points and row deltas in a device-memory
+scratch the wrapper allocates (`scratch_shapes`), touches live pair rows
+and manifold points only (dead ones contribute exactly zero), and sums
+per-body deltas in a fixed order from incidence lists, so results do not
+vary from run to run. Not done yet: no cp.async/TMA staging of the inputs,
+the sequential chain on one lane per env; the library is compiled with
+``-fmad=false`` so that the narrowphase takes the same side of every
+tie-break as the plain version.
 
 Solve semantics: the JAX package's averaged ("jacobi") mode, or with
 ``sequential=True`` its sequential (``fused_seq``) mode — per iteration
@@ -105,7 +107,7 @@ HULL_RECIPES = {(0, 4), (1, 4), (2, 4), (3, 4), (4, 4)}
 MAX_HULL_VERTS = 32
 MAX_HULL_LOOP = 16
 
-# floats one contact point keeps in the kernel's shared memory: 8 vec3
+# floats one contact point keeps in the kernel's scratch: 8 vec3
 # fields + eff_n, eff_t, bias, friction + the two accumulated impulses
 POINT_FIELDS = 30
 POINT_VEC_FIELDS = ("rel_a", "rel_b", "normal", "tangent", "n_to_wa",
@@ -114,9 +116,10 @@ POINT_SCALAR_FIELDS = ("eff_mass_n", "eff_mass_t", "bias", "friction")
 ROW_INTS = 8      # type, k, col_a, col_b, body_a, body_b, pt_base, pt_stride
 # ints of one joint type's descriptor in the kernel's launch dims: joint
 # count, offsets of its rows, accumulated impulses and controls in shared
-# memory, index of its first joint in the joint wiring / static table, and
-# offsets of its incidence lists (itab) and inverse degrees (ftab)
-DESC_INTS = 8
+# memory, index of its first joint in the joint wiring / static table,
+# offsets of its incidence lists (itab) and inverse degrees (ftab), and the
+# offset (itab) and count of the bodies its joints touch
+DESC_INTS = 10
 
 
 def fused2_eligible(scene) -> bool:
@@ -351,21 +354,25 @@ class FusedTables:
         row_off = acc_off = ctl_off = jbase = 0
         for ti, name in enumerate(JOINT_ORDER):
             J = self.joint_counts[name]
-            ptr_off = idx_off = idg_off = 0
+            ptr_off = idx_off = idg_off = tb_off = tb_n = 0
             if J:
                 ent = []
                 for j, (a, b) in enumerate(ab_all[name]):
                     ent.append((int(a), 2 * j))
                     ent.append((int(b), 2 * j + 1))
                 ptr, idx = _csr(nb, ent)
+                # the bodies with an incidence list: the only ones whose
+                # velocities a pass of this type changes
+                touched = np.nonzero(np.diff(ptr))[0].astype(np.int32)
                 ptr_off, idx_off = ilen, ilen + len(ptr)
-                itabs += [ptr, idx]
-                ilen += len(ptr) + len(idx)
+                tb_off, tb_n = idx_off + len(idx), len(touched)
+                itabs += [ptr, idx, touched]
+                ilen += len(ptr) + len(idx) + tb_n
                 idg_off = flen
                 ftabs.append(idg[ti])
                 flen += nb
             desc += [J, row_off, acc_off, ctl_off, jbase, ptr_off, idx_off,
-                     idg_off]
+                     idg_off, tb_off, tb_n]
             row_off += J * JOINT_SPECS[name][0]
             acc_off += J * JOINT_SPECS[name][3]
             ctl_off += J * len(CTL_FIELDS[name])
@@ -416,22 +423,96 @@ class FusedTables:
                 + self.joint_desc + self.hull_offs + list(self.hull_dims)
                 + [int(self.has_shapes)])
 
-    def threads(self) -> int:
-        """Block size: one thread per pair row (rounded up to a warp, at
-        most 224) plus one warp that owns the joints."""
-        return int(min(224, -(-self.num_rows // 32) * 32)) + 32
+    def shared_layout(self):
+        """(block words, env words) of the kernel's shared memory, in
+        4-byte words, each part 16-byte aligned: the block's one copy of
+        the inverse masses, and per env (csrc/fused_step.cu, env_layout,
+        same order) velocities, inverse inertias, joint rows, accumulated
+        joint impulses, one joint pass's deltas, contact inverse degrees per
+        phase, and the live lists (u16: per phase and body the live
+        incidence entries' offsets, per phase the live rows' offsets, the
+        live rows, the live entries; u8: each row's live points)."""
+        def w16(n):
+            return (n + 3) & ~3
+        nb, P, nph = self.num_bodies, self.num_rows, self.num_phases
+        parts = [6 * nb, 9 * nb, self.joint_row_floats, self.joint_acc_floats,
+                 12 * max(max(self.joint_counts.values()), 1), nph * nb,
+                 (nph * (nb + 1) + 1) // 2, (nph + 2) // 2, (P + 1) // 2, P,
+                 (P + 3) // 4]
+        return w16(nb), sum(w16(n) for n in parts)
 
-    def shared_floats(self) -> int:
-        """Floats of shared memory one block carves up: body state,
-        collider params, controls, joint rows and impulses, one joint
-        pass's deltas, contact point fields, row deltas, contact inverse
-        degrees and row masks (csrc/fused_step.cu, same order)."""
-        nb, C = self.num_bodies, self.num_colliders
-        return (nb * (6 + 1 + 9 + 3 + 4) + C * 10 + (self.ctl_rows + 1)
-                + self.joint_row_floats + self.joint_acc_floats
-                + max(max(self.joint_counts.values()), 1) * 12
-                + POINT_FIELDS * self.num_points
-                + self.num_rows * 12 + self.num_phases * nb + self.num_rows)
+    def launch_plan(self, batch) -> "LaunchPlan":
+        """Envs per block (E) and warps per env (W) of the kernel's launch
+        for `batch` envs, on an H100 (SMS SMs of SM_WARPS warps at the
+        kernel's 128 registers a thread and SM_SHARED bytes of shared
+        memory):
+
+          - W: as many warps as leave no warp slot of the card idle at this
+            batch (SMS * SM_WARPS // batch, a power of two, 1 to 8), so a
+            large batch runs one warp per env and a small one spreads each
+            env over up to eight;
+          - then the (E, W >= that) with E * W <= 8 warps a block whose
+            blocks put the most envs on an SM, then the most warps, then
+            the largest E.
+
+        Raises NotImplementedError when one env's working set does not fit
+        a block's shared memory."""
+        block_w, env_w = self.shared_layout()
+        block_b, env_b = 4 * block_w, 4 * env_w
+        if block_b + env_b > BLOCK_SHARED:
+            raise NotImplementedError(
+                f"fused_step: one env needs {block_b + env_b} bytes of shared "
+                f"memory, a block holds {BLOCK_SHARED}")
+        if 2 * self.num_rows > 0xFFFF:
+            raise NotImplementedError(
+                f"fused_step: {self.num_rows} pair rows; the kernel's live "
+                "lists index at most 32767")
+        if batch < 1:
+            raise ValueError("fused_step: empty batch")
+        w_fill = 1
+        while w_fill < 8 and 2 * w_fill * batch <= SMS * SM_WARPS:
+            w_fill *= 2
+        best = None
+        for W in (1, 2, 4, 8):
+            if W < w_fill:
+                continue
+            for E in range(1, 8 // W + 1):
+                smem = block_b + E * env_b
+                if smem > BLOCK_SHARED:
+                    break
+                per_sm = min(SM_WARPS // (E * W),
+                             SM_SHARED // (smem + BLOCK_RESERVED), 32)
+                key = (E * per_sm, E * W * per_sm, E)
+                if best is None or key > best[0]:
+                    best = (key, E, W)
+        _key, E, W = best
+        return LaunchPlan(envs=E, warps=W, threads=32 * E * W,
+                          blocks=-(-batch // E),
+                          smem_bytes=block_b + E * env_b,
+                          env_bytes=env_b, block_bytes=block_b)
+
+
+# the card the launch plan is made for: an H100's SMs, the warps an SM holds
+# at the kernel's 128 registers a thread (65,536 / (128 * 32)), the shared
+# memory an SM and a block can have, and what the SM reserves per block
+SMS = 132
+SM_WARPS = 16
+SM_SHARED = 233472
+BLOCK_SHARED = 232448
+BLOCK_RESERVED = 1024
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """FusedTables.launch_plan: envs per block, warps per env, threads and
+    blocks of the grid, dynamic shared memory of a block and its parts."""
+    envs: int
+    warps: int
+    threads: int
+    blocks: int
+    smem_bytes: int
+    env_bytes: int
+    block_bytes: int
 
 
 # ===========================================================================
@@ -712,7 +793,7 @@ def joint_table_rows(tab: FusedTables, tables):
 def passed_rows(tab: FusedTables, prep):
     """The prep-passed pseudo-group's ContactPrep (B, C, 4, ...: the
     heightfield rows of ops/solver.py's prep_contacts) as the kernel's
-    point layout: (B, 28, 4, C), field-major like the block's point slots
+    point layout: (B, 28, 4, C), field-major
     (rel_a, rel_b, normal, tangent, n_to_wa, n_to_wb, t_to_wa, t_to_wb as
     three components each, then eff_mass_n, eff_mass_t, bias, friction),
     point k of row p at [k, p]."""
@@ -971,7 +1052,7 @@ def load_library(verbose: bool = False, shapes: bool = False,
     rows = tuple(JOINT_SPECS[n][0] for n in JOINT_ORDER)
     if (rows, STATIC_WIDTH, POINT_FIELDS, ROW_INTS, DESC_INTS,
             MAX_HULL_VERTS, MAX_HULL_LOOP) != (
-            (17, 18, 30, 46, 59, 58), 31, 30, 8, 8, 32, 16):
+            (17, 18, 30, 46, 59, 58), 31, 30, 8, 10, 32, 16):
         raise RuntimeError("row layouts changed: csrc/fused_step.cu hard-"
                            "codes the joint row widths, STATIC_WIDTH, "
                            "POINT_FIELDS, ROW_INTS, DESC_INTS and the hull "
@@ -989,8 +1070,10 @@ def load_library(verbose: bool = False, shapes: bool = False,
                                                     # rows passed, passed
                                                     # contact rows, points
         + [p, p]                                    # itab, ftab
+        + [p, p]                                    # point, row-delta scratch
         + [p] * 4                                   # outputs
-        + [i, i, p])                                # threads, smem, stream
+        + [i, i, i, p])                             # envs per block, warps
+                                                    # per env, smem, stream
     _LIBS[name] = lib
     return lib
 
@@ -1009,6 +1092,15 @@ def joint_rows_field_major(tab: FusedTables, tables, like):
         raise ValueError(f"fused_step: {out.shape[1]} joint floats, the "
                          f"kernel's layout holds {tab.joint_row_floats}")
     return out
+
+
+def scratch_shapes(tab: FusedTables, batch):
+    """Shapes of the kernel's two float32 scratch tensors for `batch` envs:
+    the contact points (B, num_points, POINT_FIELDS), a point's fields side
+    by side (one lane reads and writes all of them, so a live point is 120
+    contiguous bytes of cache), and the pair rows' velocity deltas
+    (B, num_rows, 12)."""
+    return ((batch, tab.num_points, POINT_FIELDS), (batch, tab.num_rows, 12))
 
 
 def _launch(tab: FusedTables, num_iterations, omega, inv_dt, v, w, inv_mass,
@@ -1060,15 +1152,16 @@ def _launch(tab: FusedTables, num_iterations, omega, inv_dt, v, w, inv_mass,
     if v.device != tab.device:
         raise ValueError(f"fused_step: inputs on {v.device}, tables on "
                          f"{tab.device}")
-    smem = tab.shared_floats() * 4
-    if smem > 227 * 1024:
-        raise NotImplementedError(
-            f"fused_step: scene needs {smem} bytes of shared memory a "
-            "block; more than one block per env is not implemented")
+    plan = tab.launch_plan(B)
     v_out = torch.empty_like(v)
     w_out = torch.empty_like(w)
     imp = torch.empty((B, P, 4), dtype=torch.float32, device=v.device)
     live = torch.empty((B, P), dtype=torch.uint8, device=v.device)
+    # the kernel's scratch: each env's contact points and its pair rows'
+    # velocity deltas; the kernel writes and reads live rows and points only
+    pts, rdelta = scratch_shapes(tab, B)
+    pts = torch.empty(pts, dtype=torch.float32, device=v.device)
+    rdelta = torch.empty(rdelta, dtype=torch.float32, device=v.device)
     dims = tab.dims(B, num_iterations)
     dims_c = (ctypes.c_int * len(dims))(*dims)
     inputs = [v.data_ptr(), w.data_ptr(), inv_mass.data_ptr(),
@@ -1085,9 +1178,9 @@ def _launch(tab: FusedTables, num_iterations, omega, inv_dt, v, w, inv_mass,
         launch = lib.dxk_fused_step_launch
     build.raise_on_error("fused_step", launch(
         dims_c, float(omega), float(inv_dt), *inputs, tab.itab.data_ptr(),
-        tab.ftab.data_ptr(), v_out.data_ptr(), w_out.data_ptr(),
-        imp.data_ptr(), live.data_ptr(), tab.threads(), smem,
-        build.stream_of(v)))
+        tab.ftab.data_ptr(), pts.data_ptr(), rdelta.data_ptr(),
+        v_out.data_ptr(), w_out.data_ptr(), imp.data_ptr(), live.data_ptr(),
+        plan.envs, plan.warps, plan.smem_bytes, build.stream_of(v)))
     _LAUNCHES[name] += 1
     return v_out, w_out, imp, live
 

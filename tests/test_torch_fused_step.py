@@ -223,7 +223,9 @@ def test_ragged_batch_and_single_env(envs, states):
 
 def test_tables_and_launch_geometry(envs):
     """The static tables the CUDA kernel indexes: 147 rows, 300 point
-    slots, block and shared-memory size within the card's limits."""
+    slots; the launch plan at 4096 envs packs eight one-warp envs into a
+    block of 256 threads, whose shared memory (the envs' and the block's
+    words, no point slot) is within the card's limits."""
     _jenv, tenv = envs
     assert fs.fused2_eligible(tenv.scene)
     tab = fs.fused_tables(tenv.scene, "cpu")
@@ -231,8 +233,12 @@ def test_tables_and_launch_geometry(envs):
     assert tab.joint_counts == dict(distance=0, ball=0, fixed=0, hinge=6,
                                     cone_twist=7, slider=0)
     assert tab.ctl_rows == 67
-    assert tab.threads() % 32 == 0 and 64 <= tab.threads() <= 256
-    assert tab.shared_floats() * 4 <= 227 * 1024
+    plan = tab.launch_plan(4096)
+    assert (plan.envs, plan.warps, plan.threads, plan.blocks) == (8, 1, 256,
+                                                                  512)
+    block_w, env_w = tab.shared_layout()
+    assert plan.smem_bytes == 4 * (block_w + 8 * env_w) <= 227 * 1024
+    assert 4 * env_w < fs.POINT_FIELDS * 4 * tab.num_points
     rows = tab.itab[tab.ioffs[0]:tab.ioffs[1]].view(-1, fs.ROW_INTS)
     assert rows.shape[0] == 147
     assert sorted(set(rows[:, 0].tolist())) == [0, 1, 2]

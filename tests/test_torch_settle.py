@@ -82,8 +82,9 @@ def test_scene_arrays_equal(name):
 
 def test_settle_tables_and_launch_geometry():
     """Config 3's fused-step tables: 16 bodies + the dummy, 19 colliders,
-    165 pair rows in five recipes, 13 joints, 224 threads and 53,736 bytes
-    of shared memory a block; the hull block the kernel reads equals the
+    165 pair rows in five recipes, 13 joints; at 4096 envs eight one-warp
+    envs a block of 256 threads and 45,136 bytes of shared memory (5,632
+    an env, 80 the block's inverse masses); the hull block the kernel reads equals the
     scene's hull arrays, and every hull collider points at it."""
     _jscene, tscene = scenes("settle")
     tab = fs.fused_tables(tscene, "cpu")
@@ -94,8 +95,10 @@ def test_settle_tables_and_launch_geometry():
                     "capsule_hull": 15, "box_box": 3, "box_hull": 3}
     assert tab.joint_counts["hinge"] == 6 and tab.joint_counts[
         "cone_twist"] == 7
-    assert tab.threads() == 224
-    assert tab.shared_floats() * 4 == 53736
+    plan = tab.launch_plan(4096)
+    assert (plan.envs, plan.warps, plan.threads) == (8, 1, 256)
+    assert (plan.smem_bytes, plan.env_bytes, plan.block_bytes) == (
+        45136, 5632, 80)
     V, F, FU, LM, EU = tab.hull_dims
     assert (V, F, FU, LM, EU) == (8, 12, 6, 4, 3)
     h = tscene.hulls

@@ -105,14 +105,17 @@ def test_scene_arrays_equal_full_width():
 
 def test_tables_and_launch_geometry_full_width():
     """The fused step's tables for the 16-chain zoo: 96 joints in six
-    descriptors, 192 row threads + the joint warp, shared memory of one
-    block within the card's 227 KB."""
+    descriptors; at 4096 envs three one-warp envs a block (24,736 bytes of
+    shared memory each, 14,592 of them the joint rows), shared memory of
+    one block within the card's 227 KB."""
     _jscene, tscene = scenes(16)
     tab = fs.fused_tables(tscene, "cpu")
     assert tab.joint_counts == {n: 16 for n in chip_smoke.ZOO_JOINTS}
     assert tab.ctl_rows == 16 * (3 + 7 + 3)
-    assert tab.threads() == 224
-    assert tab.shared_floats() * 4 <= 227 * 1024
+    plan = tab.launch_plan(4096)
+    assert (plan.envs, plan.warps, plan.threads) == (3, 1, 96)
+    assert plan.env_bytes == 24736 and 4 * tab.joint_row_floats == 14592
+    assert plan.smem_bytes <= 227 * 1024
     desc = np.asarray(tab.joint_desc).reshape(6, fs.DESC_INTS)
     rows = [tbs.JOINT_SPECS[n][0] for n in tbs.JOINT_ORDER]
     assert desc[:, 0].tolist() == [16] * 6

@@ -2,19 +2,28 @@
 
 A machine without nvcc cannot build the fused-step kernel. This script
 compiles the same source with g++ instead: a small header maps the CUDA
-keywords away, every CUDA thread of a block becomes a std::thread, and
-__syncthreads() becomes a std::barrier, so the kernel's shared-memory
-layout, indexing and per-type joint passes run as written (blocks one after
-another). Built with -ffp-contract=off, like the card's -fmad=false, and
-with the sphere and cylinder recipes (the build the card launches for
-scenes with such rows; the other build is the same code without them). It
-prints, per scene, the largest differences between the emulated kernel and
-the plain version `_fused_core` (and how many floats differ in their
+keywords away, every CUDA thread of a block becomes a std::thread,
+__syncthreads() becomes a std::barrier of the block, each warp gets a
+std::barrier of its 32 threads that __syncwarp, __ballot_sync,
+__shfl_sync and __shfl_up_sync (exchanging through a per-warp array) wait
+at, __popc is the builtin, and the kernel's named barrier (bar.sync of one
+env's team) becomes a std::barrier per id and block. So the kernel's
+teams, shared-memory layout, live lists, scratch and per-type joint passes
+run as written (blocks one after another). Built with -ffp-contract=off,
+like the card's -fmad=false, and with the sphere and cylinder recipes (the
+build the card launches for scenes with such rows; the other build is the
+same code without them). Each comparison runs three launch geometries: the
+wrapper's plan for the batch (at a few envs one env on eight warps) and
+FORCED_PLANS (three one-warp envs a block, two two-warp envs a block, the
+last block part empty), on a scratch filled with -7777. It prints, per
+scene and geometry, the largest differences between the emulated kernel
+and the plain version `_fused_core` (and how many floats differ in their
 bits, zeros of either sign told apart): on the constraint zoo, on bench.py's
 ragdoll settle (initial state and hull poses that send every hull recipe
 down each of its branches), on the hull pile, on the golden mixed-shape drop
 and sphere bounce (initial and after --shapes-steps steps), on the sphere
-and cylinder check pile and on the locomotion scene.
+and cylinder check pile, on chip_smoke.py's 1,081-row box pile (initial and
+after --shapes-steps steps) and on the locomotion scene.
 sin/cos come from the C library, so scenes with the ragdoll (whose
 cone-twist prep calls them) may differ by float rounding.
 
@@ -25,17 +34,18 @@ plain version on the six golden scenes of tests/test_golden_trajectories.py,
 in both modes it serves: "fused_seq" (sequential) and "fused" with
 joint_prep_in_kernel=False (averaged), each on the initial state and after
 --shapes-steps and --late-steps steps of the "fused" step (the states the
-comparison reads; contacts are live by then); and on chip_smoke.py's
-terrain scene (initial, after --shapes-steps steps, terrain poses) in
-"fused_seq" and "fused" with the joint prep outside and inside the kernel.
+comparison reads; contacts are live by then); on chip_smoke.py's terrain
+scene (initial, after --shapes-steps steps, terrain poses) in "fused_seq"
+and "fused" with the joint prep outside and inside the kernel; and on the
+box pile in both modes.
 
     python3 tools/emulate_fused_step_cpu.py [--chains 2] [--batch 5]
                                             [--shapes-steps 60]
-                                            [--only zoo|settle|shapes|loco ...]
+                                            [--only zoo|settle|shapes|loco|bigpile ...]
     python3 tools/emulate_fused_step_cpu.py --library prepped [--batch 5]
                                             [--shapes-steps 60]
                                             [--late-steps 150]
-                                            [--only-scene NAME|terrain ...]
+                                            [--only-scene NAME|terrain|bigpile ...]
 
 Needs g++ with C++20; writes only under <repo>/build/emulate/.
 """
@@ -62,11 +72,13 @@ from dxk_tpu_torch.physics import (PhysicsSettings, controls_pack,  # noqa: E402
                                    joint_inputs, physics_step,
                                    terrain_inputs)
 
-GROUPS = ("zoo", "settle", "shapes", "loco")
+GROUPS = ("zoo", "settle", "shapes", "loco", "bigpile")
 
 SHIM = r"""
 #pragma once
 #include <barrier>
+#include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 #define __device__
@@ -83,6 +95,52 @@ inline dim3_ blockIdx, blockDim;
 inline std::barrier<>* g_bar;
 inline float* g_smem;
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
+// a warp: 32 of the block's threads with a barrier of their own, which
+// __syncwarp and the warp intrinsics (all with the full mask) wait at
+inline std::vector<std::unique_ptr<std::barrier<>>> g_warp_bar;
+inline unsigned g_xchg[8][32];
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  g_warp_bar[threadIdx.x / 32]->arrive_and_wait();
+}
+template <class T> T emu_exchange(T v, int src_lane) {
+  unsigned w = threadIdx.x / 32, l = threadIdx.x % 32, u, r;
+  static_assert(sizeof(T) == 4, "32-bit values only");
+  __builtin_memcpy(&u, &v, 4);
+  g_xchg[w][l] = u;
+  __syncwarp();
+  r = g_xchg[w][src_lane];
+  __syncwarp();
+  T out;
+  __builtin_memcpy(&out, &r, 4);
+  return out;
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  unsigned w = threadIdx.x / 32, l = threadIdx.x % 32, bits = 0;
+  g_xchg[w][l] = pred != 0;
+  __syncwarp();
+  for (int i = 0; i < 32; ++i) bits |= g_xchg[w][i] << i;
+  __syncwarp();
+  return bits;
+}
+template <class T> T __shfl_sync(unsigned, T v, int src) { return emu_exchange(v, src); }
+template <class T> T __shfl_up_sync(unsigned, T v, unsigned d) {
+  int l = threadIdx.x % 32;
+  return emu_exchange(v, l >= (int)d ? l - (int)d : l);
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// named barriers (bar.sync id, n): one std::barrier of n threads per id and
+// block, made by the first thread to arrive
+inline std::mutex g_named_mu;
+inline std::unique_ptr<std::barrier<>> g_named[16];
+inline void emu_bar_sync(int id, int n) {
+  std::barrier<>* b;
+  {
+    std::lock_guard<std::mutex> lk(g_named_mu);
+    if (!g_named[id]) g_named[id] = std::make_unique<std::barrier<>>(n);
+    b = g_named[id].get();
+  }
+  b->arrive_and_wait();
+}
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
@@ -103,6 +161,10 @@ void emu_launch(int grid, int threads, int smem_bytes, K k, A... args) {
     blockIdx.x = b;
     std::barrier<> bar(threads);
     g_bar = &bar;
+    g_warp_bar.clear();
+    for (int w = 0; w < threads / 32; ++w)
+      g_warp_bar.push_back(std::make_unique<std::barrier<>>(32));
+    for (auto& nb : g_named) nb.reset();
     std::vector<std::thread> ts;
     for (int t = 0; t < threads; ++t)
       ts.emplace_back([=]() { threadIdx.x = t; k(args...); });
@@ -110,6 +172,10 @@ void emu_launch(int grid, int threads, int smem_bytes, K k, A... args) {
   }
 }
 """
+
+# the kernel's one named barrier, as the emulation runs it
+NAMED_BARRIER = ('asm volatile("bar.sync %0, %1;" : : "r"(id + 1), '
+                 '"r"(32 * warps) : "memory");')
 
 
 def build(library="shapes"):
@@ -123,6 +189,10 @@ def build(library="shapes"):
                  r"emu_launch(\1, \2, \3, fused_step_kernel, ", src)
     src = src.replace("extern __shared__ float smem[];",
                       "float* smem = g_smem;")
+    if src.count(NAMED_BARRIER) != 1:
+        raise RuntimeError("csrc/fused_step.cu: its named barrier is not the "
+                           "one line the emulation replaces")
+    src = src.replace(NAMED_BARRIER, "emu_bar_sync(id + 1, 32 * warps);")
     with open(os.path.join(out, "cuda_runtime.h"), "w") as f:
         f.write(SHIM)
     with open(os.path.join(out, "fused_step.cpp"), "w") as f:
@@ -141,17 +211,36 @@ def build(library="shapes"):
         else dll.dxk_fused_step_launch
     fn.restype = i
     fn.argtypes = ([ctypes.POINTER(i), fl, fl] + [p] * 10
-                   + ([p, i, i, p, i] if prepped else []) + [p] * 6
-                   + [i, i, p])
+                   + ([p, i, i, p, i] if prepped else []) + [p] * 8
+                   + [i, i, i, p])
     return fn
 
 
+# launch geometries the emulation runs besides the wrapper's plan for its
+# batch (which at a few envs is one env on eight warps): envs packed one warp
+# each, the last block part empty, and two-warp teams behind named barriers
+FORCED_PLANS = ((3, 1), (2, 2))
+
+
+def plans(tab, batch):
+    """The wrapper's launch plan for `batch` envs and FORCED_PLANS."""
+    block_w, env_w = tab.shared_layout()
+    out = [tab.launch_plan(batch)]
+    for e, w in FORCED_PLANS:
+        out.append(fs.LaunchPlan(
+            envs=e, warps=w, threads=32 * e * w, blocks=-(-batch // e),
+            smem_bytes=4 * (block_w + e * env_w), env_bytes=4 * env_w,
+            block_bytes=4 * block_w))
+    return out
+
+
 def compare(launch, scene, state, dt, mode=None, prep_in_kernel=False):
-    """Largest differences, emulated kernel vs plain version, one solve:
-    the averaged solve with joint prep in the kernel (`mode` None, the
-    shapes library), or "fused_seq" / "fused" on prepared joint rows (the
-    prepped library; "fused" with `prep_in_kernel` preps them in the
-    kernel). A heightfield scene's terrain rows are passed in prepared."""
+    """Largest differences, emulated kernel vs plain version, one solve, for
+    each launch geometry of `plans`: the averaged solve with joint prep in
+    the kernel (`mode` None, the shapes library), or "fused_seq" / "fused"
+    on prepared joint rows (the prepped library; "fused" with
+    `prep_in_kernel` preps them in the kernel). A heightfield scene's
+    terrain rows are passed in prepared."""
     tab = fs.fused_tables(scene, "cpu")
     dt32 = np.float32(dt)
     w = world_colliders(scene, state.pos, state.rot)
@@ -160,9 +249,6 @@ def compare(launch, scene, state, dt, mode=None, prep_in_kernel=False):
     passed = terrain_inputs(scene, w, b, dt32)
     inv_dt = float(np.float32(1.0) / dt32)
     B, P = b.v.shape[0], tab.num_rows
-    v, wv = torch.empty_like(b.v), torch.empty_like(b.w)
-    imp = torch.empty((B, P, 4))
-    live = torch.empty((B, P), dtype=torch.uint8)
     dims = tab.dims(B, cs.ITERATIONS)
     ins = [b.v, b.w, b.inv_mass, b.inv_inertia, b.pos_cog, b.rot, ctl, w.a,
            w.b, w.rot]
@@ -177,28 +263,40 @@ def compare(launch, scene, state, dt, mode=None, prep_in_kernel=False):
             tables = joint_inputs(scene, b, state.controls, dt32, False)
             jrows = fs.joint_rows_field_major(tab, tables, b.v)
             extra[0], extra[2] = jrows.data_ptr(), 1
-    err = launch(
-        (ctypes.c_int * len(dims))(*dims), 1.0, inv_dt, *ins, *extra,
-        tab.itab.data_ptr(), tab.ftab.data_ptr(), v.data_ptr(),
-        wv.data_ptr(), imp.data_ptr(), live.data_ptr(), tab.threads(),
-        tab.shared_floats() * 4, None)
-    if err:
-        raise RuntimeError(f"emulated launch returned {err}")
     vw, pimp, plive = fs._fused_core(
         tab, cs.ITERATIONS, 1.0, inv_dt, torch.cat([b.v, b.w], -1),
         b.inv_mass, b.inv_inertia, b.pos_cog, b.rot, ctl, w.a, w.b, w.rot,
         joint_tables=tables, sequential=mode == "fused_seq", passed=passed)
+
     def bits(x):
         return x.contiguous().view(torch.int32)
-    return dict(err_v=float((v - vw[..., :3]).abs().max()),
-                err_w=float((wv - vw[..., 3:]).abs().max()),
-                err_imp=float((imp - pimp).abs().max()),
-                # floats whose bits differ (a zero of the other sign counts)
-                bits_differ=int((bits(v) != bits(vw[..., :3])).sum()
-                                + (bits(wv) != bits(vw[..., 3:])).sum()
-                                + (bits(imp) != bits(pimp)).sum()),
-                live_mismatch=int((live != plive).sum()),
-                live_rows=int((plive != 0).sum()))
+
+    out = dict(live_rows=int((plive != 0).sum()), plans={})
+    for plan in plans(tab, B):
+        v, wv = torch.empty_like(b.v), torch.empty_like(b.w)
+        imp = torch.empty((B, P, 4))
+        live = torch.empty((B, P), dtype=torch.uint8)
+        # scratch filled with a value no result may show
+        pts, rdelta = (torch.full(sh, -7777.0)
+                       for sh in fs.scratch_shapes(tab, B))
+        err = launch(
+            (ctypes.c_int * len(dims))(*dims), 1.0, inv_dt, *ins, *extra,
+            tab.itab.data_ptr(), tab.ftab.data_ptr(), pts.data_ptr(),
+            rdelta.data_ptr(), v.data_ptr(), wv.data_ptr(), imp.data_ptr(),
+            live.data_ptr(), plan.envs, plan.warps, plan.smem_bytes, None)
+        if err:
+            raise RuntimeError(f"emulated launch returned {err}")
+        out["plans"][f"E{plan.envs}W{plan.warps}"] = dict(
+            err_v=float((v - vw[..., :3]).abs().max()),
+            err_w=float((wv - vw[..., 3:]).abs().max()),
+            err_imp=float((imp - pimp).abs().max()),
+            # floats whose bits differ (a zero of the other sign counts)
+            bits_differ=int((bits(v) != bits(vw[..., :3])).sum()
+                            + (bits(wv) != bits(vw[..., 3:])).sum()
+                            + (bits(imp) != bits(pimp)).sum()),
+            live_mismatch=int((live != plive).sum()))
+    out["bits_differ"] = sum(p["bits_differ"] for p in out["plans"].values())
+    return out
 
 
 def terrain_main(launch, args):
@@ -224,15 +322,35 @@ def terrain_main(launch, args):
                                   jp)}), flush=True)
 
 
+def bigpile_main(launch, args, modes=(None,)):
+    """chip_smoke.py's 1,081-row box pile, initial and after --shapes-steps
+    steps, in each of `modes` (compare's `mode`)."""
+    settings = PhysicsSettings(num_rigid_solver_iterations=cs.ITERATIONS,
+                               solver_mode="fused")
+    scene = cs.bigpile_scene("cpu")
+    st = cs.zoo_initial_state(scene, args.batch, 0)
+    states = {"bigpile_initial": st}
+    for _ in range(args.shapes_steps):
+        st, _info = physics_step(scene, st, settings, cs.BIGPILE_DT)
+    states[f"bigpile_after_{args.shapes_steps}_steps"] = st
+    for name, st in states.items():
+        for mode in modes:
+            print(json.dumps({"scene": name, "mode": mode, **compare(
+                launch, scene, st, cs.BIGPILE_DT, mode)}), flush=True)
+
+
 def prepped_main(args):
     """The prepped library on the six golden scenes, both modes, and on the
     terrain scene."""
     launch = build("prepped")
     settings = PhysicsSettings(num_rigid_solver_iterations=cs.ITERATIONS,
                                solver_mode="fused")
-    for name in args.only_scene or cs.GOLDEN_SCENES + ("terrain",):
+    for name in args.only_scene or cs.GOLDEN_SCENES + ("terrain", "bigpile"):
         if name == "terrain":
             terrain_main(launch, args)
+            continue
+        if name == "bigpile":
+            bigpile_main(launch, args, ("fused_seq", "fused"))
             continue
         scene = cs.shapes_scene(name, "cpu")
         st = cs.shapes_initial_state(scene, args.batch, 0)
@@ -257,10 +375,11 @@ def main():
     ap.add_argument("--late-steps", type=int, default=150)
     ap.add_argument("--only", choices=GROUPS, action="append",
                     help="run only these scene groups (default: all)")
-    ap.add_argument("--only-scene", choices=cs.GOLDEN_SCENES + ("terrain",),
+    ap.add_argument("--only-scene",
+                    choices=cs.GOLDEN_SCENES + ("terrain", "bigpile"),
                     action="append",
-                    help="with --library prepped: only these golden scenes "
-                         "or the terrain scene")
+                    help="with --library prepped: only these golden scenes, "
+                         "the terrain scene or the box pile")
     args = ap.parse_args()
     if args.library == "prepped":
         prepped_main(args)
@@ -305,6 +424,8 @@ def main():
         print(json.dumps({"scene": "shapes_pile_poses", **compare(
             launch, pile, cs.shapes_pile_poses(pile, 8 * args.batch, 0),
             cs.SHAPES_DT)}), flush=True)
+    if "bigpile" in groups:
+        bigpile_main(launch, args)
     if "loco" in groups:
         from dxk_tpu_torch.envs.loco_env import DT, LocoEnv
         env = LocoEnv(solver_mode="fused", device="cpu", enable_pokes=False)

@@ -12,12 +12,17 @@ five runs of 20 back-to-back launches queued behind a spin of the card,
 CUDA events. Scenes: "loco", the
 loco env with seeded random actions; "zoo", "settle" and "mixed",
 chip_smoke.py's constraint zoo, ragdoll settle and golden mixed-shape drop
-(after 150 steps, when its bodies touch), each built with the tree's own
-package (a tree whose package cannot build a scene prints that and goes
-on). One JSON line per tree, scene and iteration count: the five times in ms,
-their median and the kernel's ptxas lines.
+(after 150 steps, when its bodies touch); "terrain" and "terrain_seq",
+chip_smoke.py's terrain scene on the prepped build ("fused" with the joint
+prep in the kernel, as physics_step runs it, and "fused_seq"); and
+"ragdoll_seq", the golden ragdoll_settle on "fused_seq" (the fidelity
+row's timed scene); "bigpile", chip_smoke.py's 1,081-row box pile. Each is
+built with the tree's own package (a tree whose package cannot build or
+step a scene prints that and goes on). One JSON line per tree, scene and
+iteration count: the five times in ms, their median, the launch plan where
+the tree has one and the library's ptxas lines.
 
-    python3 tools/time_fused_kernel_trees.py [--scene loco,zoo,settle,mixed]
+    python3 tools/time_fused_kernel_trees.py [--scene loco,zoo,...]
                                              [--iterations 0,30] TREE [TREE ...]
 """
 
@@ -29,7 +34,10 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 ENVS = 4096
-WARM_STEPS = {"loco": 60, "zoo": 60, "settle": 60, "mixed": 150}
+WARM_STEPS = {"loco": 60, "zoo": 60, "settle": 60, "mixed": 150,
+              "terrain": 60, "terrain_seq": 60, "ragdoll_seq": 60,
+              "bigpile": 60}
+SEQUENTIAL = ("terrain_seq", "ragdoll_seq")
 RUNS, REPS = 5, 20
 
 
@@ -55,11 +63,20 @@ def scene_state(name):
     elif name == "settle":
         scene, dt = cs.settle_scene(), cs.SETTLE_DT
         init = cs.settle_initial_state
+    elif name in ("terrain", "terrain_seq"):
+        scene, dt = cs.terrain_scene(), cs.TERRAIN_DT
+        init = cs.terrain_initial_state
+    elif name == "bigpile":
+        scene, dt = cs.bigpile_scene(), cs.BIGPILE_DT
+        init = cs.zoo_initial_state
     else:
-        scene, dt = cs.shapes_scene("mixed_shape_drop"), cs.SHAPES_DT
+        scene, dt = cs.shapes_scene(
+            "ragdoll_settle" if name == "ragdoll_seq"
+            else "mixed_shape_drop"), cs.SHAPES_DT
         init = cs.shapes_initial_state
-    settings = PhysicsSettings(num_rigid_solver_iterations=30,
-                               solver_mode="fused")
+    settings = PhysicsSettings(
+        num_rigid_solver_iterations=30,
+        solver_mode="fused_seq" if name in SEQUENTIAL else "fused")
     s = init(scene, ENVS, 0)
     for _ in range(WARM_STEPS[name]):
         s, _info = physics_step(scene, s, settings, dt)
@@ -68,22 +85,16 @@ def scene_state(name):
 
 def time_tree(tree, scenes, iteration_counts):
     sys.path.insert(0, tree)
-    import numpy as np
     import torch
-    from dxk_tpu_torch.ops.integrator import integrate_forces
     from dxk_tpu_torch.ops.kernels import fused_step as fs
-    from dxk_tpu_torch.ops.shapes import world_colliders
-    from dxk_tpu_torch.physics import controls_pack
+    sys.path.insert(1, ROOT)
+    import chip_smoke as cs
 
-    # the tree's libraries, built before any scene's steps build them
-    # quietly (a tree from before the sphere and cylinder recipes has one)
-    if hasattr(fs, "BUILD_LOGS"):
-        for shapes in (False, True):
-            fs.load_library(verbose=True, shapes=shapes)
-        logs = dict(fs.BUILD_LOGS)
-    else:
-        fs.load_library(verbose=True)
-        logs = {"base": fs.BUILD_LOG}
+    # the tree's three libraries, built before any scene's steps build them
+    # quietly
+    for kw in (dict(), dict(shapes=True), dict(prepped=True)):
+        fs.load_library(verbose=True, **kw)
+    logs = dict(fs.BUILD_LOGS)
 
     for name in scenes:
         try:
@@ -93,20 +104,23 @@ def time_tree(tree, scenes, iteration_counts):
                                   skipped=f"NotImplementedError: {e}")),
                   flush=True)
             continue
-        dt32 = np.float32(dt)
-        wcol = world_colliders(scene, s.pos, s.rot)
-        bodies = integrate_forces(scene, s, float(dt32))
-        ctl = controls_pack(scene, s.controls if s.controls is not None
-                            else scene.batched_controls(ENVS), dt32)
-        inv_dt = float(np.float32(1.0) / dt32)
+        seq = name in SEQUENTIAL
+        bodies, wcol, joints, inv_dt, passed = cs.kernel_inputs(
+            scene, s, dt, prep_in_kernel=not seq)
         tab = fs.fused_tables(scene, "cuda")
-        log = logs["shapes" if getattr(tab, "has_shapes", False) else "base"]
+        prepped = seq or tab.passed_points > 0
+        log = logs["prepped" if prepped else
+                   "shapes" if tab.has_shapes else "base"]
         ptxas = [ln.strip() for ln in log.splitlines()
                  if "Used" in ln or "spill" in ln or "stack" in ln]
+        plan = (vars(tab.launch_plan(ENVS)) if hasattr(tab, "launch_plan")
+                else None)
         for iters in iteration_counts:
-            solver = fs.make_fused_step_solver(scene, iters, 1.0)
+            solver = fs.make_fused_step_solver(
+                scene, iters, 1.0, sequential=seq,
+                joint_prep_in_kernel=not seq)
             for _ in range(3):
-                solver(bodies, wcol, ctl, inv_dt)
+                solver(bodies, wcol, joints, inv_dt, passed)
             times = []
             for _ in range(RUNS):
                 torch.cuda.synchronize()
@@ -115,14 +129,14 @@ def time_tree(tree, scenes, iteration_counts):
                 stop = torch.cuda.Event(enable_timing=True)
                 start.record()
                 for _ in range(REPS):
-                    solver(bodies, wcol, ctl, inv_dt)
+                    solver(bodies, wcol, joints, inv_dt, passed)
                 stop.record()
                 torch.cuda.synchronize()
                 times.append(start.elapsed_time(stop) / REPS)
             print(json.dumps(dict(tree=tree, scene=name, iterations=iters,
                                   device=torch.cuda.get_device_name(0),
                                   ms=times, median=sorted(times)[RUNS // 2],
-                                  ptxas=ptxas)), flush=True)
+                                  plan=plan, ptxas=ptxas)), flush=True)
 
 
 def main():
