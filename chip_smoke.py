@@ -66,6 +66,13 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
              a block holds in the one-env-per-block layout) at 256 and a
              ragged 1000 envs, initial and after 60 steps; the kernel's
              times and launch plans
+  broadphase_cases
+             the three broadphase kernels vs their plain versions (equal
+             integers) on seeded random colliders: C from 1 to 5000 (ragged
+             tiles, column chunks), B 1, 3 and 32, K 1, 8 and 20, 1 and 4
+             contact phases, statics first, in the middle and last, half
+             statics, rows with more than K hits (BROADPHASE_CASES, also run
+             under g++ by tools/emulate_broadphase_cpu.py)
   box_stack  the three broadphase kernels vs their plain versions (equal
              integers) on the initial and a rolled-out state, pair sets equal
              across the broadphases, then the box stack stepped in each
@@ -661,6 +668,106 @@ def hold_kernels(calls, where):
                                f"differences {diff}")
         out[name] = max(diff)
     return out
+
+
+# edge cases of the broadphase kernels, run on the card here and under g++ by
+# tools/emulate_broadphase_cpu.py: (seed, B, C, K, num_phases, statics,
+# static share); a None in statics is index C // 2, a negative one counts
+# from the end. C = 1 and 31 give ragged tiles and row starts, 600 and 2100
+# more columns than a K-select chunk, 2100 more than the overlap matrix
+# stages whole; K = 20 is past what the K-select's slices buffer (one warp
+# walks a row); the eleventh case is half statics (the K-select's static
+# list spans chunks).
+BROADPHASE_CASES = (
+    (1, 1, 1, 1, 1, (0,), 0.0),
+    (2, 3, 1, 8, 4, (), 0.0),                 # one rigid collider
+    (3, 3, 31, 8, 4, (0, None, -1), 0.05),
+    (4, 1, 31, 1, 1, (0, None, -1), 0.05),
+    (5, 3, 130, 1, 4, (0, None, -1), 0.05),
+    (6, 1, 130, 8, 1, (None, -1), 0.05),      # no ground
+    (7, 1, 600, 8, 4, (0, None, -1), 0.05),
+    (14, 3, 130, 20, 4, (0, None, -1), 0.05),  # K past the slices
+    (8, 3, 1025, 8, 4, (0, None, -1), 0.05),
+    (9, 1, 1025, 1, 1, (0, None, -1), 0.05),
+    (10, 1, 1025, 8, 4, (0,), 0.5),
+    (11, 1, 2100, 8, 4, (0, None, -1), 0.02),
+)
+BROADPHASE_SMALL_CASES = 8          # the first cases, the CPU test's share
+# on the card only: the main path's width and batch, and a C of several
+# thousand at one env (the overlap matrix in column chunks)
+BROADPHASE_CARD_CASES = (
+    (12, 32, 1025, 8, 4, (0, None, -1), 0.05),
+    (13, 1, 5000, 8, 4, (0, None, -1), 0.02),
+)
+
+
+def broadphase_colliders(seed, B, C, statics=(0,), static_share=0.05,
+                         device="cpu"):
+    """B envs of C random AABBs and the (C,) body, owner and shape type
+    vectors, made with numpy from `seed`: the colliders in `statics` and a
+    `static_share` of the others are static (index 0, if static, a broad
+    ground), rigid colliders share bodies in pairs, a few are force fields
+    or triggers, and a dense cluster of a quarter of the boxes gives rows
+    more hits than K."""
+    rng = np.random.default_rng(seed)
+    mn = rng.uniform(-6, 6, (B, C, 3)).astype(np.float32)
+    ext = rng.uniform(0.5, 3.0, (B, C, 3))
+    mn[:, : C // 4] = rng.uniform(-1, 1, (B, C // 4, 3))
+    mx = (mn + ext).astype(np.float32)
+    owner = np.where(rng.uniform(size=C) < static_share, 1, 0).astype(np.int32)
+    owner[rng.uniform(size=C) < 0.03] = 2
+    owner[rng.uniform(size=C) < 0.03] = 3
+    for s in statics:
+        owner[(C // 2 if s is None else s) % C] = 1
+    if owner[0] == 1:
+        mn[:, 0] = (-30.0, -1.0, -30.0)
+        mx[:, 0] = (30.0, 0.5, 30.0)
+    body = (np.arange(C, dtype=np.int32) // 2).astype(np.int32)
+    body[owner == 1] = C
+    ctype = rng.integers(0, 5, C).astype(np.int32)
+    return tuple(torch.from_numpy(x).to(device)
+                 for x in (mn, mx, body, owner, ctype))
+
+
+def broadphase_case_calls(case, device):
+    """For one case of BROADPHASE_CASES: (summary, {kernel: {"kernel": call,
+    "plain": call}}) on tensors made on `device`."""
+    from dxk_tpu_torch.ops.kernels import broadphase_kernel as bk
+    from dxk_tpu_torch.ops.kernels import kselect_broadphase as ks
+    from dxk_tpu_torch.ops.kernels import sap_broadphase as sp
+    seed, B, C, K, nph, statics, share = case
+    mn, mx, body, owner, ctype = broadphase_colliders(seed, B, C, statics,
+                                                      share, device)
+    broad = (0,) if int(owner[0]) == 1 else ()
+    sargs = sp.sort_for_sweep(mn, mx, body, owner, ctype, broad)[1:] + (
+        nph, K, 2)
+    kargs = (mn, mx, body, owner, ctype, nph, K)
+    summary = dict(seed=seed, B=B, C=C, K=K, num_phases=nph,
+                   statics=int((owner == 1).sum()))
+    return summary, {
+        "aabb_overlap_matrix": dict(
+            kernel=lambda: bk.aabb_overlap_matrix(mn, mx),
+            plain=lambda: bk.aabb_overlap_matrix_plain(mn, mx)),
+        "kselect_broadphase": dict(
+            kernel=lambda: ks.kselect_broadphase(*kargs),
+            plain=lambda: ks.kselect_broadphase_plain(*kargs)),
+        "sap_broadphase": dict(
+            kernel=lambda: sp.sap_sweep(*sargs),
+            plain=lambda: sp.sap_sweep_plain(*sargs))}
+
+
+def broadphase_cases_phase():
+    """The three broadphase kernels against their plain versions, integer
+    for integer, on every case of BROADPHASE_CASES and
+    BROADPHASE_CARD_CASES; raises on any difference."""
+    rows = []
+    for case in BROADPHASE_CASES + BROADPHASE_CARD_CASES:
+        summary, calls = broadphase_case_calls(case, DEVICE)
+        summary["max_abs_err"] = hold_kernels(calls, f"seed {case[0]}")
+        summary["rows_over_k"] = int(
+            (calls["kselect_broadphase"]["plain"]()[2] > case[3]).sum())
+        rows.append(summary)
+    emit("broadphase_cases", cases=rows)
 
 
 def pair_keys(scene, mn, mx):
@@ -2704,6 +2811,9 @@ def main():
 
     # ---- a 1,081-row box pile, past the one-env-per-block kernel's limit
     bigpile_phase(args.seed + 9)
+
+    # ---- the broadphase kernels' edge cases
+    broadphase_cases_phase()
 
     # ---- the box stack on the reference step, each broadphase
     box_kernels = box_stack_phase(args.seed + 3)

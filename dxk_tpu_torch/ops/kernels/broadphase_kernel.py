@@ -12,9 +12,20 @@ behind the dense branch of ``ops/broadphase.py::aabb_overlap_mask``. Holds
   - `load_library`, which builds ``csrc/broadphase.cu`` (all three
     broadphase kernels) and binds its entry points.
 
-What bounds the kernel on an H100: bytes. Six float compares per (i, j)
-against the one byte written per (i, j); one thread per entry, a warp on 32
-neighbouring columns of one row, so the int8 writes are coalesced.
+What bounds the kernel on an H100: bytes (B * C * C int8 written; six
+float compares per byte). A block takes one env, a tile of 32 rows and the
+whole row of columns, or, for envs wider than 1536 colliders or batches too
+small to give every SM two blocks, a chunk of 256 to 1024 columns. It stages
+the columns' AABBs in shared memory as six SoA float arrays, keeps four
+rows' AABBs in each of its eight warps' registers, walks the columns a lane
+each and tests them without a branch, writing the bytes into a shared tile
+whose addresses match the output's modulo 16; then it copies the tile out
+in 16-byte chunks aligned in global memory, a warp writing 512 contiguous
+bytes. Row starts are not 16-byte
+aligned when C % 16 != 0: a tile of whole rows is one contiguous range, so
+only its first and last chunk are written byte by byte (a chunked tile's
+rows each have a ragged head and tail). Not done: TMA staging, and a
+bit-packed matrix, which would change the function this returns.
 """
 
 from __future__ import annotations
@@ -26,7 +37,7 @@ import torch
 from dxk_tpu_torch.ops.kernels import build
 
 NVCC_FLAGS = list(build.BASE_FLAGS)
-MAX_ROWS = 65535 * 8     # grid rows of 8 per block (y dimension limit)
+MAX_ROWS = 65535 * 8     # the most colliders a broadphase wrapper takes
 
 _LIB = None
 _LAUNCHES = 0

@@ -15,11 +15,19 @@ the wrapper `kselect_broadphase` around ``kselect_kernel`` of
 ``csrc/broadphase.cu`` (plain version for CPU tensors, kernel for CUDA
 tensors, or it raises).
 
-What bounds the kernel on an H100: operations (every pair of the C x C space
-is tested and classified; K + 1 integers per row leave the chip). One warp
-per row walks the columns 32 at a time; a ballot marks the hits and the
-popcount of the lower lanes gives each its output slot, so the first K hits
-come out in ascending partner order in one pass.
+What bounds the kernel on an H100: operations (the pair tests; K + 1
+integers per row leave the chip). A block takes one env and 32 rows, one
+thread a row in each of its four warps, the row's AABB, body and shape type
+in registers. It walks only the columns the placement rule admits, in
+ascending order (the env's statics below the tile, listed with a ballot
+over `owner_type`, then every column from the tile's first row on), cut
+into four consecutive slices, one a warp. Each warp streams its slice
+through shared memory as float4s read by all lanes at once, tests eight
+columns at a time without a branch, and keeps its first K hits; warp 0
+appends the others' in slice order and counts every hit. A row that is not
+a rigid body writes padding and a count of 0 at once. For K > 16 one warp
+walks the whole list (the slices' hits would not fit in shared memory).
+Rigid bodies' indices must not be INT_MIN (the kernel's "no body" mark).
 """
 
 from __future__ import annotations

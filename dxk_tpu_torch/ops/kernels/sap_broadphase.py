@@ -21,7 +21,8 @@ raise).
 
 What bounds the kernel on an H100: operations (C x window x 128 pairs tested
 and classified; K + 2 integers per row leave the chip). One warp per sorted
-row walks its window 32 columns at a time with a ballot/popcount select.
+row walks its window 32 columns at a time with a ballot/popcount select
+(the first design, unchanged; the next of the three to be redesigned).
 """
 
 from __future__ import annotations

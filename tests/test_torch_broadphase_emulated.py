@@ -1,0 +1,64 @@
+"""Port check of csrc/broadphase.cu without a GPU: the source of the three
+broadphase kernels (overlap matrix, K-select, sort-and-sweep), compiled with
+g++ through tools/emulate_broadphase_cpu.py's CUDA shim, equals the plain
+versions integer for integer on the small cases of
+chip_smoke.BROADPHASE_CASES (C from 1 to 600: ragged tiles and row starts,
+K-select column chunks; B 1 and 3; K 1, 8 and 20 (past the sliced walk); 1 and 4 contact phases;
+statics first, in the middle and last; shared bodies; rows past K). The
+overlap matrix runs with whole rows staged (SM count 1) and in column
+chunks (SM count 132). The plain versions are held against the JAX package
+by tests/test_torch_broadphase.py; no JAX here."""
+import os
+import shutil
+import sys
+
+import pytest
+import torch
+
+# In a process that also runs JAX, the first torch.sqrt call on this CPU build
+# of PyTorch can come back at reduced precision (~2e-4 relative; later calls
+# are exact). Every port test file spends that first call at import.
+torch.sqrt(torch.ones(4096))
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+
+import chip_smoke as cs  # noqa: E402
+
+NO_GXX = shutil.which("g++") is None
+pytestmark = pytest.mark.skipif(
+    NO_GXX, reason="g++ is needed to build csrc/broadphase.cu on the CPU")
+
+
+@pytest.fixture(scope="module")
+def emu():
+    import emulate_broadphase_cpu as emu_mod
+    return emu_mod, emu_mod.build()
+
+
+@pytest.mark.parametrize(
+    "case", cs.BROADPHASE_CASES[:cs.BROADPHASE_SMALL_CASES],
+    ids=lambda c: f"seed{c[0]}-B{c[1]}-C{c[2]}-K{c[3]}-ph{c[4]}")
+def test_emulated_kernels_equal_plain(emu, case):
+    mod, dll = emu
+    r = mod.check_case(dll, case)
+    assert mod.failures(r) == 0, r
+    assert set(r) >= {"overlap_sms1", "overlap_sms132", "kselect", "sap"}
+
+
+def test_cases_reach_the_edges():
+    """The small cases hold rows past K, statics at both ends and in the
+    middle, a K-select past one column chunk and the one-collider env."""
+    small = cs.BROADPHASE_CASES[:cs.BROADPHASE_SMALL_CASES]
+    assert {c[2] for c in small} >= {1, 31, 130, 600}
+    assert {c[1] for c in small} == {1, 3}
+    assert {c[3] for c in small} == {1, 8, 20}
+    assert {c[4] for c in small} == {1, 4}
+    seed, B, C, K, nph, statics, share = small[6]
+    _mn, _mx, body, owner, _ct = cs.broadphase_colliders(seed, B, C, statics,
+                                                          share)
+    assert int(owner[0]) == 1 and int(owner[C // 2]) == 1
+    assert int(owner[-1]) == 1
+    assert int((owner > 1).sum()) > 0          # force fields / triggers
+    assert int((body[:-1] == body[1:]).sum()) > 0
