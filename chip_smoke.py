@@ -72,7 +72,9 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
              tiles, column chunks), B 1, 3 and 32, K 1, 8 and 20, 1 and 4
              contact phases, statics first, in the middle and last, half
              statics, rows with more than K hits (BROADPHASE_CASES, also run
-             under g++ by tools/emulate_broadphase_cpu.py)
+             under g++ by tools/emulate_broadphase_cpu.py); the sweep alone
+             on unsorted input, NaN, +-inf and inverted boxes, windows 1 to
+             9 (past C), overflowing rows, K 20 and 80 (SWEEP_CASES)
   box_stack  the three broadphase kernels vs their plain versions (equal
              integers) on the initial and a rolled-out state, pair sets equal
              across the broadphases, then the box stack stepped in each
@@ -618,9 +620,11 @@ def broadphase_calls(scenes, mn, mx):
     k_pairs = int(k_admit.sum()) * B
     k_hits = int((ov & k_admit).sum())
     s_idx, s_cls, s_cnt, _ = sp.sap_sweep_plain(*sargs)
-    i0 = (ii // 128) * 128
-    s_pairs = int(torch.clamp(torch.clamp(i0 + W * 128, max=C) - ii - 1,
-                              min=0).sum()) * B
+    # the sweep tests a row's columns up to its exact stop, and none for a
+    # row that pairs with nothing
+    pairs_with = (owner_s == 0) | (owner_s == 1)
+    s_pairs = int((torch.clamp(sp.sweep_stops(mn_s, mx_s, W) - ii - 1, min=0)
+                   * pairs_with).sum())
     s_hits = int(s_cnt.sum())
     f32 = 4
     return {
@@ -672,32 +676,50 @@ def hold_kernels(calls, where):
 
 # edge cases of the broadphase kernels, run on the card here and under g++ by
 # tools/emulate_broadphase_cpu.py: (seed, B, C, K, num_phases, statics,
-# static share); a None in statics is index C // 2, a negative one counts
-# from the end. C = 1 and 31 give ragged tiles and row starts, 600 and 2100
-# more columns than a K-select chunk, 2100 more than the overlap matrix
-# stages whole; K = 20 is past what the K-select's slices buffer (one warp
-# walks a row); the eleventh case is half statics (the K-select's static
+# static share, sweep window); a None in statics is index C // 2, a negative
+# one counts from the end. C = 1 and 31 give ragged tiles and row starts, 600
+# and 2100 more columns than a K-select chunk, 2100 more than the overlap
+# matrix stages whole; K = 20 is past what the K-select's slices buffer (one
+# warp walks a row); the eleventh case is half statics (the K-select's static
 # list spans chunks).
 BROADPHASE_CASES = (
-    (1, 1, 1, 1, 1, (0,), 0.0),
-    (2, 3, 1, 8, 4, (), 0.0),                 # one rigid collider
-    (3, 3, 31, 8, 4, (0, None, -1), 0.05),
-    (4, 1, 31, 1, 1, (0, None, -1), 0.05),
-    (5, 3, 130, 1, 4, (0, None, -1), 0.05),
-    (6, 1, 130, 8, 1, (None, -1), 0.05),      # no ground
-    (7, 1, 600, 8, 4, (0, None, -1), 0.05),
-    (14, 3, 130, 20, 4, (0, None, -1), 0.05),  # K past the slices
-    (8, 3, 1025, 8, 4, (0, None, -1), 0.05),
-    (9, 1, 1025, 1, 1, (0, None, -1), 0.05),
-    (10, 1, 1025, 8, 4, (0,), 0.5),
-    (11, 1, 2100, 8, 4, (0, None, -1), 0.02),
+    (1, 1, 1, 1, 1, (0,), 0.0, 2),
+    (2, 3, 1, 8, 4, (), 0.0, 2),                 # one rigid collider
+    (3, 3, 31, 8, 4, (0, None, -1), 0.05, 2),
+    (4, 1, 31, 1, 1, (0, None, -1), 0.05, 2),
+    (5, 3, 130, 1, 4, (0, None, -1), 0.05, 2),
+    (6, 1, 130, 8, 1, (None, -1), 0.05, 2),      # no ground
+    (7, 1, 600, 8, 4, (0, None, -1), 0.05, 2),
+    (14, 3, 130, 20, 4, (0, None, -1), 0.05, 2),  # K past the slices
+    (8, 3, 1025, 8, 4, (0, None, -1), 0.05, 2),
+    (9, 1, 1025, 1, 1, (0, None, -1), 0.05, 2),
+    (10, 1, 1025, 8, 4, (0,), 0.5, 2),
+    (11, 1, 2100, 8, 4, (0, None, -1), 0.02, 2),
 )
 BROADPHASE_SMALL_CASES = 8          # the first cases, the CPU test's share
 # on the card only: the main path's width and batch, and a C of several
 # thousand at one env (the overlap matrix in column chunks)
 BROADPHASE_CARD_CASES = (
-    (12, 32, 1025, 8, 4, (0, None, -1), 0.05),
-    (13, 1, 5000, 8, 4, (0, None, -1), 0.02),
+    (12, 32, 1025, 8, 4, (0, None, -1), 0.05, 2),
+    (13, 1, 5000, 8, 4, (0, None, -1), 0.02, 2),
+)
+# edges of the sort-and-sweep alone, run on the card and under g++ (all in
+# the CPU test): (seed, B, C, K, num_phases, window, layout). "sorted" takes
+# sort_for_sweep's order with the ground left out as the scenes do;
+# "unsorted" hands the colliders to sap_sweep in index order, ground and
+# all; "nan_inf" puts NaN and +-inf coordinates and inverted boxes into some
+# colliders first. Window 1 leaves most rows overflowing, 8 reaches past C;
+# K 80: one warp a block, a wide shared tile of partners.
+SWEEP_CASES = (
+    (21, 1, 600, 8, 4, 1, "sorted"),
+    (22, 3, 300, 8, 4, 4, "sorted"),
+    (23, 1, 600, 20, 4, 8, "sorted"),
+    (24, 3, 130, 8, 1, 2, "unsorted"),
+    (25, 1, 600, 8, 4, 4, "unsorted"),
+    (26, 3, 400, 8, 4, 2, "nan_inf"),
+    (27, 1, 300, 20, 4, 3, "nan_inf unsorted"),
+    (28, 1, 31, 1, 1, 9, "nan_inf"),
+    (29, 1, 300, 80, 4, 4, "sorted"),
 )
 
 
@@ -735,14 +757,14 @@ def broadphase_case_calls(case, device):
     from dxk_tpu_torch.ops.kernels import broadphase_kernel as bk
     from dxk_tpu_torch.ops.kernels import kselect_broadphase as ks
     from dxk_tpu_torch.ops.kernels import sap_broadphase as sp
-    seed, B, C, K, nph, statics, share = case
+    seed, B, C, K, nph, statics, share, window = case
     mn, mx, body, owner, ctype = broadphase_colliders(seed, B, C, statics,
                                                       share, device)
     broad = (0,) if int(owner[0]) == 1 else ()
     sargs = sp.sort_for_sweep(mn, mx, body, owner, ctype, broad)[1:] + (
-        nph, K, 2)
+        nph, K, window)
     kargs = (mn, mx, body, owner, ctype, nph, K)
-    summary = dict(seed=seed, B=B, C=C, K=K, num_phases=nph,
+    summary = dict(seed=seed, B=B, C=C, K=K, num_phases=nph, window=window,
                    statics=int((owner == 1).sum()))
     return summary, {
         "aabb_overlap_matrix": dict(
@@ -756,10 +778,66 @@ def broadphase_case_calls(case, device):
             plain=lambda: sp.sap_sweep_plain(*sargs))}
 
 
+def sweep_case_inputs(case, device="cpu"):
+    """The arguments of sap_sweep for one case of SWEEP_CASES: (mn_s, mx_s,
+    body_s, owner_s, ctype_s, num_phases, K, window), made on `device`."""
+    from dxk_tpu_torch.ops.kernels import sap_broadphase as sp
+    seed, B, C, K, nph, window, layout = case
+    mn, mx, body, owner, ctype = broadphase_colliders(seed, B, C,
+                                                      (0, None, -1), 0.05)
+    if "nan_inf" in layout:
+        # per env, about one collider in twelve each: a NaN coordinate of
+        # its min or max corner, min-x -inf, max-x +inf, max-x -inf, and an
+        # axis whose min and max are swapped
+        rng = np.random.default_rng(seed + 1000)
+        mn, mx = mn.numpy().copy(), mx.numpy().copy()
+        for b in range(B):
+            pick = rng.integers(0, 6, C)
+            pick[rng.uniform(size=C) < 0.5] = -1
+            ax = rng.integers(0, 3, C)
+            for i in np.nonzero(pick >= 0)[0]:
+                k, a = pick[i], ax[i]
+                if k == 0:
+                    mn[b, i, a] = np.nan
+                elif k == 1:
+                    mx[b, i, a] = np.nan
+                elif k == 2:
+                    mn[b, i, 0] = -np.inf
+                elif k == 3:
+                    mx[b, i, 0] = np.inf
+                elif k == 4:
+                    mx[b, i, 0] = -np.inf
+                else:
+                    mn[b, i, a], mx[b, i, a] = mx[b, i, a], mn[b, i, a]
+        mn, mx = torch.from_numpy(mn), torch.from_numpy(mx)
+    if "unsorted" in layout:
+        sorted_in = (mn, mx, *(x.to(torch.int32)[None].expand(B, C)
+                               .contiguous() for x in (body, owner, ctype)))
+    else:
+        sorted_in = sp.sort_for_sweep(mn, mx, body, owner, ctype, (0,))[1:]
+    return tuple(x.to(device) for x in sorted_in) + (nph, K, window)
+
+
+def sweep_case_summary(case, sargs, cnt, ovf):
+    """What one SWEEP_CASES case exercises, from its inputs and the plain
+    sweep's counts and overflow flags."""
+    seed, B, C, K, nph, window, layout = case
+    mn_s, mx_s = sargs[0], sargs[1]
+    both = torch.cat([mn_s, mx_s], dim=-1)
+    return dict(seed=seed, B=B, C=C, K=K, num_phases=nph, window=window,
+                layout=layout, nan=int(torch.isnan(both).sum()),
+                inf=int(torch.isinf(both).sum()),
+                inverted=int((mn_s > mx_s).sum()),
+                rows_over_k=int((cnt > K).sum()),
+                rows_overflowing=int(ovf.sum()), hits=int(cnt.sum()))
+
+
 def broadphase_cases_phase():
     """The three broadphase kernels against their plain versions, integer
     for integer, on every case of BROADPHASE_CASES and
-    BROADPHASE_CARD_CASES; raises on any difference."""
+    BROADPHASE_CARD_CASES, and the sweep alone on SWEEP_CASES; raises on any
+    difference."""
+    from dxk_tpu_torch.ops.kernels import sap_broadphase as sp
     rows = []
     for case in BROADPHASE_CASES + BROADPHASE_CARD_CASES:
         summary, calls = broadphase_case_calls(case, DEVICE)
@@ -767,7 +845,18 @@ def broadphase_cases_phase():
         summary["rows_over_k"] = int(
             (calls["kselect_broadphase"]["plain"]()[2] > case[3]).sum())
         rows.append(summary)
-    emit("broadphase_cases", cases=rows)
+    sweep_rows = []
+    for case in SWEEP_CASES:
+        sargs = sweep_case_inputs(case, DEVICE)
+        calls = {"sap_broadphase": dict(
+            kernel=lambda: sp.sap_sweep(*sargs),
+            plain=lambda: sp.sap_sweep_plain(*sargs))}
+        err = hold_kernels(calls, f"sweep seed {case[0]}")
+        _idx, _cls, cnt, ovf = calls["sap_broadphase"]["plain"]()
+        summary = sweep_case_summary(case, sargs, cnt, ovf)
+        summary["max_abs_err"] = err
+        sweep_rows.append(summary)
+    emit("broadphase_cases", cases=rows, sweep_cases=sweep_rows)
 
 
 def pair_keys(scene, mn, mx):

@@ -55,11 +55,23 @@
 // padding and a count of 0 at once; a block with no rigid row walks
 // nothing. For K > KS_SPLIT_MAX_K one warp walks the whole list.
 //
-// sap_kernel (unchanged; the next to be redesigned): bounded by operations.
-// One warp owns one sorted row and walks its window 32 columns at a time:
-// __ballot_sync marks the hits and __popc of the lower lanes gives each hit
-// its output slot (warp_select), so the first K hits land in ascending
-// partner order in one pass and all hits are counted.
+// sap_kernel: bounded by bytes at the box stack's sizes (K + 2 integers a
+// row out); its pair tests are few once a row's walk ends where its
+// x-interval does. A block takes one env and 32 rows of one 128-row tile,
+// which share the tile's window, one thread a row in each of its SAP_SPLIT
+// warps. Exact early stop: passes over the window's column x-mins, from its
+// end back to the block's first row, give their suffix minima (NaN read as
+// -inf) in shared memory, and a row stops at the first column past it whose
+// suffix minimum exceeds the row's max-x; no later column can then pass the
+// x test, whatever the order of the input. The block walks the columns from
+// its first row on to the largest stop, cut into SAP_SPLIT consecutive
+// slices a warp each and staged as the K-select's float4 pairs (min corner,
+// kind) and (max corner, body), where kind is rigid, static or neither. The
+// tests and the in-order merge of the slices' hits are the K-select's; the
+// placement rule (two masks on the kind) and the same-body rule run only on
+// the columns that overlap, and the hits gather in a shared tile of the
+// block's rows, copied out as one contiguous range. The overflow flag reads
+// the window's last column, as before, however early a row stopped.
 //
 // Deliberately not done: TMA or cp.async staging (plain loads stage a chunk,
 // several in flight a thread), a bit-packed matrix (one bit a pair would
@@ -74,7 +86,6 @@
 namespace {
 
 constexpr int TILE = 128;          // the sweep's row tile (as on the TPU)
-constexpr int ROWS_PER_BLOCK = 8;  // warps per block in the sweep
 constexpr float BIG = 3.0e38f;     // padding column x-min of the sweep
 
 constexpr int OV_WARPS = 8;                       // warps of a matrix block
@@ -88,6 +99,15 @@ constexpr int KS_SPLIT = 4;        // warps a K-select block: slices a row
 constexpr int KS_SPLIT_MAX_K = 16; // largest K whose hits the slices buffer
 constexpr int KS_CHUNK = 128;      // columns a K-select warp stages at once
 constexpr int KS_GROUP = 8;        // columns a K-select thread tests at once
+constexpr int SAP_ROWS = 32;       // rows a sweep block (a thread each)
+constexpr int SAP_SPLIT = 4;       // warps a sweep block: slices of a row
+constexpr int SAP_SPLIT_MAX_K = 16;  // largest K whose hits the slices buffer
+constexpr int SAP_MAX_K = 256;     // largest K the sweep's shared tile holds
+constexpr int SAP_CHUNK = 64;      // columns a sweep warp stages at once
+constexpr int SAP_GROUP = 8;       // columns a sweep thread tests at once
+constexpr int SAP_EPT = 4;         // x-mins a sweep thread scans a pass
+constexpr int KIND_RIGID = 1;      // a sweep column's kind: rigid body,
+constexpr int KIND_STATIC = 2;     // static, or 0 (neither)
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int floor_mod(int x, int n) {
@@ -102,14 +122,6 @@ __device__ __forceinline__ int class_of(int ta, int tb, int phase, int swap,
   int lo = min(ta, tb), hi = max(ta, tb);
   int bucket = lo * 5 - lo * (lo - 1) / 2 + (hi - lo);
   return 1 + (bucket * nph + phase) * 2 + swap;
-}
-
-__device__ __forceinline__ bool aabb_overlap(const float* amn, const float* amx,
-                                             const float* bmn, const float* bmx) {
-  bool ov = true;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) ov = ov && !((amn[a] > bmx[a]) || (bmn[a] > amx[a]));
-  return ov;
 }
 
 // 1 if the boxes overlap, else 0: aabb_overlap's six compares, combined
@@ -223,35 +235,6 @@ overlap_matrix_kernel(int C, int cw, const float* __restrict__ mn,
       for (long long x = lo < 0 ? 0 : lo; x < hi && x < len; ++x) gs[x] = ss[x];
     }
   }
-}
-
-// One warp's walk over columns [j_begin, j_end) of its row: the first K hits
-// (class > 0) in ascending column order go to idx_row / cls_row, the rest are
-// padded with -1 / 0; returns the number of hits.
-template <typename ClassFn>
-__device__ __forceinline__ int warp_select(int j_begin, int j_end, int K,
-                                           int* idx_row, int* cls_row,
-                                           ClassFn cls_of_col) {
-  const int lane = threadIdx.x & 31;
-  int base = 0;
-  for (int j0 = j_begin; j0 < j_end; j0 += 32) {
-    const int j = j0 + lane;
-    const int cls = (j < j_end) ? cls_of_col(j) : 0;
-    const unsigned hits = __ballot_sync(0xffffffffu, cls > 0);
-    if (cls > 0) {
-      const int slot = base + __popc(hits & ((1u << lane) - 1u));
-      if (slot < K) {
-        idx_row[slot] = j;
-        cls_row[slot] = cls;
-      }
-    }
-    base += __popc(hits);
-  }
-  for (int s = base + lane; s < K; s += 32) {
-    idx_row[s] = -1;
-    cls_row[s] = 0;
-  }
-  return base;
 }
 
 // K-select over the admitted columns (kselect_broadphase.py:_kselect_kernel).
@@ -444,62 +427,284 @@ kselect_kernel(int C, int K, int nph, int split, const float* __restrict__ mn,
 }
 
 // Sweep over the sorted window (sap_broadphase.py:_sap_kernel). Rows and
-// columns are in sorted order; row ii of row tile i0 = (ii / 128) * 128 visits
-// columns [i0, i0 + window * 128). A pair lives in the earlier sorted row
-// (jj > ii); one side dynamic, the other dynamic or static. ovf flags rows
-// whose x-interval reaches the min-x of the window's last column (padding
-// columns past C carry min-x +BIG).
-__global__ void sap_kernel(int C, int K, int nph, int window,
-                           const float* __restrict__ mn_s,
-                           const float* __restrict__ mx_s,
-                           const int* __restrict__ body_s,
-                           const int* __restrict__ owner_s,
-                           const int* __restrict__ ctype_s,
-                           int* __restrict__ idx_out,
-                           int* __restrict__ cls_out,
-                           int* __restrict__ cnt_out,
-                           int* __restrict__ ovf_out) {
+// columns are in sorted order; row ii of row tile i0 = (ii / 128) * 128 pairs
+// with the columns jj of [i0, i0 + window * 128) past it (jj > ii): a rigid
+// row with the rigid columns of other bodies and the statics, a static row
+// with the rigid columns. ovf flags rows whose x-interval reaches the min-x
+// of the window's last column (padding columns past C carry min-x +BIG).
+// Block: `split` warps (blockDim.x = 32 * split) on one env (blockIdx.x) and
+// the same 32 rows [32 * blockIdx.y, + 32) of one tile, one thread a row in
+// each warp.
+//   1. Exact stop. Passes over the window's x-mins from its end back to the
+//      block's first row + 1 give their suffix minima (NaN read as -inf) in
+//      shared memory; warp 0 finds where row ii stops: the first column
+//      j > ii whose suffix minimum exceeds its max-x (a binary search: the
+//      minima ascend). Every later column then has min-x > max-x and fails
+//      the x test, sorted input or not; a NaN max-x never stops.
+//   2. The block's columns run from its first row that pairs with anything,
+//      plus one, to the largest stop; they are cut into `split` consecutive
+//      slices, warp w streaming slice w through shared memory in chunks of
+//      SAP_CHUNK columns as (min corner, kind) and (max corner, body) float4s,
+//      read as broadcasts. A thread tests SAP_GROUP columns at once without a
+//      branch (overlap_flag) and takes the group's overlaps in order, each
+//      a hit if the placement rule (two masks on the kind) and the
+//      same-body rule admit it: overlaps are far fewer than the columns
+//      walked, so the rules cost a few operations an overlap, not a pair.
+//   3. Warp 0 keeps its first K hits a row in a shared tile of the block's
+//      rows (padded with -1 / 0 from the start), the other warps theirs in
+//      buffers of their own, and warp 0 appends those in slice order, so the
+//      K lowest partners come out ascending; then the block copies the tile
+//      out, the 32 rows' slots being one contiguous range.
+// Dynamic shared memory: the tile, 2 * 32 * (K + 1) ints (idx, then cls;
+// rows padded to K + 1 against bank conflicts), then (split - 1) * K * 32
+// ints twice for warps 1.. ([w - 1][idx, cls][k][lane]). The wrapper takes
+// K up to SAP_MAX_K.
+__global__ void __launch_bounds__(32 * SAP_SPLIT)
+sap_kernel(int C, int K, int nph, int window, const float* __restrict__ mn_s,
+           const float* __restrict__ mx_s, const int* __restrict__ body_s,
+           const int* __restrict__ owner_s, const int* __restrict__ ctype_s,
+           int* __restrict__ idx_out, int* __restrict__ cls_out,
+           int* __restrict__ cnt_out, int* __restrict__ ovf_out) {
+  __shared__ float s_sm[SAP_EPT * 32 * SAP_SPLIT];  // a pass's suffix minima
+  __shared__ float s_wmin[SAP_SPLIT];               // a pass's warp minima
+  __shared__ int s_span[2];                         // the block's columns
+  // a warp's chunk of its slice, padded by a group of SAP_GROUP
+  __shared__ float4 s_lo[SAP_SPLIT][SAP_CHUNK + SAP_GROUP];  // min, kind
+  __shared__ float4 s_hi[SAP_SPLIT][SAP_CHUNK + SAP_GROUP];  // max, body
+  __shared__ int s_ct[SAP_SPLIT][SAP_CHUNK];                 // shape type
+  __shared__ int s_cnt[SAP_SPLIT][32];                       // hits a slice
+  extern __shared__ int sap_smem[];
   const int b = blockIdx.x;
-  const int ii = blockIdx.y * ROWS_PER_BLOCK + (threadIdx.x >> 5);
-  if (ii >= C) return;  // uniform across the warp
+  const int split = blockDim.x >> 5;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = blockIdx.y * SAP_ROWS;
+  const int ii = r0 + lane;
+  const int i0 = (r0 / TILE) * TILE;
+  const long long w_end = (long long)i0 + (long long)window * TILE;
+  const int j_end = (int)(w_end < (long long)C ? w_end : (long long)C);
   const float* mnb = mn_s + (size_t)b * C * 3;
   const float* mxb = mx_s + (size_t)b * C * 3;
   const int* bodyb = body_s + (size_t)b * C;
   const int* ownerb = owner_s + (size_t)b * C;
   const int* ctypeb = ctype_s + (size_t)b * C;
-  const float rmn[3] = {mnb[3 * ii], mnb[3 * ii + 1], mnb[3 * ii + 2]};
-  const float rmx[3] = {mxb[3 * ii], mxb[3 * ii + 1], mxb[3 * ii + 2]};
-  const int body_i = bodyb[ii], ctype_i = ctypeb[ii];
-  const bool rb_i = ownerb[ii] == 0, st_i = ownerb[ii] == 1;
-  const int i0 = (ii / TILE) * TILE;
-  const long long w_end = (long long)i0 + (long long)window * TILE;
-
-  auto cls_of_col = [&](int jj) -> int {
-    const int owner_j = ownerb[jj], body_j = bodyb[jj];
-    const bool rb_j = owner_j == 0, st_j = owner_j == 1;
-    const bool dd = rb_i && rb_j;
-    const bool allowed = (jj > ii) && ((rb_i && (rb_j || st_j)) || (st_i && rb_j))
-                         && !(dd && (body_i == body_j));
-    if (!allowed || !aabb_overlap(rmn, rmx, mnb + 3 * jj, mxb + 3 * jj)) return 0;
-    const int dyn_min = dd ? min(body_i, body_j) : (rb_i ? body_i : body_j);
-    const int phase = floor_mod(dyn_min + 2 * (dd ? 0 : 1), nph);
-    const int ctype_j = ctypeb[jj];
-    return class_of(ctype_i, ctype_j, phase, ctype_i > ctype_j ? 1 : 0, nph);
-  };
-
+  const bool in = ii < C;
+  const int owner_i = in ? ownerb[ii] : -1;
+  const float rmx_x = in ? mxb[3 * ii] : 0.f;
+  const bool rb_i = owner_i == 0, st_i = owner_i == 1;
+  const bool act = rb_i || st_i;
+  const int kp = K + 1;
+  int* t_idx = sap_smem;  // the block's rows' first K partners
+  int* t_cls = sap_smem + 32 * kp;
   const size_t row = (size_t)b * C + ii;
-  const int j_end = (int)(w_end < (long long)C ? w_end : (long long)C);
-  const int n = warp_select(i0, j_end, K, idx_out + row * K,
-                            cls_out + row * K, cls_of_col);
-  if ((threadIdx.x & 31) == 0) {
-    const long long last = w_end - 1;
-    const float end_minx = last < (long long)C ? mnb[3 * last] : BIG;
-    cnt_out[row] = n;
-    ovf_out[row] = (rmx[0] >= end_minx) ? 1 : 0;
+  int* o_idx = t_idx + lane * kp;  // this row's
+  int* o_cls = t_cls + lane * kp;
+  if (w == 0) {
+    for (int s = 0; s < K; ++s) {
+      o_idx[s] = -1;
+      o_cls[s] = 0;
+    }
+    if (in) {
+      const long long last = w_end - 1;
+      const float end_minx = last < (long long)C ? mnb[3 * last] : BIG;
+      ovf_out[row] = rmx_x >= end_minx ? 1 : 0;
+    }
+  }
+
+  // 1. each row's stop, from the suffix minima of passes of P x-mins taken
+  // from the window's end back to the block's first row + 1; `carry` is
+  // the minimum past the pass
+  const int P = SAP_EPT * (int)blockDim.x;
+  const int e_t = SAP_EPT * (int)threadIdx.x;
+  int stop = j_end;
+  bool done = !act || ii + 1 >= j_end;
+  float carry = INFINITY;
+  for (int c1 = j_end; c1 > r0 + 1;) {
+    const int c0 = max(r0 + 1, c1 - P);
+    float v[SAP_EPT];
+#pragma unroll
+    for (int u = 0; u < SAP_EPT; ++u) {
+      const int j = c0 + e_t + u;
+      const float x = j < c1 ? mnb[3 * j] : INFINITY;
+      v[u] = x == x ? x : -INFINITY;
+    }
+#pragma unroll
+    for (int u = SAP_EPT - 2; u >= 0; --u) v[u] = fminf(v[u], v[u + 1]);
+    // the thread's minimum over itself and the later lanes, then over the
+    // later lanes only, the later warps and the later passes
+    float incl = v[0];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1)
+      incl = fminf(incl, __shfl_down_sync(FULL, incl, d));
+    float after = __shfl_down_sync(FULL, incl, 1);
+    if (lane == 31) after = INFINITY;
+    if (lane == 0) s_wmin[w] = incl;
+    __syncthreads();
+#pragma unroll
+    for (int x = 1; x < SAP_SPLIT; ++x)
+      if (w + x < split) after = fminf(after, s_wmin[w + x]);
+    after = fminf(after, carry);
+#pragma unroll
+    for (int u = 0; u < SAP_EPT; ++u)
+      if (e_t + u < c1 - c0) s_sm[e_t + u] = fminf(v[u], after);
+    __syncthreads();
+    if (w == 0 && !done) {
+      const int s = max(c0, ii + 1);
+      if (s_sm[s - c0] > rmx_x) {
+        stop = s;  // and maybe earlier, in an earlier pass
+        done = s == ii + 1;
+      } else {
+        int a = s + 1, z = c1;  // the first j of [a, z) past max-x, else z
+        while (a < z) {
+          const int m = (a + z) >> 1;
+          if (s_sm[m - c0] > rmx_x) z = m;
+          else a = m + 1;
+        }
+        stop = a;
+        done = true;
+      }
+    }
+    carry = s_sm[0];
+    c1 = c0;
+  }
+  // the block's columns [lo, hi): from the first row that pairs with
+  // anything on to the largest stop (none when no row pairs)
+  if (w == 0) {
+    const int lo = min(j_end, __reduce_min_sync(FULL, act ? ii + 1 : INT_MAX));
+    const int hi = max(lo, __reduce_max_sync(FULL, act ? stop : 0));
+    if (lane == 0) {
+      s_span[0] = lo;
+      s_span[1] = hi;
+    }
+  }
+  // the rest of the row, in flight with the first chunk's loads
+  float rmn[3] = {0.f, 0.f, 0.f}, rmx[3] = {rmx_x, 0.f, 0.f};
+  int body_i = 0, ctype_i = 0;
+  if (act) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) rmn[a] = mnb[3 * ii + a];
+    rmx[1] = mxb[3 * ii + 1];
+    rmx[2] = mxb[3 * ii + 2];
+    body_i = bodyb[ii];
+    ctype_i = ctypeb[ii];
+  }
+  __syncthreads();
+  const int lo = s_span[0], len = s_span[1] - lo;
+
+  // 2. the walk over this warp's slice of [lo, hi)
+  // the kinds the row pairs with, and those it pairs with whatever their
+  // body (the same-body rule holds between two rigid bodies only)
+  const int pairs_with =
+      rb_i ? (KIND_RIGID | KIND_STATIC) : (st_i ? KIND_RIGID : 0);
+  const int any_body = rb_i ? KIND_STATIC : (KIND_RIGID | KIND_STATIC);
+  // where this warp's hits go: warp 0's place or the warp's own buffer
+  int* bufs = sap_smem + 2 * 32 * kp;
+  int* hit_idx = w == 0 ? o_idx : bufs + (w - 1) * 2 * K * 32 + lane;
+  int* hit_cls = w == 0 ? o_cls : hit_idx + K * 32;
+  const int hit_stride = w == 0 ? 1 : 32;
+  int cnt = 0;
+
+  const int q_end = lo + len * (w + 1) / split;
+  float4* lo_w = s_lo[w];
+  float4* hi_w = s_hi[w];
+  int* ct_w = s_ct[w];
+  for (int q0 = lo + len * w / split; q0 < q_end; q0 += SAP_CHUNK) {
+    const int n = min(SAP_CHUNK, q_end - q0);
+#pragma unroll
+    for (int u = 0; u < SAP_CHUNK / 32; ++u) {
+      const int e = 32 * u + lane;
+      if (e < n) {
+        const int j = q0 + e;
+        const int o = ownerb[j];
+        const int kind = o == 0 ? KIND_RIGID : (o == 1 ? KIND_STATIC : 0);
+        ct_w[e] = ctypeb[j];
+        lo_w[e] = make_float4(mnb[3 * j], mnb[3 * j + 1], mnb[3 * j + 2],
+                              __int_as_float(kind));
+        hi_w[e] = make_float4(mxb[3 * j], mxb[3 * j + 1], mxb[3 * j + 2],
+                              __int_as_float(bodyb[j]));
+      }
+    }
+    __syncwarp();
+
+    for (int e0 = 0; e0 < n; e0 += SAP_GROUP) {
+      // the group's overlaps as a bit mask, without a branch
+      float4 lo4[SAP_GROUP], hi4[SAP_GROUP];
+#pragma unroll
+      for (int u = 0; u < SAP_GROUP; ++u) {
+        lo4[u] = lo_w[e0 + u];
+        hi4[u] = hi_w[e0 + u];
+      }
+      unsigned hits = 0;
+#pragma unroll
+      for (int u = 0; u < SAP_GROUP; ++u) {
+        const float cmn[3] = {lo4[u].x, lo4[u].y, lo4[u].z};
+        const float cmx[3] = {hi4[u].x, hi4[u].y, hi4[u].z};
+        hits |= overlap_flag(rmn, rmx, cmn, cmx) << u;
+      }
+      // only the chunk's columns, only those past the row, and none for a
+      // row that pairs with nothing
+      if (n - e0 < SAP_GROUP) hits &= (1u << (n - e0)) - 1u;
+      hits &= ~0u << min(max(ii + 1 - (q0 + e0), 0), SAP_GROUP);
+      if (!pairs_with) hits = 0;
+      while (hits) {
+        const int e = e0 + __ffs(hits) - 1;
+        hits &= hits - 1;
+        const int kind = __float_as_int(lo_w[e].w);
+        const int body_j = __float_as_int(hi_w[e].w);
+        if (!(kind & pairs_with) || (body_j == body_i && !(kind & any_body)))
+          continue;
+        const bool dd = rb_i && kind == KIND_RIGID;
+        const int dyn_min =
+            dd ? min(body_i, body_j) : (rb_i ? body_i : body_j);
+        const int phase = floor_mod(dyn_min + (dd ? 0 : 2), nph);
+        const int ctype_j = ct_w[e];
+        const int cls = class_of(ctype_i, ctype_j, phase,
+                                 ctype_i > ctype_j ? 1 : 0, nph);
+        if (cls > 0) {
+          if (cnt < K) {
+            hit_idx[cnt * hit_stride] = q0 + e;
+            hit_cls[cnt * hit_stride] = cls;
+          }
+          ++cnt;
+        }
+      }
+    }
+    __syncwarp();
+  }
+
+  // 3. warp 0 appends the other slices' hits in slice order, then the block
+  // copies the tile out
+  s_cnt[w][lane] = cnt;
+  __syncthreads();
+  if (w == 0 && in) {
+    for (int v = 1; v < split; ++v) {
+      const int* v_idx = bufs + (v - 1) * 2 * K * 32 + lane;
+      const int* v_cls = v_idx + K * 32;
+      const int nv = s_cnt[v][lane];
+      for (int k = 0; k < nv && cnt + k < K; ++k) {
+        o_idx[cnt + k] = v_idx[32 * k];
+        o_cls[cnt + k] = v_cls[32 * k];
+      }
+      cnt += nv;
+    }
+    cnt_out[row] = cnt;
+  }
+  __syncthreads();
+  const int n_out = min(SAP_ROWS, C - r0) * K;
+  int* idx_blk = idx_out + ((size_t)b * C + r0) * K;
+  int* cls_blk = cls_out + ((size_t)b * C + r0) * K;
+  const int dr = (int)blockDim.x / K, dk = (int)blockDim.x - dr * K;
+  int r = (int)threadIdx.x / K, k = (int)threadIdx.x - r * K;
+  for (int f = threadIdx.x; f < n_out; f += blockDim.x) {
+    idx_blk[f] = t_idx[r * kp + k];
+    cls_blk[f] = t_cls[r * kp + k];
+    r += dr;
+    k += dk;
+    if (k >= K) {
+      k -= K;
+      ++r;
+    }
   }
 }
-
-unsigned row_blocks(int C) { return (unsigned)((C + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK); }
 
 // column chunk of the overlap matrix for (B, C) on a card of `sms` SMs: the
 // whole row where it fits and the batch fills the card, else chunks halved
@@ -568,8 +773,21 @@ extern "C" int dxk_sap_launch(int B, int C, int K, int nph, int window,
                               const void* ctype_s, void* idx, void* cls,
                               void* cnt, void* ovf, void* stream) {
   if (B <= 0 || C <= 0) return 0;
-  dim3 grid((unsigned)B, row_blocks(C));
-  sap_kernel<<<grid, 32 * ROWS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+  // a block's columns in SAP_SPLIT slices, unless K is too large to buffer
+  const int split = K <= SAP_SPLIT_MAX_K ? SAP_SPLIT : 1;
+  if (K > SAP_MAX_K) return (int)cudaErrorInvalidValue;
+  const int smem = (2 * 32 * (K + 1) + (split - 1) * 2 * K * 32)
+                   * (int)sizeof(int);
+  static int smem_set = 48 * 1024;
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sap_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  dim3 grid((unsigned)B, (unsigned)((C + SAP_ROWS - 1) / SAP_ROWS));
+  dim3 block(32 * split);
+  sap_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       C, K, nph, window, (const float*)mn_s, (const float*)mx_s,
       (const int*)body_s, (const int*)owner_s, (const int*)ctype_s, (int*)idx,
       (int*)cls, (int*)cnt, (int*)ovf);

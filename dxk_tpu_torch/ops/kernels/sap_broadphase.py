@@ -19,10 +19,20 @@ kernel: `sap_sweep` wraps ``sap_kernel`` of ``csrc/broadphase.cu`` (plain
 version `sap_sweep_plain` for CPU tensors; CUDA tensors launch the kernel or
 raise).
 
-What bounds the kernel on an H100: operations (C x window x 128 pairs tested
-and classified; K + 2 integers per row leave the chip). One warp per sorted
-row walks its window 32 columns at a time with a ballot/popcount select
-(the first design, unchanged; the next of the three to be redesigned).
+What bounds the kernel on an H100: bytes at the box stack's sizes (K + 2
+integers a row leave the chip), once each row's walk ends where its
+x-interval does. A block takes one env and 32 rows of one tile, a thread a
+row in each of its four warps. It finds each row's exact stop (`sweep_stops`
+is its plain form): the first column past the row whose suffix minimum of
+x-mins over the rest of the window, NaN read as -inf, exceeds the row's
+max-x, so that every later column fails the x test whatever the order of
+the input. It then walks only the columns from its first row on to the
+largest stop, cut into four slices a warp each, staged in shared memory as
+float4 pairs and tested eight at a time without a branch; the placement and
+same-body rules run only on the columns that overlap. The slices' hits are
+merged in order in a shared tile of the block's rows, which goes out as one
+contiguous range. The overflow flag still reads the window's last column.
+The kernel keeps at most MAX_K partners a row.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from dxk_tpu_torch.ops.kernels.kselect_broadphase import (class_of,
 
 TILE = 128
 BIG = 3.0e38
+MAX_K = 256     # the most partners a row the kernel keeps (its shared tile)
 
 _LAUNCHES = 0
 
@@ -108,6 +119,31 @@ def sap_sweep_plain(mn_s, mx_s, body_s, owner_s, ctype_s, num_phases: int,
     return idx, cls_k, cnt, ovf
 
 
+def sweep_stops(mn_s, mx_s, window: int):
+    """Where the kernel ends each sorted row's walk, (B, C) int64: the first
+    column j > ii of the row's window whose suffix minimum of x-mins over
+    the rest of the window (NaN read as -inf) exceeds the row's max-x, else
+    the window's end (capped at C). No column from there on passes the x
+    test, sorted input or not, so no hit lies there."""
+    B, C = mn_s.shape[0], mn_s.shape[1]
+    dev = mn_s.device
+    x = mn_s[..., 0]
+    x = torch.where(torch.isnan(x), torch.full((), -float("inf"),
+                                               dtype=x.dtype, device=dev), x)
+    rows = torch.arange(C, dtype=torch.int64, device=dev)
+    stops = []
+    for t0 in range(0, C, TILE):
+        je = min(t0 + window * TILE, C)
+        sm = torch.flip(torch.cummin(torch.flip(x[:, t0:je], [1]), 1).values,
+                        [1])                                 # (B, W)
+        r = rows[t0:t0 + TILE]
+        past = ((sm[:, None, :] > mx_s[:, t0:t0 + TILE, 0, None])
+                & (rows[None, None, t0:je] > r[None, :, None]))
+        stops.append(torch.where(past.any(-1),
+                                 past.to(torch.int8).argmax(-1) + t0, je))
+    return torch.cat(stops, dim=1)
+
+
 def sap_sweep(mn_s, mx_s, body_s, owner_s, ctype_s, num_phases: int,
               k_sel: int, window: int):
     """The sweep over sorted colliders (see `sap_sweep_plain`). CPU tensors
@@ -123,12 +159,12 @@ def sap_sweep(mn_s, mx_s, body_s, owner_s, ctype_s, num_phases: int,
     for name, x in (("body_s", body_s), ("owner_s", owner_s),
                     ("ctype_s", ctype_s)):
         build.check_cuda(who, name, x, (B, C), torch.int32)
-    if (B == 0 or C == 0 or C > bk.MAX_ROWS or k_sel < 1 or num_phases < 1
-            or window < 1):
+    if (B == 0 or C == 0 or C > bk.MAX_ROWS or not 1 <= k_sel <= MAX_K
+            or num_phases < 1 or window < 1):
         raise ValueError(f"{who}: needs B > 0, 0 < C <= {bk.MAX_ROWS}, "
-                         f"K, num_phases and window >= 1, got B={B}, C={C}, "
-                         f"K={k_sel}, num_phases={num_phases}, "
-                         f"window={window}")
+                         f"1 <= K <= {MAX_K}, num_phases and window >= 1, "
+                         f"got B={B}, C={C}, K={k_sel}, "
+                         f"num_phases={num_phases}, window={window}")
     lib = bk.load_library()
     dev = mn_s.device
     idx = torch.empty((B, C, k_sel), dtype=torch.int32, device=dev)

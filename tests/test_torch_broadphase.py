@@ -9,6 +9,9 @@ rounding.
 The JAX broadphase kernels run in interpret mode on the CPU, as
 tests/test_pallas_broadphase.py and tests/test_sap_broadphase.py run them.
 Inputs are made with numpy from fixed seeds and handed to both packages."""
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,8 +34,14 @@ from dxk_tpu_torch.ops import solver as tsolver
 from dxk_tpu_torch.ops.integrator import SolverBodies
 from dxk_tpu_torch.ops.kernels import broadphase_kernel as bk
 from dxk_tpu_torch.ops.kernels.kselect_broadphase import kselect_broadphase
-from dxk_tpu_torch.ops.kernels.sap_broadphase import sap_broadphase
+from dxk_tpu_torch.ops.kernels.sap_broadphase import (sap_broadphase,
+                                                      sap_sweep,
+                                                      sap_sweep_plain,
+                                                      sweep_stops)
 from dxk_tpu_torch.scene import SceneBuilder
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke as cs  # noqa: E402
 
 # In a process that also runs JAX, the first torch.sqrt call on this CPU build
 # of PyTorch can come back at reduced precision (~2e-4 relative; later calls
@@ -109,6 +118,32 @@ def test_sap_plain_equals_jax(num_phases, k_sel, tied, window):
             assert np.array_equal(g.numpy(), np.asarray(w))
     if tied:
         assert int(wovf.sum()) > 0           # the window-overflow count bites
+
+
+@pytest.mark.parametrize("case", cs.SWEEP_CASES,
+                         ids=lambda c: f"seed{c[0]}-C{c[2]}-window{c[5]}-"
+                         + c[6].replace(" ", "-"))
+def test_sweep_stops_are_exact(case):
+    """sap_kernel ends a row's walk at `sweep_stops`: every column from
+    there to the window's end fails the x test, the stop is the first column
+    with that property (from the row's next column on), and the plain
+    sweep's partners all lie before it; on unsorted input and NaN too."""
+    args = cs.sweep_case_inputs(case)
+    mn_s, mx_s, window = args[0], args[1], args[7]
+    stops = sweep_stops(mn_s, mx_s, window)
+    C = mn_s.shape[1]
+    ii = torch.arange(C)
+    j_end = torch.clamp((ii // 128) * 128 + window * 128, max=C)
+    cols = ii[None, None, :]
+    in_window = cols < j_end[None, :, None]
+    fails_x = mn_s[:, None, :, 0] > mx_s[:, :, None, 0]      # (B, row, col)
+    assert bool((fails_x | ~in_window | (cols < stops[..., None])).all())
+    later = stops > ii + 1
+    can_pass = ~fails_x & in_window & (cols >= stops[..., None] - 1)
+    assert bool((can_pass.any(-1) | ~later).all())
+    assert int(later.sum()) > 0 and int((stops < j_end).sum()) > 0
+    idx, _cls, _cnt, _ovf = sap_sweep_plain(*args)
+    assert bool(((idx < 0) | (idx < stops[..., None])).all())
 
 
 def test_aabb_overlap_mask_and_compact_pairs_equal_jax():
@@ -312,6 +347,8 @@ def test_scan_mode_raises():
     lambda x: bk.aabb_overlap_matrix(x, x),
     lambda x: kselect_broadphase(x, x, *(torch.zeros(4, dtype=torch.int32,
                                                      device="meta"),) * 3),
+    lambda x: sap_sweep(x, x, *(torch.zeros((1, 4), dtype=torch.int32,
+                                            device="meta"),) * 3, 1, 8, 4),
 ])
 def test_non_cpu_tensor_never_takes_plain_version(fn):
     """A tensor that is not on the CPU goes to the kernel's checks, never

@@ -21,15 +21,19 @@ the overlap matrix, the K-select and the sort-and-sweep kernel against
 rows staged where C <= 1536) and 132 (an H100: at small batches the columns
 come in chunks of 256 to 1024). The cases cover C in {1, 31, 130, 600,
 1025, 2100} (600 and 2100 past a column chunk of both kernels), B in {1,
-3}, K in {1, 8, 20} (20: one warp walks a row, past what the K-select's
-slices buffer), num_phases in {1, 4}, and a C of 1025 that is half statics
-(the K-select's static list spans chunks).
+3}, K in {1, 8, 20} (20: one warp walks a row, past what the K-select's and
+the sweep's slices buffer), num_phases in {1, 4}, and a C of 1025 that is
+half statics (the K-select's static list spans chunks). Then each case of
+chip_smoke.SWEEP_CASES runs the sweep alone: input handed over unsorted,
+NaN and +-inf coordinates and inverted boxes, windows 1 to 9 (past C),
+rows whose window overflows, K 20 and 80.
 
     python3 tools/emulate_broadphase_cpu.py [--small]
 
---small runs the cases the test file runs (C up to 600). Prints one JSON
-line per case and kernel and exits non-zero on any difference. Needs g++
-with C++20; writes only under <repo>/build/emulate_broadphase/.
+--small runs the cases the test file runs (C up to 600; every sweep case
+is that small). Prints one JSON line per case and exits non-zero on any
+difference. Needs g++ with C++20; writes only under
+<repo>/build/emulate_broadphase/.
 """
 
 import argparse
@@ -56,6 +60,7 @@ from dxk_tpu_torch.ops.kernels import sap_broadphase as sp  # noqa: E402
 # what the broadphase kernels use beyond the fused kernel's shim
 SHIM_EXTRA = r"""
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <climits>
 #include <cstring>
@@ -147,7 +152,9 @@ def build():
     for extern, ptr in (("extern __shared__ float4 ov_smem[];",
                          "float4* ov_smem = (float4*)g_smem;"),
                         ("extern __shared__ int ks_hits[];",
-                         "int* ks_hits = (int*)g_smem;")):
+                         "int* ks_hits = (int*)g_smem;"),
+                        ("extern __shared__ int sap_smem[];",
+                         "int* sap_smem = (int*)g_smem;")):
         if src.count(extern) != 1:
             raise RuntimeError(f"csrc/broadphase.cu: no single line "
                                f"'{extern}' to replace")
@@ -217,13 +224,13 @@ def differ(got, want):
     return sum(int((g.long() != w.long()).sum()) for g, w in zip(got, want))
 
 
-def check_case(dll, case, window=2, sms=(1, 132)):
+def check_case(dll, case, sms=(1, 132)):
     """All three kernels on one case of chip_smoke.BROADPHASE_CASES; returns
     a dict with the entries that differ per kernel (0 when they hold)."""
-    seed, B, C, K, nph, statics, share = case
+    seed, B, C, K, nph, statics, share, window = case
     mn, mx, body, owner, ctype = cs.broadphase_colliders(seed, B, C, statics,
                                                          share)
-    out = dict(seed=seed, B=B, C=C, K=K, num_phases=nph,
+    out = dict(seed=seed, B=B, C=C, K=K, num_phases=nph, window=window,
                statics=int((owner == 1).sum()))
     want = bk.aabb_overlap_matrix_plain(mn, mx)
     for n in sms:
@@ -242,8 +249,19 @@ def check_case(dll, case, window=2, sms=(1, 132)):
     return out
 
 
+def check_sweep_case(dll, case):
+    """The sort-and-sweep kernel alone on one case of chip_smoke.SWEEP_CASES
+    (unsorted input, NaN and +-inf, windows past C); returns what the case
+    exercises and the entries that differ (0 when it holds)."""
+    sargs = cs.sweep_case_inputs(case)
+    want = sp.sap_sweep_plain(*sargs)
+    out = cs.sweep_case_summary(case, sargs, want[2], want[3])
+    out["sap"] = differ(run_sap(dll, *sargs), want)
+    return out
+
+
 def failures(result):
-    """Entries that differ in one check_case result."""
+    """Entries that differ in one check_case or check_sweep_case result."""
     return sum(v for k, v in result.items()
                if k.startswith(("overlap", "kselect", "sap")))
 
@@ -261,9 +279,14 @@ def main():
         r = check_case(dll, case)
         print(json.dumps(r), flush=True)
         bad += failures(r)
+    for case in cs.SWEEP_CASES:
+        r = check_sweep_case(dll, case)
+        print(json.dumps(r), flush=True)
+        bad += failures(r)
     if bad:
         raise SystemExit(f"{bad} entries differ from the plain versions")
-    print(json.dumps({"ok": True, "cases": len(cases)}))
+    print(json.dumps({"ok": True,
+                      "cases": len(cases) + len(cs.SWEEP_CASES)}))
 
 
 if __name__ == "__main__":

@@ -5,9 +5,10 @@ compiles the same source with g++ instead: a small header maps the CUDA
 keywords away, every CUDA thread of a block becomes a std::thread,
 __syncthreads() becomes a std::barrier of the block, each warp gets a
 std::barrier of its 32 threads that __syncwarp, __ballot_sync,
-__shfl_sync and __shfl_up_sync (exchanging through a per-warp array) wait
-at, __popc is the builtin, and the kernel's named barrier (bar.sync of one
-env's team) becomes a std::barrier per id and block. So the kernel's
+__shfl_sync, __shfl_up_sync, __shfl_down_sync, __reduce_min_sync and
+__reduce_max_sync (exchanging through a per-warp array) wait at, __popc
+is the builtin, and the kernel's named barrier (bar.sync of one env's
+team) becomes a std::barrier per id and block. So the kernel's
 teams, shared-memory layout, live lists, scratch and per-type joint passes
 run as written (blocks one after another). Built with -ffp-contract=off,
 like the card's -fmad=false, and with the sphere and cylinder recipes (the
@@ -126,6 +127,26 @@ template <class T> T __shfl_sync(unsigned, T v, int src) { return emu_exchange(v
 template <class T> T __shfl_up_sync(unsigned, T v, unsigned d) {
   int l = threadIdx.x % 32;
   return emu_exchange(v, l >= (int)d ? l - (int)d : l);
+}
+template <class T> T __shfl_down_sync(unsigned, T v, unsigned d) {
+  int l = threadIdx.x % 32;
+  return emu_exchange(v, l + (int)d < 32 ? l + (int)d : l);
+}
+// __reduce_min_sync / __reduce_max_sync: every lane's value, exchanged
+template <class F> int emu_reduce(int v, F f) {
+  unsigned w = threadIdx.x / 32, l = threadIdx.x % 32;
+  g_xchg[w][l] = (unsigned)v;
+  __syncwarp();
+  int r = (int)g_xchg[w][0];
+  for (int i = 1; i < 32; ++i) r = f(r, (int)g_xchg[w][i]);
+  __syncwarp();
+  return r;
+}
+inline int __reduce_min_sync(unsigned, int v) {
+  return emu_reduce(v, [](int a, int b) { return a < b ? a : b; });
+}
+inline int __reduce_max_sync(unsigned, int v) {
+  return emu_reduce(v, [](int a, int b) { return a > b ? a : b; });
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 // named barriers (bar.sync id, n): one std::barrier of n threads per id and

@@ -8,7 +8,10 @@ step with 30 solver iterations and with none (their difference is the
 iterated contact solve), both over `--steps` steps; and from torch.profiler
 over `--profile-steps` steps, device busy time per step, the device's idle
 share, the broadphase kernel's device time per step, device kernel launches
-per step and the top device kernels by time.
+per step and the top device kernels by time. For "sap" it also profiles the
+sort-and-sweep route alone (`sap_broadphase` on the state's AABBs, as the
+step calls it): its device launches and time per call, split into the
+sweep kernel and the PyTorch sort, gathers and scatters around it.
 
     python3 tools/profile_torch_box_stack.py [--steps 10] [--profile-steps 3]
 """
@@ -38,6 +41,52 @@ def host_ms(scene, st, settings, steps):
         st, _info = physics_step(scene, st, settings, cs.BOX_DT)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def device_rows(prof):
+    """(name, device us, count) of the device-side events of a profile:
+    an operator's row repeats the time of the kernels it launched."""
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", 0) or 0
+        if dev_us > 0:
+            rows.append((ev.key, dev_us, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    return rows
+
+
+def sweep_route(scene, st, n, acts):
+    """Device launches and time of `sap_broadphase` alone, per call, on
+    the AABBs of `st`: the sweep kernel against the rest of the route."""
+    from dxk_tpu_torch.ops.kernels import sap_broadphase as sp
+    mn, mx = cs.aabbs(scene, st)
+    col = scene.colliders
+    args = (mn, mx, col.body, col.owner_type, col.ctype,
+            scene.num_contact_phases, scene.broadphase_k, scene.sap_window,
+            scene.sap_broad)
+    sp.sap_broadphase(*args)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            sp.sap_broadphase(*args)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    sweep = [r for r in rows if KERNELS["sap"] in r[0]]
+    rest = [r for r in rows if KERNELS["sap"] not in r[0]]
+    return {
+        "calls": n,
+        "launches_per_call": sum(r[2] for r in rows) / n,
+        "device_ms_per_call": sum(r[1] for r in rows) / 1e3 / n,
+        "sweep_kernel_launches_per_call": sum(r[2] for r in sweep) / n,
+        "sweep_kernel_ms_per_call": sum(r[1] for r in sweep) / 1e3 / n,
+        "other_launches_per_call": sum(r[2] for r in rest) / n,
+        "other_ms_per_call": sum(r[1] for r in rest) / 1e3 / n,
+        "other_kernels": [
+            {"name": r[0][:80], "ms_per_call": r[1] / 1e3 / n,
+             "launches_per_call": r[2] / n} for r in rest],
+    }
 
 
 def main():
@@ -73,18 +122,10 @@ def main():
             for _ in range(n):
                 s, _info = physics_step(scene, s, full, cs.BOX_DT)
             torch.cuda.synchronize()
-        rows = []
-        for ev in prof.key_averages():
-            # device-side events only: an operator's row repeats the time
-            # of the kernels it launched
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            dev_us = getattr(ev, "self_device_time_total", 0) or 0
-            if dev_us > 0:
-                rows.append((ev.key, dev_us, ev.count))
-        rows.sort(key=lambda r: -r[1])
+        rows = device_rows(prof)
         busy_ms = sum(r[1] for r in rows) / 1e3 / n
         kern_ms = sum(r[1] for r in rows if KERNELS[mode] in r[0]) / 1e3 / n
+        route = sweep_route(scene, s, n, acts) if mode == "sap" else None
         print(json.dumps({
             "device": torch.cuda.get_device_name(0), "broadphase": mode,
             "envs": cs.BOX_BATCH, "bodies": scene.num_bodies - 1,
@@ -100,6 +141,7 @@ def main():
             "top_device_kernels": [
                 {"name": r[0][:80], "ms_per_step": r[1] / 1e3 / n,
                  "calls_per_step": r[2] / n} for r in rows[:8]],
+            "sweep_route": route,
         }), flush=True)
 
 
