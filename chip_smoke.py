@@ -5,6 +5,9 @@ after building the hand-written CUDA kernels from the sources in this
 checkout and holding each against its plain PyTorch version on the card:
   - a batch of ragdoll locomotion environments stepped in lockstep by the
     trained walking policy (the fused step);
+  - BASELINE config 5's trainer: on-device PPO of 4096 ragdoll envs
+    through the training entry point (dxk_tpu_torch.train.train_locomotion,
+    64-step rollouts on the fused step, then PPO's updates);
   - bench.py's constraint zoo (BASELINE config 2: 16 chains with one link
     per joint type, 256 and 4096 envs) on the fused step;
   - bench.py's ragdoll drop-and-settle with its convex-hull debris
@@ -34,16 +37,36 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
   kernels    fused-step kernel vs plain version on rolled-out states, times,
              bound
   serve      policy rollout and zero-action rollout, checks on the results
+  train      train_locomotion.main on 4096 envs, 64-step rollouts, 30
+             solver iterations, 3 iterations into a temporary checkpoint
+             directory, then --resume for one more: env-steps/s over
+             iterations 2-3, rollout and update seconds, fused-kernel
+             launches (exactly iterations x 64, no broadphase launch) and
+             Adam updates (exactly epochs x minibatches) an iteration, every
+             iteration's metrics; finite metrics and parameters, parameters
+             moved, TF32 off, the checkpoint restored bit for bit, --resume
+             from its step and parameters; one minibatch update of the
+             trained state on the card against the same code on the CPU
+             (loss within 1e-5 relative, parameters within 1e-6,
+             TRAIN_TOL_REASON); the kernel vs its plain version on the
+             trained policy's last state, and its times
   zoo        fused-step kernel vs plain version on zoo states (initial, after
              60 steps, limit poses), live joint limits and motors by type,
              then 600 steps at each batch: launches, finiteness, anchor gaps,
              body-steps/s, the kernel's times and bound
   settle     fused-step kernel vs plain version on settle states (initial,
-             after 60 steps, hull poses), on a three-hull pile and after each
-             main-path run; live rows of the hull recipes and their branches;
-             the pile stepped 120 steps; then 600 steps at each batch:
-             launches, finiteness, the debris' height, body-steps/s, the
-             kernel's times and bound
+             after 60 steps, hull poses), on a three-hull pile, on three
+             piles of hulls past the kernel's per-thread polytope buffers
+             (a 64-vertex hull under a box or under a cylinder, a 24-sided
+             prism under a tetrahedron: their buffers in the hull scratch;
+             at 256 envs on fresh poses and after 120 steps and at 4096 on
+             fresh poses, in the averaged and the sequential solve, one
+             plain call over the three; the kernel's times at 256 and 4096)
+             and after each main-path run; live
+             rows of the hull recipes and their branches; the piles stepped
+             120 steps; then 600 steps at each batch: launches,
+             finiteness, the debris' height, body-steps/s, the kernel's
+             times and bound
   shapes     fused-step kernel vs plain version on the two golden scenes
              (initial, after 60 and 150 steps, after each main-path run) and
              on a sphere and cylinder check pile; live rows of the nine
@@ -74,7 +97,8 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
              statics, rows with more than K hits (BROADPHASE_CASES, also run
              under g++ by tools/emulate_broadphase_cpu.py); the sweep alone
              on unsorted input, NaN, +-inf and inverted boxes, windows 1 to
-             9 (past C), overflowing rows, K 20 and 80 (SWEEP_CASES)
+             9 (past C), overflowing rows, K 20 and 80, and K 300 past
+             the sweep's shared tile with rows of more hits (SWEEP_CASES)
   box_stack  the three broadphase kernels vs their plain versions (equal
              integers) on the initial and a rolled-out state, pair sets equal
              across the broadphases, then the box stack stepped in each
@@ -82,9 +106,9 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
              table broadphase, body-steps/s
 The line before the last is the card's name and power limit; the line before
 that lists every kernel (the fused step once per phase that runs it: loco,
-zoo, settle, shapes, fidelity and terrain, each with the launch plan of its
-timed batch, envs per block and warps per env; then the three broadphase
-kernels). The last line is {"ok": true, "device": {...}}.
+train, zoo, settle, shapes, fidelity and terrain, each with the launch plan
+of its timed batch, envs per block and warps per env; then the three
+broadphase kernels). The last line is {"ok": true, "device": {...}}.
 
 Imports torch and the port only; nothing of JAX.
 """
@@ -156,8 +180,13 @@ JOINT_FLAG_ROWS = {"hinge": {"limit": 40, "motor": 41},
                    "slider": {"limit": 51, "motor": 55}}
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with the script's seconds so far."""
+    print(json.dumps({"phase": phase, **kw,
+                      "elapsed_s": time.perf_counter() - T0}), flush=True)
 
 
 def device_phase():
@@ -416,15 +445,7 @@ def compare_kernel(scene, state, batch, dt):
     err_imp = float((kimp - pimp).abs().max())
     imp_scale = max(1.0, float(pimp.abs().max()))
     mask_mismatch = int((klive != plive).sum())
-    # live pair rows of each contact recipe: a recipe with none would be held
-    # against the plain version only through its hit/miss decision
-    P = tab.num_rows
-    types = tab.itab[tab.ioffs[0]:tab.ioffs[0] + fs.ROW_INTS * P].view(
-        P, fs.ROW_INTS)[:, 0].to(klive.device)
-    rows_live = (klive != 0).sum(dim=0)
-    live_by_recipe = {name: int(rows_live[types == t].sum())
-                      for t, name in fs.RECIPE_NAMES.items()
-                      if bool((types == t).any())}
+    live_by_recipe = live_rows_by_recipe(tab, klive)
     dt = float(np.float32(dt))
     ks = integrate_velocities(scene, bodies.replace(v=kv, w=kw), sub, dt)
     ps = integrate_velocities(
@@ -448,6 +469,20 @@ def compare_kernel(scene, state, batch, dt):
     if any(m["key"] in fs.BRANCH_RECIPES for m in tab.metas):
         out["branches"] = fs.recipe_branches(tab, wcol.a, wcol.b, wcol.rot)
     return out, run_kernel, run_plain, tab, klive
+
+
+def live_rows_by_recipe(tab, klive):
+    """Live pair rows of each contact recipe in `klive` (B, P): a recipe
+    with none would be held against the plain version only through its
+    hit/miss decision."""
+    from dxk_tpu_torch.ops.kernels import fused_step as fs
+    P = tab.num_rows
+    types = tab.itab[tab.ioffs[0]:tab.ioffs[0] + fs.ROW_INTS * P].view(
+        P, fs.ROW_INTS)[:, 0].to(klive.device)
+    rows_live = (klive != 0).sum(dim=0)
+    return {name: int(rows_live[types == t].sum())
+            for t, name in fs.RECIPE_NAMES.items()
+            if bool((types == t).any())}
 
 
 def hold_fused(c, relative=False):
@@ -522,6 +557,207 @@ def rollout(env, net, steps, seed):
         mean_forward_vx_steady=(float(vx_sum / vx_n) if float(vx_n) > 0
                                 else 0.0),
         dones=n_done, reward_min=rmin, reward_max=rmax)
+
+
+# ---------------------------------------------------------------------------
+# on-device PPO of BASELINE config 5 through the training entry point
+
+TRAIN_ENVS = 4096
+TRAIN_UNROLL = 64
+TRAIN_ITERS = 3
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_PARAM_ATOL = 1e-6
+TRAIN_TOL_REASON = (
+    "one minibatch update (loss, gradient, global-norm clip, Adam) of the "
+    "trained policy run by the same code on the card and, copied, on the "
+    "CPU: both in float32 without TF32, so they differ by the order of "
+    "float sums (cuBLAS and the CPU's products, the loss's means over "
+    "4096 samples: ~1e-7 relative on the loss); Adam's step is "
+    "about the learning rate, 3e-4, and with 1920 steps of history in its "
+    "moments a rounding difference in a gradient moves it by far less than "
+    "1e-6")
+
+
+def train_update_check(ts, config, seed):
+    """One minibatch update of the trained state on the card and, with the
+    parameters, Adam's state and the batch copied, on the CPU: the loss and
+    the parameters after the step, and their differences. Works on copies;
+    `ts` is left as it is."""
+    import copy
+    from dxk_tpu_torch.train import ppo
+    rng = np.random.default_rng(seed)
+    obs = ts.obs[:config.num_envs]
+    n = obs.shape[0]
+    with torch.no_grad():
+        mean, log_std, value = ts.net(obs)
+        action = mean + torch.from_numpy(rng.normal(
+            size=tuple(mean.shape)).astype(np.float32)).to(obs.device) \
+            * torch.exp(log_std)
+        old_lp = ppo.gaussian_log_prob(mean, log_std, action)
+    extra = [torch.from_numpy(rng.normal(size=n).astype(np.float32))
+             for _ in range(3)]
+    batch = (obs, action, old_lp + 0.05 * extra[0].to(obs.device), value,
+             extra[1].to(obs.device), value + extra[2].to(obs.device))
+    out = {}
+    for where in ("cuda", "cpu"):
+        net = copy.deepcopy(ts.net).to(where)
+        opt = ppo.AdamState(ts.opt_state.count,
+                            [m.detach().to(where).clone()
+                             for m in ts.opt_state.mu],
+                            [v.detach().to(where).clone()
+                             for v in ts.opt_state.nu])
+        loss, _opt = ppo.update_minibatch(
+            net, opt, tuple(x.to(where) for x in batch), config)
+        out[where] = (float(loss), {k: v.detach().cpu() for k, v in
+                                    net.state_dict().items()})
+    (lg, pg), (lc, pc) = out["cuda"], out["cpu"]
+    moved = max(float((pg[k] - ts.net.state_dict()[k].cpu()).abs().max())
+                for k in pg)
+    return dict(batch=n, adam_count=ts.opt_state.count, loss_cuda=lg,
+                loss_cpu=lc, loss_rel_diff=abs(lg - lc) / max(abs(lc),
+                                                              1e-30),
+                param_max_abs_diff=max(float((pg[k] - pc[k]).abs().max())
+                                       for k in pg),
+                step_moved_params_by=moved)
+
+
+def train_phase(seed):
+    """BASELINE config 5's trainer through its entry point:
+    train_locomotion.main on 4096 envs (64-step rollouts, 30 solver
+    iterations, the fused step), TRAIN_ITERS iterations into a temporary
+    checkpoint directory, then --resume for one more. Holds the launches of
+    the fused kernel (iters x unroll, none of the broadphase kernels) and
+    Adam's updates (epochs x minibatches), finite metrics and parameters,
+    parameters moved, TF32 off, the checkpoint restored bit for bit and
+    resumed from its step and parameters, and one minibatch update on the
+    card against the same on the CPU; then times the kernel on the trained
+    policy's last state against its plain version."""
+    import tempfile
+    from dxk_tpu_torch.envs.loco_env import DT, LocoEnv
+    from dxk_tpu_torch.ops.kernels import broadphase_kernel as bk
+    from dxk_tpu_torch.ops.kernels import fused_step as fs
+    from dxk_tpu_torch.ops.kernels import kselect_broadphase as ks
+    from dxk_tpu_torch.ops.kernels import sap_broadphase as sp
+    from dxk_tpu_torch.train import train_locomotion
+    from dxk_tpu_torch.utils.checkpoint import Checkpointer
+
+    counters = {"fused_step": fs, "aabb_overlap_matrix": bk,
+                "kselect_broadphase": ks, "sap_broadphase": sp}
+    with tempfile.TemporaryDirectory() as tmp:
+        def argv(iters):
+            return ["--num-envs", str(TRAIN_ENVS), "--unroll",
+                    str(TRAIN_UNROLL), "--iters", str(iters),
+                    "--solver-iterations", str(ITERATIONS),
+                    "--ckpt-dir", os.path.join(tmp, "ckpt"),
+                    "--csv", os.path.join(tmp, "train.csv")]
+        for mod in counters.values():
+            mod.reset_launch_count()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = train_locomotion.main(argv(TRAIN_ITERS))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {n: mod.launch_count() for n, mod in counters.items()}
+        ts, config = run["train_state"], run["config"]
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.get_float32_matmul_precision())
+        params = {k: v.detach().cpu().clone()
+                  for k, v in ts.net.state_dict().items()}
+        ckpt = Checkpointer(os.path.join(tmp, "ckpt"))
+        saved_step = ckpt.latest_step
+        restored = ckpt.restore()
+        bit_equal = (set(restored) == set(params) and all(
+            torch.equal(restored[k], params[k]) for k in params))
+        update = train_update_check(ts, config, seed)
+        resumed = train_locomotion.main(argv(1) + ["--resume"])
+        resumed_equal = all(torch.equal(resumed["initial_params"][k].cpu(),
+                                        params[k]) for k in params)
+    moved = max(float((params[k] - run["initial_params"][k].cpu())
+                      .abs().max()) for k in params)
+    finite = (all(bool(torch.isfinite(v).all()) for v in params.values())
+              and all(np.isfinite(m[k]) for m in run["metrics"]
+                      for k in ("loss", "reward_mean", "reward_per_step",
+                                "episode_done_rate", "value_mean")))
+    its = run["metrics"]
+    steady = its[1:]
+    per_iter = TRAIN_ENVS * TRAIN_UNROLL
+    out = dict(
+        envs=TRAIN_ENVS, unroll=TRAIN_UNROLL, iterations=TRAIN_ITERS,
+        solver_iterations=ITERATIONS, epochs=config.num_epochs,
+        minibatches=config.num_minibatches,
+        minibatch_size=per_iter // config.num_minibatches,
+        seconds=secs,
+        env_steps_per_s_iters_2_3=per_iter * len(steady)
+        / sum(m["seconds"] for m in steady),
+        rollout_s=[m["rollout_s"] for m in its],
+        update_s=[m["update_s"] for m in its],
+        iteration_s=[m["seconds"] for m in its],
+        fused_launches_per_iteration=[m["fused_launches"] for m in its],
+        adam_updates_per_iteration=[m["adam_updates"] for m in its],
+        launches=launches, metrics=its, params_moved_by=moved,
+        finite=finite, allow_tf32=tf32[0], matmul_precision=tf32[1],
+        checkpoint=dict(saved_step=saved_step, bit_equal=bit_equal),
+        resume=dict(start=resumed["start"],
+                    final_step=resumed["final_step"],
+                    params_equal_saved=resumed_equal,
+                    metrics=resumed["metrics"]),
+        update_check=dict(**update, loss_rtol=TRAIN_LOSS_RTOL,
+                          param_atol=TRAIN_PARAM_ATOL,
+                          tolerance_reason=TRAIN_TOL_REASON))
+
+    # the kernel on the trained policy's last state, against its plain
+    # version, and its time there
+    env = LocoEnv(solver_mode="fused", solver_iterations=ITERATIONS,
+                  device=DEVICE)
+    cmp, run_kernel, run_plain, tab, live = compare_kernel(
+        env.scene, ts.env_state.physics, TRAIN_ENVS, DT)
+    for _ in range(3):
+        run_kernel()
+    b_ms, b_by, b_detail = bound_ms(tab, live, TRAIN_ENVS)
+    out["kernel"] = dict(ms=time_ms(run_kernel, 20),
+                         plain_ms=time_ms(run_plain, 2), bound_ms=b_ms,
+                         bound_by=b_by, bound_detail=b_detail,
+                         err_v=cmp["err_v"], err_w=cmp["err_w"],
+                         live_rows_by_recipe=cmp["live_rows_by_recipe"])
+    emit("train", **out)
+
+    hold_fused(cmp)
+    want = {n: (TRAIN_ITERS * TRAIN_UNROLL if n == "fused_step" else 0)
+            for n in counters}
+    bad = []
+    if launches != want or any(m["fused_launches"] != TRAIN_UNROLL
+                               for m in its):
+        bad.append(f"launches {launches} (expected {want})")
+    if any(m["adam_updates"] != config.num_epochs * config.num_minibatches
+           for m in its):
+        bad.append("Adam updates an iteration differ from epochs x "
+                   "minibatches")
+    if not finite or not moved > 0.0:
+        bad.append(f"finite {finite}, parameters moved by {moved}")
+    if tf32[0] is not False:
+        bad.append("TF32 is on for float32 matrix products")
+    if saved_step != TRAIN_ITERS or not bit_equal:
+        bad.append(f"checkpoint step {saved_step}, bit-equal {bit_equal}")
+    if (resumed["start"] != TRAIN_ITERS or not resumed_equal
+            or resumed["final_step"] != TRAIN_ITERS + 1):
+        bad.append(f"resume from step {resumed['start']}, parameters "
+                   f"equal {resumed_equal}")
+    if not (update["loss_rel_diff"] <= TRAIN_LOSS_RTOL
+            and update["param_max_abs_diff"] <= TRAIN_PARAM_ATOL
+            and update["step_moved_params_by"] > 0.0):
+        bad.append(f"card vs CPU update: {update}")
+    if bad:
+        raise RuntimeError(f"train: {bad}")
+    return {
+        "name": "fused_step_train", "route": "cuda",
+        "source": "dxk_tpu_torch/ops/kernels/csrc/fused_step.cu",
+        "replaces": "dxk_tpu/ops/pallas/fused_step.py:1177",
+        "launches": launches["fused_step"],
+        "max_abs_err": max(cmp[k] for k in ("err_v", "err_w", "err_pos",
+                                            "err_rot", "err_imp")),
+        "ms": out["kernel"]["ms"], "plain_ms": out["kernel"]["plain_ms"],
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        **plan_fields(tab, TRAIN_ENVS)}
 
 
 # ---------------------------------------------------------------------------
@@ -708,8 +944,11 @@ BROADPHASE_CARD_CASES = (
 # sort_for_sweep's order with the ground left out as the scenes do;
 # "unsorted" hands the colliders to sap_sweep in index order, ground and
 # all; "nan_inf" puts NaN and +-inf coordinates and inverted boxes into some
-# colliders first. Window 1 leaves most rows overflowing, 8 reaches past C;
-# K 80: one warp a block, a wide shared tile of partners.
+# colliders first; "dense" packs every box's min corner into [-1, 1], so
+# that early rows overlap more than 300 later ones. Window 1 leaves most
+# rows overflowing, 8 reaches past C; K 80: one warp a block, a wide shared
+# tile of partners; K 300: past the tile (sap_broadphase.MAX_K), rows
+# written straight to the outputs.
 SWEEP_CASES = (
     (21, 1, 600, 8, 4, 1, "sorted"),
     (22, 3, 300, 8, 4, 4, "sorted"),
@@ -720,6 +959,7 @@ SWEEP_CASES = (
     (27, 1, 300, 20, 4, 3, "nan_inf unsorted"),
     (28, 1, 31, 1, 1, 9, "nan_inf"),
     (29, 1, 300, 80, 4, 4, "sorted"),
+    (30, 2, 600, 300, 4, 5, "sorted dense"),
 )
 
 
@@ -785,6 +1025,8 @@ def sweep_case_inputs(case, device="cpu"):
     seed, B, C, K, nph, window, layout = case
     mn, mx, body, owner, ctype = broadphase_colliders(seed, B, C,
                                                       (0, None, -1), 0.05)
+    if "dense" in layout:
+        mn, mx = mn / 6.0, mn / 6.0 + (mx - mn)
     if "nan_inf" in layout:
         # per env, about one collider in twelve each: a NaN coordinate of
         # its min or max corner, min-x -inf, max-x +inf, max-x -inf, and an
@@ -1381,27 +1623,128 @@ def pile_scene(device=DEVICE):
     return pile_builder(SceneBuilder).finalize(device=device)
 
 
+WIDE_BOX_HALF = 0.08                      # the box on top of the wide pile
+WIDE_CYL_HALF, WIDE_CYL_R = 0.06, 0.08    # the cylinder on top of another
+
+
+def wide_hull_points():
+    """Two hulls past the fused kernel's per-thread polytope buffers
+    (fused_step.MAX_HULL_VERTS, MAX_HULL_LOOP): 64 points spread evenly
+    over a sphere of radius 0.12 m, every one a vertex, and a 24-sided
+    prism of radius 0.12 m and height 0.1 m about y, whose two caps are
+    faces of 24 loop points."""
+    i = np.arange(64) + 0.5
+    y = 1.0 - 2.0 * i / 64
+    r = np.sqrt(1.0 - y * y)
+    t = np.pi * (3.0 - np.sqrt(5.0)) * i
+    cloud = 0.12 * np.stack([r * np.cos(t), y, r * np.sin(t)], axis=1)
+    a = 2.0 * np.pi * np.arange(24) / 24
+    ring = np.stack([0.12 * np.cos(a), np.zeros(24), 0.12 * np.sin(a)],
+                    axis=1)
+    prism = np.concatenate([ring - (0.0, 0.05, 0.0), ring + (0.0, 0.05, 0.0)])
+    return {"cloud64": cloud, "prism24": prism}
+
+
+WIDE_PILES = ("cloud64", "prism24", "cloud64_cylinder")
+WIDE_RECIPES = {"cloud64": ("box_hull",), "prism24": ("box_hull", "hull_hull"),
+                "cloud64_cylinder": ("box_hull", "cylinder_hull")}
+
+
+def wide_pile_builder(builder, name):
+    """A pile of one wide hull on a ground box (40 x 2 x 40, top at y = 0),
+    each body resting a few millimetres into the one below: the 64-point
+    hull under a 0.16 m box (box-hull rows of the ground and of the box),
+    the 24-sided prism under the hull pile's tetrahedron (a box-hull row of
+    the ground, a hull-hull row), or the 64-point hull under an upright
+    cylinder (half length 0.06 m, radius 0.08 m: a cylinder-hull row, and a
+    box-hull row of the ground; the shapes build). One wide
+    hull a scene: hulls are padded to the scene's largest, and the plain
+    version walks every padded edge pair (the 64-point hull has 186 edge
+    directions), so two such hulls in a hull-hull row would cost it
+    minutes a step."""
+    b = builder()
+    ground = b.add_static()
+    b.add_box_collider(ground, (0, -1, 0), (20, 1, 20))
+    pts = wide_hull_points()[name.split("_")[0]]
+    hid = b.add_hull_geometry_from_mesh(pts)
+    y = -pts[:, 1].min() - 0.003
+    body = b.add_body(position=(0.0, y, 0.0))
+    b.add_hull_collider(body, hid)
+    y += pts[:, 1].max()
+    if name == "cloud64":
+        h = WIDE_BOX_HALF
+        body = b.add_body(position=(0.0, y + h - 0.003, 0.0))
+        b.add_box_collider(body, (0, 0, 0), (h, h, h))
+    elif name == "cloud64_cylinder":
+        h = WIDE_CYL_HALF
+        body = b.add_body(position=(0.0, y + h - 0.003, 0.0))
+        b.add_cylinder_collider(body, (0, -h, 0), (0, h, 0), WIDE_CYL_R)
+    else:
+        tet = np.array([[1, 1, 1], [1, -1, -1], [-1, 1, -1],
+                        [-1, -1, 1]]) * 0.1
+        hid = b.add_hull_geometry_from_mesh(tet)
+        body = b.add_body(position=(0.0, y - tet[:, 1].min() - 0.003, 0.0))
+        b.add_hull_collider(body, hid)
+    return b
+
+
+def wide_pile_scene(name, device=DEVICE):
+    from dxk_tpu_torch.scene import SceneBuilder
+    return wide_pile_builder(SceneBuilder, name).finalize(device=device)
+
+
+def pile_vertices(scene):
+    """Each dynamic body's vertices in its own frame, in body order: its
+    hull's, its box's corners, or 64 points on each cap rim of its
+    cylinder (one collider a body, at the body's origin, as the pile
+    builders make them)."""
+    col = scene.colliders.to("cpu")
+    hv = scene.hulls.vertices.double().cpu()
+    hm = scene.hulls.vertex_mask.cpu()
+    out = []
+    for body in range(1, scene.num_bodies):
+        c = (col.body == body).nonzero()
+        if len(c) == 0:
+            continue
+        c = int(c[0, 0])
+        if int(col.ctype[c]) == 4:
+            h = int(col.hull_id[c])
+            out.append(hv[h][hm[h]])
+        elif int(col.ctype[c]) == 2:
+            # a cylinder along local y: its cap rims
+            t = torch.arange(64, dtype=torch.float64) * (2 * np.pi / 64)
+            r = float(col.r[c])
+            ring = torch.stack([r * torch.cos(t), torch.zeros(64),
+                                r * torch.sin(t)], dim=1)
+            out.append(torch.cat([ring + col.a[c].double(),
+                                  ring + col.b[c].double()]))
+        else:
+            half = col.b[c].double()
+            out.append(torch.tensor([[x, y, z] for x in (-1, 1)
+                                     for y in (-1, 1) for z in (-1, 1)],
+                                    dtype=torch.float64) * half)
+    return out
+
+
 def pile_poses(scene, batch, seed):
-    """`batch` envs of the pile: each hull turned by a seeded random
-    rotation (odd envs) or by up to 5 degrees (even envs), then set down
-    with its lowest vertex 0-6 mm below the highest vertex of the hull
-    under it (the ground's top for the first), so that each pair below
-    touches."""
+    """`batch` envs of a pile (pile_builder, wide_pile_builder): each body
+    turned by a seeded random rotation (odd envs) or by up to 5 degrees
+    (even envs), then set down with its lowest vertex 0-6 mm below the
+    highest vertex of the body under it (the ground's top for the first),
+    so that each pair below touches."""
     from dxk_tpu_torch.core.maths import quat_rotate
     st = scene.initial_state(batch)
     rng = np.random.default_rng(seed)
     pos = st.pos.double().cpu()
     rot = st.rot.double().cpu()
-    hv = scene.hulls.vertices.double().cpu()
-    hm = scene.hulls.vertex_mask.cpu()
+    body_verts = pile_vertices(scene)
     for e in range(batch):
         top = torch.tensor((rng.uniform(-0.03, 0.03), 0.0,
                             rng.uniform(-0.03, 0.03)), dtype=torch.float64)
-        for k in range(3):
+        for k, verts in enumerate(body_verts):
             ang = rng.uniform(0, 2 * np.pi) if e % 2 else np.radians(
                 rng.uniform(0, 5))
             q = _axis_quat(rng.normal(size=3), ang)
-            verts = hv[k][hm[k]]
             v = quat_rotate(q.expand(len(verts), 4), verts)
             rot[e, k + 1] = q                    # body 0 owns the ground
             pos[e, k + 1] = top - v[v[:, 1].argmin()] - torch.tensor(
@@ -1473,13 +1816,74 @@ def settle_phase(seed):
                     branches.setdefault(key, {})
                     branches[key][k] = branches[key].get(k, 0) + n
 
-    # ---- the pile stepped PILE_STEPS steps: state finite
+    # ---- the three-hull pile stepped PILE_STEPS steps: state finite
+    pile_ok = {}
+    ok = torch.ones((), dtype=torch.bool, device=DEVICE)
     st = pile_st
-    pile_finite = torch.ones((), dtype=torch.bool, device=DEVICE)
     for _ in range(PILE_STEPS):
         st, _info = physics_step(pile, st, settings, SETTLE_DT)
-        pile_finite &= torch.isfinite(st.pos).all() & torch.isfinite(
+        ok &= torch.isfinite(st.pos).all() & torch.isfinite(
             st.lin_vel).all() & torch.isfinite(st.ang_vel).all()
+    pile_ok["pile"] = bool(ok)
+
+    # ---- hulls past the per-thread polytope buffers (their buffers in the
+    # hull scratch): each wide pile at bench's batch on fresh poses and
+    # after PILE_STEPS steps, and at the main batch on fresh poses, held in
+    # the averaged solve (base or shapes build) and in the sequential one
+    # (prepped build). hold_modes runs the plain version once over the
+    # three states side by side: it walks the padded edge pairs and 48 clip
+    # slots op by op (~22 s a call for the prism at any batch), so its time
+    # is that one call's
+    small, big = SETTLE_BATCHES[0], SETTLE_BATCHES[-1]
+    wide_checks, wide_timing = {}, {}
+    for n in WIDE_PILES:
+        wide = wide_pile_scene(n)
+        fresh = pile_poses(wide, small, seed)
+        st = fresh
+        ok = torch.ones((), dtype=torch.bool, device=DEVICE)
+        for _ in range(PILE_STEPS):
+            st, _info = physics_step(wide, st, settings, SETTLE_DT)
+            ok &= torch.isfinite(st.pos).all() & torch.isfinite(
+                st.lin_vel).all() & torch.isfinite(st.ang_vel).all()
+        pile_ok[f"wide_{n}"] = bool(ok)
+        fresh_big = pile_poses(wide, big, seed)
+        states = {f"B{small}_poses": fresh,
+                  f"B{small}_after_{PILE_STEPS}_steps": st,
+                  f"B{big}_poses": fresh_big}
+        plain_ms = {}
+        for mode, seq in (("fused", False), ("fused_seq", True)):
+            held = hold_modes(wide, states, SETTLE_DT, seq,
+                              prep_in_kernel=not seq)
+            for k, c in held.items():
+                wide_checks[f"wide_{n}.{mode}.{k}"] = c
+            plain_ms[mode] = held[f"B{big}_poses"]["plain_call_ms"]
+        # the kernel's time at each batch on fresh poses
+        wide_tab = fs.fused_tables(wide, DEVICE)
+        solver = fs.make_fused_step_solver(wide, ITERATIONS, 1.0)
+        timed = {}
+        for b, st_b in ((small, fresh), (big, fresh_big)):
+            inputs = kernel_inputs(wide, st_b, SETTLE_DT)
+            klive = solver(*inputs)[3]
+            for _ in range(3):
+                solver(*inputs)
+            timed[b] = (time_ms(lambda: solver(*inputs), 20), klive, inputs)
+        _ms, klive, (_b, wcol, _c, _i, _p) = timed[big]
+        branches_big = fs.recipe_branches(wide_tab, wcol.a, wcol.b, wcol.rot)
+        work = recipe_flops(wide_tab, branches_big, big)
+        b_ms, b_by, _detail = bound_ms(wide_tab, klive, big, work)
+        wide_timing[n] = dict(
+            batch=big, ms=timed[big][0], ms_small=timed[small][0],
+            plain_ms_one_call=plain_ms["fused"],
+            plain_ms_one_call_fused_seq=plain_ms["fused_seq"],
+            plain_envs=small * 2 + big, bound_ms=b_ms, bound_by=b_by,
+            recipe_flops=work, hull_dims=dict(zip(
+                ("V", "F", "FU", "LM", "EU"), wide_tab.hull_dims)),
+            hull_scratch_shape=fs.hull_scratch_shape(wide_tab, big),
+            pair_rows=wide_tab.num_rows,
+            plans={str(b): vars(wide_tab.launch_plan(b))
+                   for b in (small, big)},
+            branches=branches_big, pile_finite=pile_ok[f"wide_{n}"])
+    pile_finite = all(pile_ok.values())
 
     # ---- the main path at each batch, counts from zero just before it
     runs, timing = {}, {}
@@ -1530,11 +1934,12 @@ def settle_phase(seed):
          tolerance=KERNEL_TOL,
          tolerance_reason=SETTLE_TOL_REASON,
          checks=checks, live_rows_by_recipe=live, branches=branches,
-         pile=dict(steps=PILE_STEPS, finite=bool(pile_finite),
+         pile=dict(steps=PILE_STEPS, finite=pile_ok["pile"],
                    pair_rows=fs.fused_tables(pile, DEVICE).num_rows,
                    hull_dims=fs.fused_tables(pile, DEVICE).hull_dims),
-         runs=runs, kernel=timing)
-    for c in checks.values():
+         wide_checks=wide_checks, wide_pile=wide_timing, runs=runs,
+         kernel=timing)
+    for c in list(checks.values()) + list(wide_checks.values()):
         hold_fused(c, relative=True)
     dead = [r for r in ("capsule_hull", "box_hull", "hull_hull")
             if live.get(r, 0) == 0]
@@ -1545,8 +1950,17 @@ def settle_phase(seed):
     if dead:
         raise RuntimeError(f"settle: hull recipes or branches never live in "
                            f"the compared states: {dead}")
-    if not bool(pile_finite):
-        raise RuntimeError("settle: the hull pile went non-finite")
+    if not pile_finite:
+        raise RuntimeError(f"settle: a hull pile went non-finite: {pile_ok}")
+    # every recipe of each wide pile live in each solve's compared states
+    wide_dead = [f"{n}.{m}.{r}" for n, rs in WIDE_RECIPES.items()
+                 for m in ("fused", "fused_seq") for r in rs
+                 if not any(c["live_rows_by_recipe"].get(r, 0)
+                            for k, c in wide_checks.items()
+                            if k.startswith(f"wide_{n}.{m}."))]
+    if wide_dead:
+        raise RuntimeError(f"settle: no live {wide_dead} row in the wide "
+                           f"piles' compared states")
     for batch, r in runs.items():
         want = {n: (SETTLE_STEPS if n == "fused_step" else 0)
                 for n in counters}
@@ -1561,7 +1975,8 @@ def settle_phase(seed):
         "launches": runs[big]["launches"]["fused_step"],
         "max_abs_err": max(max(c["err_v"], c["err_w"], c["err_pos"],
                                c["err_rot"], c["err_imp"])
-                           for c in checks.values()),
+                           for c in list(checks.values())
+                           + list(wide_checks.values())),
         "ms": timing[big]["ms"], "plain_ms": timing[big]["plain_ms"],
         "bound_ms": timing[big]["bound_ms"],
         "bound_by": timing[big]["bound_by"], "library_ms": None,
@@ -2082,8 +2497,11 @@ def _envs(inputs, lo, hi):
 def hold_modes(scene, states, dt, sequential, prep_in_kernel=False):
     """Kernel vs plain version for each of `states` ({name: state}), one
     plain call over all of them put side by side (its cost is the number
-    of its eager launches, not the batch), one kernel launch per state at
-    that state's batch. Returns {name: check}."""
+    of its eager launches, not the batch; `plain_call_ms` its time on CUDA
+    events), one kernel launch per state at that state's batch; positions
+    and rotations after one integration of each side's velocities. Returns
+    {name: check}."""
+    from dxk_tpu_torch.ops.integrator import integrate_velocities
     from dxk_tpu_torch.ops.kernels import fused_step as fs
     names = list(states)
     cat = states[names[0]].replace(**{
@@ -2096,21 +2514,34 @@ def hold_modes(scene, states, dt, sequential, prep_in_kernel=False):
     bodies, wcol, joints, inv_dt, passed = inputs
     tab = fs.fused_tables(scene, DEVICE)
     tables = None if prep_in_kernel else joints
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
     pvw, pimp, plive = fs._fused_core(
         tab, ITERATIONS, 1.0, inv_dt, torch.cat([bodies.v, bodies.w], -1),
         bodies.inv_mass, bodies.inv_inertia, bodies.pos_cog, bodies.rot,
         joints if prep_in_kernel else None, wcol.a, wcol.b, wcol.rot,
         joint_tables=tables, sequential=sequential, passed=passed)
+    stop.record()
+    torch.cuda.synchronize()
+    plain_call_ms = start.elapsed_time(stop)
+    dt32 = float(np.float32(dt))
+    ps = integrate_velocities(scene, bodies.replace(
+        v=pvw[..., :3].contiguous(), w=pvw[..., 3:].contiguous()), cat, dt32)
     solver = fs.make_fused_step_solver(scene, ITERATIONS, 1.0,
                                        sequential=sequential,
                                        joint_prep_in_kernel=prep_in_kernel)
-    out, lo = {}, 0
+    out, lo, kvs, kws = {}, 0, [], []
     for n in names:
         hi = lo + states[n].pos.shape[0]
         kv, kw, kimp, klive = solver(*_envs(inputs, lo, hi))
         torch.cuda.synchronize()
+        kvs.append(kv)
+        kws.append(kw)
         out[n] = dict(
-            batch=hi - lo,
+            batch=hi - lo, plain_call_ms=plain_call_ms,
+            live_rows_by_recipe=live_rows_by_recipe(tab, klive),
             err_v=float((kv - pvw[lo:hi, :, :3]).abs().max()),
             err_w=float((kw - pvw[lo:hi, :, 3:]).abs().max()),
             err_imp=float((kimp - pimp[lo:hi]).abs().max()),
@@ -2124,6 +2555,14 @@ def hold_modes(scene, states, dt, sequential, prep_in_kernel=False):
             imp_scale=max(1.0, float(pimp[lo:hi].abs().max())),
             finite=bool(torch.isfinite(kv).all() and torch.isfinite(kw).all()
                         and torch.isfinite(kimp).all()))
+        lo = hi
+    ks = integrate_velocities(scene, bodies.replace(
+        v=torch.cat(kvs), w=torch.cat(kws)), cat, dt32)
+    lo = 0
+    for n in names:
+        hi = lo + states[n].pos.shape[0]
+        out[n]["err_pos"] = float((ks.pos[lo:hi] - ps.pos[lo:hi]).abs().max())
+        out[n]["err_rot"] = float((ks.rot[lo:hi] - ps.rot[lo:hi]).abs().max())
         lo = hi
     return out
 
@@ -2883,6 +3322,9 @@ def main():
         raise RuntimeError("the trained policy survives no longer than zero "
                            "actions in the port's simulator")
 
+    # ---- train: on-device PPO through the training entry point
+    train_kernel = train_phase(args.seed + 10)
+
     # ---- the constraint zoo on the fused step
     zoo_kernel = zoo_phase(args.seed + 4)
 
@@ -2916,7 +3358,8 @@ def main():
                                   "err_imp")),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None,
-        **plan_fields(tab, NUM_ENVS)}, zoo_kernel, settle_kernel,
+        **plan_fields(tab, NUM_ENVS)}, train_kernel, zoo_kernel,
+        settle_kernel,
         shapes_kernel, fidelity_kernel, terrain_kernel]
         + box_kernels}),
         flush=True)

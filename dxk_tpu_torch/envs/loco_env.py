@@ -77,9 +77,15 @@ class LocoEnv:
     restitution 0.1) + ragdoll at hip (0, 1.25, 0)."""
 
     def __init__(self, solver_iterations: int = 30,
-                 solver_mode: str = "fused", enable_pokes: bool = True,
+                 solver_mode: str = "fused", max_narrow_pairs: int = 48,
+                 enable_pokes: bool = True, narrow_caps: dict = None,
                  torso_velocity_target=(0.0, 0.0, 0.0), gait: bool = None,
                  device="cuda"):
+        # max_narrow_pairs and narrow_caps cap the reference step's
+        # narrowphase slots in the JAX package; "fused" and "fused_seq" need
+        # the uncapped static tables and ignore both, there as here (the
+        # only modes the port has)
+        del max_narrow_pairs, narrow_caps
         if solver_mode not in ("fused", "fused_seq"):
             raise NotImplementedError(
                 f"LocoEnv(solver_mode={solver_mode!r}) is not ported to "

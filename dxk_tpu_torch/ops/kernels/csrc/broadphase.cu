@@ -71,7 +71,10 @@
 // placement rule (two masks on the kind) and the same-body rule run only on
 // the columns that overlap, and the hits gather in a shared tile of the
 // block's rows, copied out as one contiguous range. The overflow flag reads
-// the window's last column, as before, however early a row stopped.
+// the window's last column, as before, however early a row stopped. Past
+// SAP_MAX_K partners a row the tile would not fit a block: one warp walks
+// the block's columns and each thread writes its row's hits, in ascending
+// order, straight into the outputs, then pads the row's remaining slots.
 //
 // Deliberately not done: TMA or cp.async staging (plain loads stage a chunk,
 // several in flight a thread), a bit-packed matrix (one bit a pair would
@@ -102,7 +105,8 @@ constexpr int KS_GROUP = 8;        // columns a K-select thread tests at once
 constexpr int SAP_ROWS = 32;       // rows a sweep block (a thread each)
 constexpr int SAP_SPLIT = 4;       // warps a sweep block: slices of a row
 constexpr int SAP_SPLIT_MAX_K = 16;  // largest K whose hits the slices buffer
-constexpr int SAP_MAX_K = 256;     // largest K the sweep's shared tile holds
+constexpr int SAP_MAX_K = 256;     // largest K the sweep's shared tile holds;
+                                   // past it rows are written directly
 constexpr int SAP_CHUNK = 64;      // columns a sweep warp stages at once
 constexpr int SAP_GROUP = 8;       // columns a sweep thread tests at once
 constexpr int SAP_EPT = 4;         // x-mins a sweep thread scans a pass
@@ -457,8 +461,13 @@ kselect_kernel(int C, int K, int nph, int split, const float* __restrict__ mn,
 //      out, the 32 rows' slots being one contiguous range.
 // Dynamic shared memory: the tile, 2 * 32 * (K + 1) ints (idx, then cls;
 // rows padded to K + 1 against bank conflicts), then (split - 1) * K * 32
-// ints twice for warps 1.. ([w - 1][idx, cls][k][lane]). The wrapper takes
-// K up to SAP_MAX_K.
+// ints twice for warps 1.. ([w - 1][idx, cls][k][lane]). For K > SAP_MAX_K
+// (one warp, no dynamic shared memory) a thread writes its row's hits
+// straight into idx_out / cls_out as step 2 finds them, in ascending order,
+// and pads the rest of the row in step 3; there is no tile and no copy-out.
+// DIRECT (K > SAP_MAX_K) is a template parameter so that the tile's
+// instance keeps its slots as shared-memory pointers.
+template <bool DIRECT>
 __global__ void __launch_bounds__(32 * SAP_SPLIT)
 sap_kernel(int C, int K, int nph, int window, const float* __restrict__ mn_s,
            const float* __restrict__ mx_s, const int* __restrict__ body_s,
@@ -496,13 +505,23 @@ sap_kernel(int C, int K, int nph, int window, const float* __restrict__ mn_s,
   int* t_idx = sap_smem;  // the block's rows' first K partners
   int* t_cls = sap_smem + 32 * kp;
   const size_t row = (size_t)b * C + ii;
-  int* o_idx = t_idx + lane * kp;  // this row's
-  int* o_cls = t_cls + lane * kp;
+  // this row's slots: in the tile, or (DIRECT) in the outputs; a thread past
+  // C never writes through them
+  int* o_idx;
+  int* o_cls;
+  if constexpr (DIRECT) {
+    o_idx = idx_out + row * K;
+    o_cls = cls_out + row * K;
+  } else {
+    o_idx = t_idx + lane * kp;
+    o_cls = t_cls + lane * kp;
+  }
   if (w == 0) {
-    for (int s = 0; s < K; ++s) {
-      o_idx[s] = -1;
-      o_cls[s] = 0;
-    }
+    if constexpr (!DIRECT)
+      for (int s = 0; s < K; ++s) {
+        o_idx[s] = -1;
+        o_cls[s] = 0;
+      }
     if (in) {
       const long long last = w_end - 1;
       const float end_minx = last < (long long)C ? mnb[3 * last] : BIG;
@@ -687,7 +706,13 @@ sap_kernel(int C, int K, int nph, int window, const float* __restrict__ mn_s,
       cnt += nv;
     }
     cnt_out[row] = cnt;
+    if constexpr (DIRECT)
+      for (int s = min(cnt, K); s < K; ++s) {
+        o_idx[s] = -1;
+        o_cls[s] = 0;
+      }
   }
+  if constexpr (DIRECT) return;
   __syncthreads();
   const int n_out = min(SAP_ROWS, C - r0) * K;
   int* idx_blk = idx_out + ((size_t)b * C + r0) * K;
@@ -773,21 +798,24 @@ extern "C" int dxk_sap_launch(int B, int C, int K, int nph, int window,
                               const void* ctype_s, void* idx, void* cls,
                               void* cnt, void* ovf, void* stream) {
   if (B <= 0 || C <= 0) return 0;
-  // a block's columns in SAP_SPLIT slices, unless K is too large to buffer
+  // a block's columns in SAP_SPLIT slices, unless K is too large to buffer;
+  // past SAP_MAX_K no tile either: rows are written directly
   const int split = K <= SAP_SPLIT_MAX_K ? SAP_SPLIT : 1;
-  if (K > SAP_MAX_K) return (int)cudaErrorInvalidValue;
-  const int smem = (2 * 32 * (K + 1) + (split - 1) * 2 * K * 32)
-                   * (int)sizeof(int);
+  const bool direct = K > SAP_MAX_K;
+  const int smem = direct ? 0
+                   : (2 * 32 * (K + 1) + (split - 1) * 2 * K * 32)
+                         * (int)sizeof(int);
   static int smem_set = 48 * 1024;
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        sap_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        sap_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     smem_set = smem;
   }
   dim3 grid((unsigned)B, (unsigned)((C + SAP_ROWS - 1) / SAP_ROWS));
   dim3 block(32 * split);
-  sap_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+  auto sweep = direct ? sap_kernel<true> : sap_kernel<false>;
+  sweep<<<grid, block, smem, (cudaStream_t)stream>>>(
       C, K, nph, window, (const float*)mn_s, (const float*)mx_s,
       (const int*)body_s, (const int*)owner_s, (const int*)ctype_s, (int*)idx,
       (int*)cls, (int*)cnt, (int*)ovf);

@@ -48,8 +48,10 @@
 //     reference-face clip) and the cylinder recipes (alternating projections
 //     and candidate-axis SATs) run one lane per pair row, out of line, with
 //     a polytope side's world vertices and the clip slots in per-thread local
-//     memory; their fixed-count loops stop a row once further rounds could
-//     not change its result.
+//     memory (hulls of up to VCAP vertices and SCAP / 2 loop points; a scene
+//     with larger hulls gets them in the lane's slice of a device-memory
+//     hull scratch instead, the same code over pointers); their fixed-count
+//     loops stop a row once further rounds could not change its result.
 // The file is compiled with -fmad=false: the box-box SAT and manifold reduction
 // break ties within 1e-4 relative, and a fused multiply-add can put a value on
 // the other side of a tie than the plain version's separately rounded ops.
@@ -713,6 +715,28 @@ constexpr int SCAP = 32;     // clip slots 2 LM, LM <= 16
 
 struct HullDims { int V, F, FU, LM, EU; };
 
+// Hulls past those caps (V > VCAP or LM > SCAP / 2) keep the polytope
+// recipes' buffers in the wrapper's hull scratch
+// (fused_step.hull_scratch_shape): `lanes` slices an env, one for each lane
+// of the env's team of `team` threads that takes pair rows (one row after
+// another), `floats` a slice: both sides' world vertices, max(V, 8) each
+// (a box side has 8), then the clip's two vertex and two depth buffers of
+// S = 2 max(LM, 4) slots each. The scratch is a kernel parameter like the
+// point scratch, null for a scene within the caps; the recipes get the
+// lane's slice as a pointer.
+__host__ __device__ inline int hull_lane_floats(const HullDims& h) {
+  const int vs = h.V > 8 ? h.V : 8, lm = h.LM > 4 ? h.LM : 4;
+  return (h.V > VCAP || h.LM > SCAP / 2) ? 6 * vs + 16 * lm : 0;
+}
+DF int hull_side_verts(const HullDims& h) { return h.V > 8 ? h.V : 8; }
+// lane `tl` of env `env`'s slice of the hull scratch `base` (min(P, T)
+// lanes an env, T the team's threads); null without the scratch
+DF float* hull_slice(float* base, const HullDims& hd, int env, int P, int T, int tl) {
+  if (!base) return nullptr;
+  const int lanes = P < T ? P : T;
+  return base + ((size_t)env * lanes + tl) * hull_lane_floats(hd);
+}
+
 DF int hb_planes(const HullDims& h) { return 3 * h.V; }
 DF int hb_pn(const HullDims& h) { return 3 * h.V + 5 * h.F; }
 DF int hb_pm(const HullDims& h) { return hb_pn(h) + 3 * h.FU; }
@@ -939,7 +963,7 @@ DN void capsule_hull(V3 aa, V3 ab, float r, V3 hp, Q4 hq, const float* hb,
 // or a hull from its block; world vertices are kept, face normals, loop
 // points and edge directions are rotated to world when used (the same
 // operations as the plain version's world lists, so the same bits)
-struct Poly {
+struct PolyBase {
   bool box;
   int nv, nf, ne, lm;      // vertices, faces, edge directions, points per stored loop
   V3 c, h;                 // box: center, half extents; hull: position (h unused)
@@ -947,14 +971,38 @@ struct Poly {
   const float* hb;         // hull block
   const int* llen;         // hull loop lengths
   HullDims hd;
+};
+// the world vertices held per thread (hulls within the caps), or in the
+// lane's slice of the hull scratch (`Wide`, bound by poly_bind)
+template <bool Wide> struct PolyT : PolyBase {
+  static constexpr bool kWide = false;
+  static constexpr int kSlots = SCAP;   // clip slots held per thread
   V3 v[VCAP];
 };
+template <> struct PolyT<true> : PolyBase {
+  static constexpr bool kWide = true;
+  static constexpr int kSlots = 1;
+  V3* v;
+};
+using Poly = PolyT<false>;
+using PolyWide = PolyT<true>;
+
+// a wide pair's vertex buffers in the lane's slice of the hull scratch,
+// side A's then side B's (nothing to do for the per-thread form); the clip
+// buffers follow them (polytope)
+template <class P> DF void poly_bind(P& A, P& B, const HullDims& hd, float* hs) {
+  if constexpr (P::kWide) {
+    A.v = reinterpret_cast<V3*>(hs);
+    B.v = A.v + hull_side_verts(hd);
+  }
+}
 
 DF V3 box_axis(Q4 q, int i) {
   return qrot(q, mk(i == 0 ? 1.0f : 0.0f, i == 1 ? 1.0f : 0.0f, i == 2 ? 1.0f : 0.0f));
 }
 
-DF void poly_box(Poly& P, V3 c, V3 h, Q4 q) {
+template <class P_>
+DF void poly_box(P_& P, V3 c, V3 h, Q4 q) {
   P.box = true; P.nv = 8; P.nf = 6; P.ne = 3; P.lm = 4;
   P.c = c; P.h = h; P.q = q;
   int i = 0;
@@ -964,14 +1012,16 @@ DF void poly_box(Poly& P, V3 c, V3 h, Q4 q) {
         P.v[i++] = add(qrot(q, mk((float)sx * h.x, (float)sy * h.y, (float)sz * h.z)), c);
 }
 
-DF void poly_hull(Poly& P, V3 p, Q4 q, const float* hb, const int* llen, const HullDims& hd) {
+template <class P_>
+DF void poly_hull(P_& P, V3 p, Q4 q, const float* hb, const int* llen, const HullDims& hd) {
   P.box = false; P.nv = hd.V; P.nf = hd.FU; P.ne = hd.EU; P.lm = hd.LM;
   P.c = p; P.h = mk(0.0f, 0.0f, 0.0f); P.q = q; P.hb = hb; P.llen = llen; P.hd = hd;
   for (int i = 0; i < hd.V; ++i) P.v[i] = add(qrot(q, ld3(hb + 3 * i)), p);
 }
 
 // faces 2i, 2i+1 of a box: +axis i, -axis i (cm_polytope.box_topology_world)
-DF V3 poly_face_n(const Poly& P, int f) {
+template <class P_>
+DF V3 poly_face_n(const P_& P, int f) {
   if (f < 0) return mk(0.0f, 0.0f, 0.0f);
   if (P.box) {
     V3 ax = box_axis(P.q, f >> 1);
@@ -979,15 +1029,18 @@ DF V3 poly_face_n(const Poly& P, int f) {
   }
   return qrot(P.q, ld3(P.hb + hb_pn(P.hd) + 3 * f));
 }
-DF bool poly_face_ok(const Poly& P, int f) {
+template <class P_>
+DF bool poly_face_ok(const P_& P, int f) {
   return P.box || P.hb[hb_pm(P.hd) + f] > 0.5f;
 }
-DF int poly_loop_len(const Poly& P, int f) {
+template <class P_>
+DF int poly_loop_len(const P_& P, int f) {
   if (f < 0) return 0;
   return P.box ? 4 : P.llen[f];
 }
 // point l of face f's loop, padded past the stored points with the last one
-DF V3 poly_loop_pt(const Poly& P, int f, int l) {
+template <class P_>
+DF V3 poly_loop_pt(const P_& P, int f, int l) {
   if (f < 0) return mk(0.0f, 0.0f, 0.0f);
   int ll = l < P.lm ? l : P.lm - 1;
   if (P.box) {
@@ -1003,11 +1056,13 @@ DF V3 poly_loop_pt(const Poly& P, int f, int l) {
   }
   return add(qrot(P.q, ld3(P.hb + hb_loops(P.hd) + 3 * (f * P.lm + ll))), P.c);
 }
-DF V3 poly_edge(const Poly& P, int e) {
+template <class P_>
+DF V3 poly_edge(const P_& P, int e) {
   if (P.box) return box_axis(P.q, e);
   return qrot(P.q, ld3(P.hb + hb_ed(P.hd) + 3 * e));
 }
-DF bool poly_edge_ok(const Poly& P, int e) {
+template <class P_>
+DF bool poly_edge_ok(const P_& P, int e) {
   return P.box || P.hb[hb_em(P.hd) + e] > 0.5f;
 }
 
@@ -1018,7 +1073,8 @@ DF bool sat_better(float ov, float best) {
 }
 
 // best face axis of side S against side O: overlap max_S(n) - min_O(n)
-DF void face_scan(const Poly& S, const Poly& O, float& best, int& bf, bool& sep) {
+template <class P_>
+DF void face_scan(const P_& S, const P_& O, float& best, int& bf, bool& sep) {
   best = BIG; bf = -1; sep = false;
   for (int f = 0; f < S.nf; ++f) {
     V3 n = poly_face_n(S, f);
@@ -1034,14 +1090,16 @@ DF void face_scan(const Poly& S, const Poly& O, float& best, int& bf, bool& sep)
   }
 }
 
-DF V3 centroid(const Poly& P) {
+template <class P_>
+DF V3 centroid(const P_& P) {
   float inv = 1.0f / (float)P.nv;
   V3 c = P.v[0];
   for (int i = 1; i < P.nv; ++i) c = add(c, P.v[i]);
   return muls(c, inv);
 }
 
-DF V3 support(const Poly& P, V3 n) {
+template <class P_>
+DF V3 support(const P_& P, V3 n) {
   V3 best = P.v[0];
   float bs = dot(best, n);
   for (int i = 1; i < P.nv; ++i) {
@@ -1052,8 +1110,11 @@ DF V3 support(const Poly& P, V3 n) {
 }
 
 // exact SAT + reference-face clip (cm_polytope.polytope_polytope_core); loops
-// of both sides padded to LM, clip on S = 2 LM slots
-DN void polytope(const Poly& A, const Poly& B, int LM, Manifold& o) {
+// of both sides padded to LM, clip on S = 2 LM slots (per thread, or for
+// wide hulls in the lane's hull scratch after both sides' vertices: 2 S
+// vertices, then 2 S depths; side B is always a hull)
+template <class P_>
+DN void polytope(const P_& A, const P_& B, int LM, Manifold& o) {
   V3 ca = centroid(A), cb = centroid(B);
   float ov_a, ov_b; int fa, fb; bool sep_a, sep_b;
   face_scan(A, B, ov_a, fa, sep_a);
@@ -1114,8 +1175,8 @@ DN void polytope(const Poly& A, const Poly& B, int LM, Manifold& o) {
 
   // face case: clip the incident face's loop against the reference loop
   bool face_b = which == 1;
-  const Poly& R = face_b ? B : A;
-  const Poly& I = face_b ? A : B;
+  const P_& R = face_b ? B : A;
+  const P_& I = face_b ? A : B;
   int rf = face_b ? fb : fa;
   V3 ref_n = face_b ? n_b : n_a;
   int ref_len = poly_loop_len(R, rf);
@@ -1128,8 +1189,17 @@ DN void polytope(const Poly& A, const Poly& B, int LM, Manifold& o) {
   V3 ref0 = poly_loop_pt(R, rf, 0);
   float rp_d = -dot(ref_n, ref0);
   const int S = 2 * LM;
-  V3 va[SCAP], vb[SCAP];
-  float da[SCAP], db[SCAP];
+  V3 va_t[P_::kSlots], vb_t[P_::kSlots];
+  float da_t[P_::kSlots], db_t[P_::kSlots];
+  V3 *va = va_t, *vb = vb_t;
+  float *da = da_t, *db = db_t;
+  if constexpr (P_::kWide) {
+    float* clip = reinterpret_cast<float*>(B.v + hull_side_verts(B.hd));
+    va = reinterpret_cast<V3*>(clip);
+    vb = va + S;
+    da = clip + 6 * S;
+    db = da + S;
+  }
   for (int l = 0; l < LM; ++l) {
     va[l] = poly_loop_pt(I, bi, l);
     da[l] = -(dot(va[l], ref_n) + rp_d);
@@ -1162,20 +1232,59 @@ DN void polytope(const Poly& A, const Poly& B, int LM, Manifold& o) {
 }
 
 // box (side a) vs hull (side b); loops padded to max(4, LM of the hulls)
-DN void box_hull(V3 bc, V3 bh, Q4 bq, V3 hp, Q4 hq, const float* hb, const int* llen,
-                 const HullDims& hd, Manifold& o) {
-  Poly A, B;
+template <class P_>
+DF void box_hull_t(V3 bc, V3 bh, Q4 bq, V3 hp, Q4 hq, const float* hb, const int* llen,
+                   const HullDims& hd, float* hs, Manifold& o) {
+  P_ A, B;
+  poly_bind(A, B, hd, hs);
   poly_box(A, bc, bh, bq);
   poly_hull(B, hp, hq, hb, llen, hd);
   polytope(A, B, hd.LM > 4 ? hd.LM : 4, o);
 }
 
-DN void hull_hull(V3 pa, Q4 qa, const float* hba, const int* lla, V3 pb, Q4 qb,
-                  const float* hbb, const int* llb, const HullDims& hd, Manifold& o) {
-  Poly A, B;
+template <class P_>
+DF void hull_hull_t(V3 pa, Q4 qa, const float* hba, const int* lla, V3 pb, Q4 qb,
+                    const float* hbb, const int* llb, const HullDims& hd, float* hs,
+                    Manifold& o) {
+  P_ A, B;
+  poly_bind(A, B, hd, hs);
   poly_hull(A, pa, qa, hba, lla, hd);
   poly_hull(B, pb, qb, hbb, llb, hd);
   polytope(A, B, hd.LM, o);
+}
+
+// the recipes' entry points: the per-thread form inline, as it was before
+// the hull scratch, and the wide form (`hs` the lane's slice of the hull
+// scratch, non-null exactly for hulls past the caps) a call of its own, so
+// that a scene within the caps runs the same code and register budget
+DN void box_hull_wide(V3 bc, V3 bh, Q4 bq, V3 hp, Q4 hq, const float* hb,
+                      const int* llen, const HullDims& hd, float* hs, Manifold& o) {
+  box_hull_t<PolyWide>(bc, bh, bq, hp, hq, hb, llen, hd, hs, o);
+}
+
+DN void box_hull(V3 bc, V3 bh, Q4 bq, V3 hp, Q4 hq, const float* hb, const int* llen,
+                 const HullDims& hd, float* hs, Manifold& o) {
+  if (hs) {
+    box_hull_wide(bc, bh, bq, hp, hq, hb, llen, hd, hs, o);
+    return;
+  }
+  box_hull_t<Poly>(bc, bh, bq, hp, hq, hb, llen, hd, nullptr, o);
+}
+
+DN void hull_hull_wide(V3 pa, Q4 qa, const float* hba, const int* lla, V3 pb, Q4 qb,
+                       const float* hbb, const int* llb, const HullDims& hd, float* hs,
+                       Manifold& o) {
+  hull_hull_t<PolyWide>(pa, qa, hba, lla, pb, qb, hbb, llb, hd, hs, o);
+}
+
+DN void hull_hull(V3 pa, Q4 qa, const float* hba, const int* lla, V3 pb, Q4 qb,
+                  const float* hbb, const int* llb, const HullDims& hd, float* hs,
+                  Manifold& o) {
+  if (hs) {
+    hull_hull_wide(pa, qa, hba, lla, pb, qb, hbb, llb, hd, hs, o);
+    return;
+  }
+  hull_hull_t<Poly>(pa, qa, hba, lla, pb, qb, hbb, llb, hd, nullptr, o);
 }
 
 #if DXK_SHAPE_RECIPES
@@ -1674,16 +1783,19 @@ struct SupCyl {
     return add(m, add(muls(adir, hlen * sgn), muls(pdir, pl > 1e-6f ? cr : 0.0f)));
   }
 };
+template <class P_>
 struct SupPolyVerts {
-  const Poly* P;
+  const P_* P;
   DF V3 operator()(V3 d) const { return support(*P, d); }
 };
 
 // cylinder ca-cb2 (radius cr) vs hull at (hp, hq): one contact
 // (cm_polytope.cylinder_hull_cm on the world-space polytope side)
-DN void cylinder_hull(V3 ca, V3 cb2, float cr, V3 hp, Q4 hq, const float* hb,
-                      const int* llen, const HullDims& hd, Manifold& o) {
-  Poly B;
+template <class P_>
+DF void cylinder_hull_t(V3 ca, V3 cb2, float cr, V3 hp, Q4 hq, const float* hb,
+                        const int* llen, const HullDims& hd, float* hs, Manifold& o) {
+  P_ B;
+  if constexpr (P_::kWide) B.v = reinterpret_cast<V3*>(hs);
   poly_hull(B, hp, hq, hb, llen, hd);
   SupCyl cyl;
   cyl.m = muls(add(ca, cb2), 0.5f);
@@ -1749,7 +1861,7 @@ DN void cylinder_hull(V3 ca, V3 cb2, float cr, V3 hp, Q4 hq, const float* hb,
 
   // boolean gate: the distance GJK, 16 iterations
   float dist; V3 qa, qb; bool overlap;
-  SupPolyVerts sb = {&B};
+  SupPolyVerts<P_> sb = {&B};
   gjk_distance<16>(cyl, sb, dist, qa, qb, overlap);
   bool hit = best_ov >= 0.0f && !separated && (overlap || dist < 1e-5f);
   o.pt[0] = sub(cyl(best_n), muls(best_n, 0.5f * best_ov));
@@ -1758,10 +1870,25 @@ DN void cylinder_hull(V3 ca, V3 cb2, float cr, V3 hp, Q4 hq, const float* hb,
   o.mask = hit ? 1 : 0;
 }
 
+DN void cylinder_hull_wide(V3 ca, V3 cb2, float cr, V3 hp, Q4 hq, const float* hb,
+                           const int* llen, const HullDims& hd, float* hs, Manifold& o) {
+  cylinder_hull_t<PolyWide>(ca, cb2, cr, hp, hq, hb, llen, hd, hs, o);
+}
+
+// as box_hull: the per-thread form inline, the wide one a call of its own
+DN void cylinder_hull(V3 ca, V3 cb2, float cr, V3 hp, Q4 hq, const float* hb,
+                      const int* llen, const HullDims& hd, float* hs, Manifold& o) {
+  if (hs) {
+    cylinder_hull_wide(ca, cb2, cr, hp, hq, hb, llen, hd, hs, o);
+    return;
+  }
+  cylinder_hull_t<Poly>(ca, cb2, cr, hp, hq, hb, llen, hd, nullptr, o);
+}
+
 // the recipe of a sphere or cylinder row (recipe ids 6-14, fused_step.CM_RECIPES)
 DN void shapes_row(int type, int ca, int cb, ColSide A, ColSide Bc,
                    const float* col_r, const int* hull_id, const int* hull_llen,
-                   const float* hull_base, const HullDims& hd, Manifold& mf) {
+                   const float* hull_base, const HullDims& hd, float* hs, Manifold& mf) {
   switch (type) {
     case 6:
       sphere_sphere_row(ld3(A.a3), col_r[ca], ld3(Bc.a3), col_r[cb], mf);
@@ -1793,7 +1920,7 @@ DN void shapes_row(int type, int ca, int cb, ColSide A, ColSide Bc,
     case 14:
       cylinder_hull(ld3(A.a3), ld3(A.b3), col_r[ca], ld3(Bc.a3), ld4(Bc.q4),
                     hull_base + hb_size(hd) * hull_id[cb],
-                    hull_llen + hd.FU * hull_id[cb], hd, mf);
+                    hull_llen + hd.FU * hull_id[cb], hd, hs, mf);
       break;
   }
 }
@@ -2734,7 +2861,7 @@ __global__ void __launch_bounds__(256, 2) fused_step_kernel(
     const float* __restrict__ g_crows, int crow_pts,
 #endif
     const int* __restrict__ itab, const float* __restrict__ ftab,
-    float* g_pts, float* g_rdelta,
+    float* g_pts, float* g_rdelta, float* g_hull,
     float* __restrict__ o_v, float* __restrict__ o_w, float* __restrict__ o_imp,
     unsigned char* __restrict__ o_live) {
   extern __shared__ float smem[];
@@ -2856,21 +2983,23 @@ __global__ void __launch_bounds__(256, 2) fused_step_kernel(
       case 4:
         box_hull(ld3(A.a3), ld3(A.b3), ld4(A.q4), ld3(Bc.a3), ld4(Bc.q4),
                  ftab + D.hull_base + hb_size(D.hd) * hull_id[cb],
-                 hull_llen + D.hd.FU * hull_id[cb], D.hd, mf);
+                 hull_llen + D.hd.FU * hull_id[cb], D.hd,
+                 hull_slice(g_hull, D.hd, env, P, T, tl), mf);
         break;
       // hull-hull stays the default case: with an explicit case 5 and an
       // empty default the settle kernel took 3 % longer on an H100
 #if DXK_SHAPE_RECIPES
       case 6: case 7: case 8: case 9: case 10: case 11: case 12: case 13: case 14:
         shapes_row(type, ca, cb, A, Bc, col_r, hull_id, hull_llen, ftab + D.hull_base,
-                   D.hd, mf);
+                   D.hd, hull_slice(g_hull, D.hd, env, P, T, tl), mf);
         break;
 #endif
       default:
         hull_hull(ld3(A.a3), ld4(A.q4), ftab + D.hull_base + hb_size(D.hd) * hull_id[ca],
                   hull_llen + D.hd.FU * hull_id[ca], ld3(Bc.a3), ld4(Bc.q4),
                   ftab + D.hull_base + hb_size(D.hd) * hull_id[cb],
-                  hull_llen + D.hd.FU * hull_id[cb], D.hd, mf);
+                  hull_llen + D.hd.FU * hull_id[cb], D.hd,
+                  hull_slice(g_hull, D.hd, env, P, T, tl), mf);
     }
     rmask[r] = (unsigned char)mf.mask;
     o_live[(size_t)env * P + r] = (unsigned char)mf.mask;
@@ -3035,7 +3164,9 @@ __global__ void __launch_bounds__(256, 2) fused_step_kernel(
 // Launches ceil(B / envs) blocks of envs * warps warps on `stream`: `envs` envs
 // a block, `warps` warps each (FusedTables.launch_plan). `pts` and `rdelta` are
 // the wrapper's scratch, POINT_FIELDS x npts and P x 12 floats per env, read
-// only where this launch wrote them. Returns the CUDA error code of the launch
+// only where this launch wrote them; `hull` the hull scratch, min(P, 32 warps)
+// x hull_lane_floats floats per env for hulls past the per-thread caps, null
+// otherwise. Returns the CUDA error code of the launch
 // (0 = success), cudaErrorInvalidValue when `smem_bytes` is not the layout's
 // size (env_layout) or the plan does not fit a block; does not synchronise and
 // allocates nothing. The prepped build's entry also takes the env's prepared
@@ -3050,7 +3181,7 @@ extern "C" int dxk_fused_step_prepped_launch(
     const void* pos_cog, const void* rot, const void* ctl, const void* col_a,
     const void* col_b, const void* col_rot, const void* jrows, int sequential,
     int rows_passed, const void* crows, int crow_pts, const void* itab,
-    const void* ftab, void* pts, void* rdelta,
+    const void* ftab, void* pts, void* rdelta, void* hull,
     void* v_out, void* w_out, void* imp_out, void* live_out,
     int envs, int warps, int smem_bytes, void* stream) {
 #else
@@ -3059,7 +3190,8 @@ extern "C" int dxk_fused_step_launch(
     const void* v, const void* w, const void* inv_mass, const void* inv_inertia,
     const void* pos_cog, const void* rot, const void* ctl, const void* col_a,
     const void* col_b, const void* col_rot, const void* itab, const void* ftab,
-    void* pts, void* rdelta, void* v_out, void* w_out, void* imp_out, void* live_out,
+    void* pts, void* rdelta, void* hull, void* v_out, void* w_out, void* imp_out,
+    void* live_out,
     int envs, int warps, int smem_bytes, void* stream) {
 #endif
   Dims D;
@@ -3078,6 +3210,9 @@ extern "C" int dxk_fused_step_launch(
   D.hull_col = h[0]; D.hull_llen = h[1]; D.hull_base = h[2];
   D.hd.V = h[3]; D.hd.F = h[4]; D.hd.FU = h[5]; D.hd.LM = h[6]; D.hd.EU = h[7];
   D.envs = envs; D.warps = warps;
+  // hulls past the per-thread caps need the hull scratch, and only they
+  const int hull_floats = hull_lane_floats(D.hd);
+  if ((hull_floats > 0) != (hull != nullptr)) return (int)cudaErrorInvalidValue;
   // a scene with sphere or cylinder rows needs the library built with them
   if (h[8] != 0 && !DXK_SHAPE_RECIPES) return (int)cudaErrorInvalidValue;
   int nrow_f, nacc_f, nJmax;
@@ -3100,7 +3235,7 @@ extern "C" int dxk_fused_step_launch(
 #if DXK_PREPPED_JOINTS
       (const float*)jrows, sequential, rows_passed, (const float*)crows, crow_pts,
 #endif
-      (const int*)itab, (const float*)ftab, (float*)pts, (float*)rdelta,
+      (const int*)itab, (const float*)ftab, (float*)pts, (float*)rdelta, (float*)hull,
       (float*)v_out, (float*)w_out, (float*)imp_out, (unsigned char*)live_out);
   return (int)cudaGetLastError();
 }

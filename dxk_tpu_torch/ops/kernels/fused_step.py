@@ -29,10 +29,11 @@ team of whole warps that synchronises only itself (`FusedTables.
 launch_plan` picks envs per block and warps per env from the scene's
 shared memory and the batch), keeps in shared memory what the solve
 rewrites, puts the contact points and row deltas in a device-memory
-scratch the wrapper allocates (`scratch_shapes`), touches live pair rows
-and manifold points only (dead ones contribute exactly zero), and sums
-per-body deltas in a fixed order from incidence lists, so results do not
-vary from run to run. Not done yet: no cp.async/TMA staging of the inputs,
+scratch the wrapper allocates (`scratch_shapes`; hulls past the per-thread
+polytope buffers get a hull scratch too, `hull_scratch_shape`), touches
+live pair rows and manifold points only (dead ones contribute exactly
+zero), and sums per-body deltas in a fixed order from incidence lists, so
+results do not vary from run to run. Not done yet: no cp.async/TMA staging of the inputs,
 the sequential chain on one lane per env; the library is compiled with
 ``-fmad=false`` so that the narrowphase takes the same side of every
 tie-break as the plain version.
@@ -103,7 +104,9 @@ RECIPE_NAMES = {0: "capsule_capsule", 1: "capsule_box", 2: "box_box",
 PASSED_ROW = 15
 HULL_RECIPES = {(0, 4), (1, 4), (2, 4), (3, 4), (4, 4)}
 # largest padded hull the kernel's polytope recipes hold per thread: world
-# vertices of each side, and clip slots 2 * LM (csrc/fused_step.cu)
+# vertices of each side, and clip slots 2 * LM (csrc/fused_step.cu VCAP,
+# SCAP); a scene with larger hulls gives them a device-memory hull scratch
+# (hull_scratch_shape)
 MAX_HULL_VERTS = 32
 MAX_HULL_LOOP = 16
 
@@ -1055,8 +1058,9 @@ def load_library(verbose: bool = False, shapes: bool = False,
             (17, 18, 30, 46, 59, 58), 31, 30, 8, 10, 32, 16):
         raise RuntimeError("row layouts changed: csrc/fused_step.cu hard-"
                            "codes the joint row widths, STATIC_WIDTH, "
-                           "POINT_FIELDS, ROW_INTS, DESC_INTS and the hull "
-                           "caps (VCAP, SCAP = 2 * MAX_HULL_LOOP)")
+                           "POINT_FIELDS, ROW_INTS, DESC_INTS, the per-thread "
+                           "hull caps (VCAP, SCAP = 2 * MAX_HULL_LOOP) and "
+                           "hull_lane_floats")
     lib, BUILD_LOGS[name] = build.compile_library(
         "fused_step.cu", NVCC_FLAGS + LIBRARY_FLAGS[name], verbose)
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -1070,7 +1074,8 @@ def load_library(verbose: bool = False, shapes: bool = False,
                                                     # rows passed, passed
                                                     # contact rows, points
         + [p, p]                                    # itab, ftab
-        + [p, p]                                    # point, row-delta scratch
+        + [p, p, p]                                 # point, row-delta, hull
+                                                    # scratch
         + [p] * 4                                   # outputs
         + [i, i, i, p])                             # envs per block, warps
                                                     # per env, smem, stream
@@ -1103,6 +1108,32 @@ def scratch_shapes(tab: FusedTables, batch):
     return ((batch, tab.num_points, POINT_FIELDS), (batch, tab.num_rows, 12))
 
 
+def hull_lane_floats(tab: FusedTables) -> int:
+    """Floats of one lane's slice of the hull scratch (csrc/fused_step.cu,
+    hull_lane_floats): 0 for hulls within MAX_HULL_VERTS and MAX_HULL_LOOP,
+    whose polytope buffers are held per thread; else both sides' world
+    vertices (max(V, 8) each) and the clip's 2 S vertices and 2 S depths,
+    S = 2 max(LM, 4)."""
+    V, _F, _FU, LM, _EU = tab.hull_dims
+    if V <= MAX_HULL_VERTS and LM <= MAX_HULL_LOOP:
+        return 0
+    return 6 * max(V, 8) + 16 * max(LM, 4)
+
+
+def hull_scratch_shape(tab: FusedTables, batch, warps=None):
+    """Shape of the kernel's hull scratch for `batch` envs launched with
+    `warps` warps an env (default: the launch plan's), or None when the
+    scene's hulls fit the per-thread buffers: (B, min(num_rows, 32 warps),
+    hull_lane_floats), a slice for each lane of an env's team that takes
+    pair rows (one row after another)."""
+    floats = hull_lane_floats(tab)
+    if floats == 0:
+        return None
+    if warps is None:
+        warps = tab.launch_plan(batch).warps
+    return (batch, min(tab.num_rows, 32 * warps), floats)
+
+
 def _launch(tab: FusedTables, num_iterations, omega, inv_dt, v, w, inv_mass,
             inv_inertia, pos_cog, rot, ctl, col_a, col_b, col_rot,
             joint_tables=None, sequential=False, passed=None):
@@ -1111,13 +1142,6 @@ def _launch(tab: FusedTables, num_iterations, omega, inv_dt, v, w, inv_mass,
     the averaged solve with joint prep in the kernel (`ctl`); the prepped
     library the sequential solve, passed joint rows (`joint_tables`) and
     scenes with prep-passed contact rows (`passed`, a ContactPrep)."""
-    V, _F, _FU, LM, _EU = tab.hull_dims
-    if any(m["key"] in HULL_RECIPES for m in tab.metas) and (
-            V > MAX_HULL_VERTS or LM > MAX_HULL_LOOP):
-        raise NotImplementedError(
-            f"fused_step: hulls of {V} vertices and {LM} points per face "
-            f"loop; the kernel holds at most {MAX_HULL_VERTS} and "
-            f"{MAX_HULL_LOOP}")
     prepped = sequential or joint_tables is not None or tab.passed_points > 0
     name = "prepped" if prepped else ("shapes" if tab.has_shapes else "base")
     lib = load_library(shapes=tab.has_shapes, prepped=prepped)
@@ -1162,6 +1186,10 @@ def _launch(tab: FusedTables, num_iterations, omega, inv_dt, v, w, inv_mass,
     pts, rdelta = scratch_shapes(tab, B)
     pts = torch.empty(pts, dtype=torch.float32, device=v.device)
     rdelta = torch.empty(rdelta, dtype=torch.float32, device=v.device)
+    # the polytope recipes' buffers of hulls past the per-thread caps
+    hull_shape = hull_scratch_shape(tab, B, plan.warps)
+    hull = (torch.empty(hull_shape, dtype=torch.float32, device=v.device)
+            if hull_shape is not None else None)
     dims = tab.dims(B, num_iterations)
     dims_c = (ctypes.c_int * len(dims))(*dims)
     inputs = [v.data_ptr(), w.data_ptr(), inv_mass.data_ptr(),
@@ -1179,8 +1207,9 @@ def _launch(tab: FusedTables, num_iterations, omega, inv_dt, v, w, inv_mass,
     build.raise_on_error("fused_step", launch(
         dims_c, float(omega), float(inv_dt), *inputs, tab.itab.data_ptr(),
         tab.ftab.data_ptr(), pts.data_ptr(), rdelta.data_ptr(),
-        v_out.data_ptr(), w_out.data_ptr(), imp.data_ptr(), live.data_ptr(),
-        plan.envs, plan.warps, plan.smem_bytes, build.stream_of(v)))
+        hull.data_ptr() if hull is not None else None, v_out.data_ptr(),
+        w_out.data_ptr(), imp.data_ptr(), live.data_ptr(), plan.envs,
+        plan.warps, plan.smem_bytes, build.stream_of(v)))
     _LAUNCHES[name] += 1
     return v_out, w_out, imp, live
 

@@ -32,7 +32,9 @@ float4 pairs and tested eight at a time without a branch; the placement and
 same-body rules run only on the columns that overlap. The slices' hits are
 merged in order in a shared tile of the block's rows, which goes out as one
 contiguous range. The overflow flag still reads the window's last column.
-The kernel keeps at most MAX_K partners a row.
+Past MAX_K partners a row the tile would not fit a block: one warp walks the
+columns and each thread writes its row's hits straight into the outputs, in
+ascending order, so any K runs on the card.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from dxk_tpu_torch.ops.kernels.kselect_broadphase import (class_of,
 
 TILE = 128
 BIG = 3.0e38
-MAX_K = 256     # the most partners a row the kernel keeps (its shared tile)
+MAX_K = 256     # the most partners a row the kernel's shared tile keeps
 
 _LAUNCHES = 0
 
@@ -159,10 +161,10 @@ def sap_sweep(mn_s, mx_s, body_s, owner_s, ctype_s, num_phases: int,
     for name, x in (("body_s", body_s), ("owner_s", owner_s),
                     ("ctype_s", ctype_s)):
         build.check_cuda(who, name, x, (B, C), torch.int32)
-    if (B == 0 or C == 0 or C > bk.MAX_ROWS or not 1 <= k_sel <= MAX_K
+    if (B == 0 or C == 0 or C > bk.MAX_ROWS or k_sel < 1
             or num_phases < 1 or window < 1):
         raise ValueError(f"{who}: needs B > 0, 0 < C <= {bk.MAX_ROWS}, "
-                         f"1 <= K <= {MAX_K}, num_phases and window >= 1, "
+                         f"K, num_phases and window >= 1, "
                          f"got B={B}, C={C}, K={k_sel}, "
                          f"num_phases={num_phases}, window={window}")
     lib = bk.load_library()

@@ -309,7 +309,7 @@ def solve_constraints(bodies: SolverBodies, contacts: ContactPrep,
         raise NotImplementedError(
             f"solver_mode={mode!r} on the reference step is not ported to "
             "dxk_tpu_torch yet; only 'jacobi' and 'colored' (the sequential "
-            "'scan' contact pass is ROADMAP Queue A 5)")
+            "'scan' contact pass is ROADMAP Queue A 4)")
     if contacts is None:
         return bodies, None
     v, w = bodies.v, bodies.w

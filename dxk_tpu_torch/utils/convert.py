@@ -27,11 +27,43 @@ def policy_state_dict_from_flax(params) -> dict:
         for i in range(3):
             layer = p[head][f"Dense_{i}"]
             out[f"{head}.dense{i}.weight"] = torch.from_numpy(
-                np.ascontiguousarray(np.asarray(layer["kernel"],
-                                                np.float32).T))
+                np.array(np.asarray(layer["kernel"], np.float32).T,
+                         order="C"))                  # a writable copy
             out[f"{head}.dense{i}.bias"] = torch.from_numpy(
                 np.array(layer["bias"], np.float32))
     return out
+
+
+def _adam_state(opt_state):
+    """The ScaleByAdamState (anything with `count`, `mu` and `nu`) inside an
+    optax state tree of tuples and named tuples."""
+    if all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for x in opt_state:
+            found = _adam_state(x)
+            if found is not None:
+                return found
+    return None
+
+
+def ppo_state_from_optax(params, opt_state) -> dict:
+    """The port's PPO state from a JAX TrainState's flax params and optax
+    state (`chain(clip_by_global_norm, adam)`: (EmptyState,
+    (ScaleByAdamState(count, mu, nu), EmptyState)), leaves as numpy):
+    {"weights": ActorCritic state_dict, "count": Adam's step count,
+    "mu", "nu": its moments as state_dicts of the same keys}. mu and nu
+    have the params' tree, so a kernel's moments are transposed like the
+    kernel. `train.ppo.adam_state_from_state_dicts` turns the moments into
+    the trainer's AdamState."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("ppo_state_from_optax: no ScaleByAdamState "
+                         "(count, mu, nu) in the optax state")
+    return {"weights": policy_state_dict_from_flax(params),
+            "count": int(np.asarray(adam.count)),
+            "mu": policy_state_dict_from_flax(adam.mu),
+            "nu": policy_state_dict_from_flax(adam.nu)}
 
 
 def policy_state_dict_from_npz(path) -> dict:

@@ -7,7 +7,8 @@ K-select column chunks; B 1 and 3; K 1, 8 and 20 (past the sliced walk); 1 and 4
 statics first, in the middle and last; shared bodies; rows past K) and,
 for the sort-and-sweep kernel alone, on chip_smoke.SWEEP_CASES (input
 handed over unsorted; NaN, +-inf and inverted boxes; windows 1 to 9, past
-C; rows whose window overflows; K 20). The overlap matrix runs with whole
+C; rows whose window overflows; K 20, and K 300, past the shared tile,
+with rows of more than 300 hits). The overlap matrix runs with whole
 rows staged (SM count 1) and in column chunks (SM count 132). The plain
 versions are held against the JAX package by tests/test_torch_broadphase.py;
 no JAX here."""
@@ -65,7 +66,8 @@ def test_cases_reach_the_edges():
     """The small cases hold rows past K, statics at both ends and in the
     middle, a K-select past one column chunk and the one-collider env; the
     sweep's cases hold unsorted input, NaN, +-inf and inverted boxes,
-    windows 1 and 4 and one past C, overflowing rows and K 20."""
+    windows 1 and 4 and one past C, overflowing rows, K 20 and a K past
+    the sweep's shared tile with rows of more hits than that."""
     small = cs.BROADPHASE_CASES[:cs.BROADPHASE_SMALL_CASES]
     assert {c[2] for c in small} >= {1, 31, 130, 600}
     assert {c[1] for c in small} == {1, 3}
@@ -86,7 +88,7 @@ def test_cases_reach_the_edges():
     assert any((c[2] - 1) // 128 * 128 + c[5] * 128 > c[2] for c in sweep)
     assert 20 in {c[3] for c in sweep}
     seen = dict(unsorted=0, nan=0, inf=0, inverted=0, overflowing=0,
-                over_k=0)
+                over_k=0, over_tile_k=0)
     for case in sweep:
         args = cs.sweep_case_inputs(case)
         _idx, _cls, cnt, ovf = sp.sap_sweep_plain(*args)
@@ -98,4 +100,6 @@ def test_cases_reach_the_edges():
         seen["inverted"] += r["inverted"]
         seen["overflowing"] += r["rows_overflowing"]
         seen["over_k"] += r["rows_over_k"]
+        if case[3] > sp.MAX_K:
+            seen["over_tile_k"] += r["rows_over_k"]
     assert all(v > 0 for v in seen.values()), seen

@@ -354,3 +354,42 @@ def test_make_policy_is_seeded():
     b = make_policy(27, 66, g2, device="cpu")
     assert torch.equal(a.pi.dense0.weight, b.pi.dense0.weight)
     assert float(a.pi.dense2.weight.detach().abs().max()) <= 1e-4 + 1e-9
+
+
+def test_ppo_rollout_matches_jax_loop(envs, rollout):
+    """train/ppo.py's rollout on the real env: two steps from reset of the
+    port's LocoEnv under a freshly initialised flax ActorCritic's weights,
+    with injected action noise, against a Python loop of the JAX package's
+    policy step (ppo.py:88-93) and its compiled env step; observation,
+    action, log-prob, value, reward and done to 1e-4."""
+    from dxk_tpu.train import ppo as jppo
+    from dxk_tpu_torch.train import ppo as tppo
+    jenv, tenv = envs
+    jstep = rollout[0]
+    jnet = JaxActorCritic(action_dim=27)
+    params = jnet.init(jax.random.PRNGKey(5), jnp.zeros((66,)))
+    net = ActorCritic(action_dim=27, obs_dim=66)
+    net.load_state_dict(policy_state_dict_from_flax(_flax_tree(params)))
+    T = 2
+    noise = np.random.default_rng(12).normal(size=(T, B, 27)).astype(
+        np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(0), B)
+    jst, jobs = jax.jit(jax.vmap(jenv.reset))(keys)
+    want = []
+    for t in range(T):
+        mean, log_std, value = jnet.apply(params, jobs)
+        action = mean + jnp.asarray(noise[t]) * jnp.exp(log_std)
+        lp = jppo._gaussian_log_prob(mean, log_std, action)
+        obs_t = jobs
+        jst, jobs, reward, done = jstep(jst, action)
+        want.append(dict(obs=obs_t, action=action, log_prob=lp, value=value,
+                         reward=reward, done=done))
+    tst, tobs = tenv.reset(B)
+    _st, last_obs, traj = tppo.rollout(net, tenv, tst, tobs, None, T,
+                                       torch.from_numpy(noise))
+    for t in range(T):
+        for k in ("obs", "action", "log_prob", "value", "reward"):
+            assert _diff(want[t][k], getattr(traj, k)[t]) <= 1e-4, (t, k)
+        assert np.array_equal(np.asarray(want[t]["done"]),
+                              traj.done[t].numpy())
+    assert _diff(jobs, last_obs) <= 1e-4

@@ -21,7 +21,10 @@ scene and geometry, the largest differences between the emulated kernel
 and the plain version `_fused_core` (and how many floats differ in their
 bits, zeros of either sign told apart): on the constraint zoo, on bench.py's
 ragdoll settle (initial state and hull poses that send every hull recipe
-down each of its branches), on the hull pile, on the golden mixed-shape drop
+down each of its branches), on the hull pile and the three piles of hulls
+past the per-thread polytope buffers (a 64-vertex hull under a box or
+under a cylinder, a 24-sided prism under a tetrahedron; their buffers
+live in the hull scratch), on the golden mixed-shape drop
 and sphere bounce (initial and after --shapes-steps steps), on the sphere
 and cylinder check pile, on chip_smoke.py's 1,081-row box pile (initial and
 after --shapes-steps steps) and on the locomotion scene.
@@ -37,8 +40,8 @@ joint_prep_in_kernel=False (averaged), each on the initial state and after
 --shapes-steps and --late-steps steps of the "fused" step (the states the
 comparison reads; contacts are live by then); on chip_smoke.py's terrain
 scene (initial, after --shapes-steps steps, terrain poses) in "fused_seq"
-and "fused" with the joint prep outside and inside the kernel; and on the
-box pile in both modes.
+and "fused" with the joint prep outside and inside the kernel; on the
+box pile in both modes; and on the three wide piles in both modes.
 
     python3 tools/emulate_fused_step_cpu.py [--chains 2] [--batch 5]
                                             [--shapes-steps 60]
@@ -46,7 +49,7 @@ box pile in both modes.
     python3 tools/emulate_fused_step_cpu.py --library prepped [--batch 5]
                                             [--shapes-steps 60]
                                             [--late-steps 150]
-                                            [--only-scene NAME|terrain|bigpile ...]
+                                            [--only-scene NAME|terrain|bigpile|wide ...]
 
 Needs g++ with C++20; writes only under <repo>/build/emulate/.
 """
@@ -232,7 +235,7 @@ def build(library="shapes"):
         else dll.dxk_fused_step_launch
     fn.restype = i
     fn.argtypes = ([ctypes.POINTER(i), fl, fl] + [p] * 10
-                   + ([p, i, i, p, i] if prepped else []) + [p] * 8
+                   + ([p, i, i, p, i] if prepped else []) + [p] * 9
                    + [i, i, i, p])
     return fn
 
@@ -300,10 +303,14 @@ def compare(launch, scene, state, dt, mode=None, prep_in_kernel=False):
         # scratch filled with a value no result may show
         pts, rdelta = (torch.full(sh, -7777.0)
                        for sh in fs.scratch_shapes(tab, B))
+        hull_shape = fs.hull_scratch_shape(tab, B, plan.warps)
+        hull = (torch.full(hull_shape, -7777.0) if hull_shape is not None
+                else None)
         err = launch(
             (ctypes.c_int * len(dims))(*dims), 1.0, inv_dt, *ins, *extra,
             tab.itab.data_ptr(), tab.ftab.data_ptr(), pts.data_ptr(),
-            rdelta.data_ptr(), v.data_ptr(), wv.data_ptr(), imp.data_ptr(),
+            rdelta.data_ptr(), hull.data_ptr() if hull is not None else None,
+            v.data_ptr(), wv.data_ptr(), imp.data_ptr(),
             live.data_ptr(), plan.envs, plan.warps, plan.smem_bytes, None)
         if err:
             raise RuntimeError(f"emulated launch returned {err}")
@@ -361,12 +368,23 @@ def bigpile_main(launch, args, modes=(None,)):
 
 
 def prepped_main(args):
-    """The prepped library on the six golden scenes, both modes, and on the
-    terrain scene."""
+    """The prepped library on the six golden scenes, both modes, on the
+    terrain scene, the box pile and the wide piles."""
     launch = build("prepped")
     settings = PhysicsSettings(num_rigid_solver_iterations=cs.ITERATIONS,
                                solver_mode="fused")
-    for name in args.only_scene or cs.GOLDEN_SCENES + ("terrain", "bigpile"):
+    for name in args.only_scene or cs.GOLDEN_SCENES + ("terrain", "bigpile",
+                                                       "wide"):
+        if name == "wide":
+            for n in cs.WIDE_PILES:
+                scene = cs.wide_pile_scene(n, "cpu")
+                st = cs.pile_poses(scene, 4 * args.batch, 0)
+                for mode in ("fused_seq", "fused"):
+                    print(json.dumps({"scene": f"wide_{n}_poses",
+                                      "mode": mode, **compare(
+                                          launch, scene, st, cs.SETTLE_DT,
+                                          mode)}), flush=True)
+            continue
         if name == "terrain":
             terrain_main(launch, args)
             continue
@@ -397,10 +415,10 @@ def main():
     ap.add_argument("--only", choices=GROUPS, action="append",
                     help="run only these scene groups (default: all)")
     ap.add_argument("--only-scene",
-                    choices=cs.GOLDEN_SCENES + ("terrain", "bigpile"),
+                    choices=cs.GOLDEN_SCENES + ("terrain", "bigpile", "wide"),
                     action="append",
                     help="with --library prepped: only these golden scenes, "
-                         "the terrain scene or the box pile")
+                         "the terrain scene, the box pile or the wide piles")
     args = ap.parse_args()
     if args.library == "prepped":
         prepped_main(args)
@@ -418,12 +436,16 @@ def main():
     if "settle" in groups:
         settle = cs.settle_scene("cpu")
         pile = cs.pile_scene("cpu")
-        for name, scene, st in (
+        wides = [(f"wide_{n}_poses", cs.wide_pile_scene(n, "cpu"))
+                 for n in cs.WIDE_PILES]
+        for name, scene, st in [
+                (n, w, cs.pile_poses(w, 4 * args.batch, 0))
+                for n, w in wides] + [
                 ("settle_initial", settle,
                  cs.settle_initial_state(settle, args.batch, 0)),
                 ("settle_hull_poses", settle,
                  cs.settle_hull_poses(settle, 4 * args.batch, 0)),
-                ("pile_poses", pile, cs.pile_poses(pile, 2 * args.batch, 0))):
+                ("pile_poses", pile, cs.pile_poses(pile, 2 * args.batch, 0))]:
             print(json.dumps({"scene": name, **compare(launch, scene, st,
                                                        cs.SETTLE_DT)}),
                   flush=True)
