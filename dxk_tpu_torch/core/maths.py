@@ -196,6 +196,35 @@ def get_tangents(normal):
     return t, cross(normal, t)
 
 
+def solve_2x2(A, b):
+    """Solve A x = b for (..., 2, 2) A by the explicit inverse (zero where
+    the determinant is zero)."""
+    a11, a12 = A[..., 0, 0], A[..., 0, 1]
+    a21, a22 = A[..., 1, 0], A[..., 1, 1]
+    det = a11 * a22 - a12 * a21
+    ok = det != 0.0
+    inv_det = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
+    x = inv_det * (a22 * b[..., 0] - a12 * b[..., 1])
+    y = inv_det * (a11 * b[..., 1] - a21 * b[..., 0])
+    return torch.stack([x, y], dim=-1)
+
+
+def solve_3x3(A, b):
+    """Solve A x = b for (..., 3, 3) A by Cramer's rule on its columns
+    (zero where the determinant is zero)."""
+    ex = A[..., :, 0]
+    ey = A[..., :, 1]
+    ez = A[..., :, 2]
+    eyz = cross(ey, ez)
+    det = dot(ex, eyz)
+    ok = det != 0.0
+    inv_det = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
+    x = inv_det * dot(b, eyz)
+    y = inv_det * dot(ex, cross(b, ez))
+    z = inv_det * dot(ex, cross(ey, b))
+    return torch.stack([x, y, z], dim=-1)
+
+
 def skew(r):
     """Cross-product matrix [r]x, (..., 3, 3)."""
     zero = torch.zeros_like(r[..., 0])

@@ -77,19 +77,15 @@ class LocoEnv:
     restitution 0.1) + ragdoll at hip (0, 1.25, 0)."""
 
     def __init__(self, solver_iterations: int = 30,
-                 solver_mode: str = "fused", max_narrow_pairs: int = 48,
+                 solver_mode: str = "scan", max_narrow_pairs: int = 48,
                  enable_pokes: bool = True, narrow_caps: dict = None,
                  torso_velocity_target=(0.0, 0.0, 0.0), gait: bool = None,
                  device="cuda"):
-        # max_narrow_pairs and narrow_caps cap the reference step's
-        # narrowphase slots in the JAX package; "fused" and "fused_seq" need
-        # the uncapped static tables and ignore both, there as here (the
-        # only modes the port has)
-        del max_narrow_pairs, narrow_caps
-        if solver_mode not in ("fused", "fused_seq"):
-            raise NotImplementedError(
-                f"LocoEnv(solver_mode={solver_mode!r}) is not ported to "
-                "dxk_tpu_torch yet; only 'fused' and 'fused_seq'")
+        if solver_mode in ("fused", "fused_seq"):
+            # the fused step needs the static pair tables (cap == table
+            # size) and ignores both caps, as in the JAX package
+            max_narrow_pairs = None
+            narrow_caps = None
         self.device = resolve_device(device)
         dev = self.device
 
@@ -116,8 +112,15 @@ class LocoEnv:
         b.add_box_collider(ground, (0, 0, 0), (20.0, 4.0, 20.0),
                            friction=1.0, restitution=0.1)
         self.ragdoll = add_ragdoll(b, initial_hip_position=(0.0, 1.25, 0.0))
-        # the fused step needs static pair tables (cap == table size)
-        self.scene: Scene = b.finalize(device=dev)
+        self.scene: Scene = b.finalize(
+            max_narrow_pairs_per_group=max_narrow_pairs, device=dev)
+        if narrow_caps:
+            # per-(typeA, typeB) narrowphase capacity, e.g. {(1, 3): 16}
+            groups = tuple(
+                g.replace(max_narrow=min(narrow_caps.get(
+                    (g.type_a, g.type_b), g.max_narrow), g.pairs.shape[0]))
+                for g in self.scene.pair_groups)
+            self.scene = self.scene.replace(pair_groups=groups)
         self.settings = PhysicsSettings(
             num_rigid_solver_iterations=solver_iterations,
             solver_mode=solver_mode)

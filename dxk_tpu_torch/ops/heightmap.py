@@ -38,7 +38,7 @@ import torch
 from dxk_tpu_torch.core.maths import (const, cross, dot, normalize,
                                       quat_inv_rotate, quat_rotate, sqrt,
                                       squared_length)
-from dxk_tpu_torch.ops.narrowphase import closest_point_segment_segment
+from dxk_tpu_torch.ops.geometry import closest_point_segment_segment
 from dxk_tpu_torch.scene.scene import _Struct
 
 BIG = 3.4e38

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from dxk_tpu_torch.ops.kernels.cm_narrowphase import _clip, _max
+from dxk_tpu_torch.scene.scene import JOINT_TYPES
 
 # max contact points a narrowphase recipe can emit, by sorted (typeA,typeB)
 # (ops/narrowphase.py: sphere* analytic single point; capsule-capsule /
@@ -91,7 +92,7 @@ SLIDER_ROWS = len(SLIDER_VECS) * 3 + 4 + 2 + 9 + len(SLIDER_SCALS)
 
 # reference solve order within one iteration (constraints.cpp:3748-3772);
 # contacts come after all joint types
-JOINT_ORDER = ("distance", "ball", "fixed", "hinge", "cone_twist", "slider")
+JOINT_ORDER = JOINT_TYPES
 
 
 def phase_partition(phases):
@@ -668,14 +669,6 @@ def static_joint_invdeg(scene, nbody):
             deg[n] += 1
         out[row] = 1.0 / np.maximum(deg, 1.0)
     return out
-
-
-def scene_joint_types(scene):
-    """Names of the joint types present in the scene, in reference solve
-    order (scene_joint_ab's, without reading the wiring off the device)."""
-    return [name for name in JOINT_ORDER
-            if getattr(scene, name) is not None
-            and getattr(scene, name).body_a.shape[0] > 0]
 
 
 def scene_joint_ab(scene):

@@ -1,33 +1,41 @@
-"""Constraint prep and the iterated contact solve of the reference (non-fused)
-step, batched over environments: the port's counterpart of the JAX
-package's ops/solver.py.
+"""Constraint prep and the iterated constraint solve of the reference
+(non-fused) step, batched over environments: the port's counterpart of the
+JAX package's ops/solver.py.
 
-Contacts. Layout is pair-major, as there: a narrowphase pair is one solver
-row with its <= 4 contact points, solved in order against the pair's
-gathered body velocities. Rows are grouped in static contact-phase slices;
-one solver iteration runs the slices in order (Gauss-Seidel across slices),
-all rows of a slice in parallel against the same velocities, with per-body
-deltas summed by `index_add_` and scaled by 1/degree within the slice
-(averaged Jacobi). Scenes built with contact phases hash pairs so that a
-slice rarely shares a dynamic body, which makes the pass Gauss-Seidel.
+Seven constraint types (distance, ball, fixed, hinge, cone-twist, slider,
+contacts), each with a prep (effective masses, biases, limit and motor
+activation computed once a step from the integrated bodies) and a solve of
+one constraint, run for N iterations in the reference's type order. Three
+modes, as there:
 
-Joints. The six joint preps (`prep_distance` ... `prep_slider`): effective
-masses, biases, limit and motor activation computed once per step from the
-integrated bodies, with the env batch as the leading dimension of every
-field ((B, J, ...); the joints' static parameters are (J, ...)). The fused
-step's `fused_seq` mode and its `joint_prep_in_kernel=False` option pack
-them into its joint tables (batched_solver.pack_joint_type). 3x3 products
-are written as broadcast-multiply-sums, never as matmuls, so no float32
-product on the card can run in TF32.
+  - "scan": sequential impulses, constraint by constraint in order, each
+    reading the body velocities its predecessor wrote (`_gs_pass`,
+    `_contact_gs_pass`). The reference's exact semantics; the goldens are
+    this mode. A pair's body indices differ per env after compaction, so a
+    contact row gathers and writes with (B,) index tensors.
+  - "jacobi": within each joint type all joints solve against the same
+    velocities and per-body deltas are summed by `index_add_` and scaled by
+    1/degree (`_jacobi_pass`).
+  - "colored": joints in their build-time colours, colour after colour,
+    each colour conflict-free (`_colored_pass`).
 
-Ported so far: contacts in modes "jacobi" and "colored" (the same pass for
-contacts) and the six joint preps. The sequential "scan" pass and the
-joint solves of the reference step raise NotImplementedError.
+Contacts in "jacobi" and "colored" take the phased pass: pair-major rows
+with their <= 4 points, static contact-phase slices in order, all rows of
+a slice against the same velocities, deltas degree-averaged within the
+slice (`_contact_phased_pass`).
+
+Every prep field carries the env batch as its leading dimension ((B, J,
+...); the joints' static parameters and body indices are (J, ...)). The
+fused step's `fused_seq` mode and its `joint_prep_in_kernel=False` option
+pack the joint preps into its joint tables (batched_solver.pack_joint_type).
+3x3 products are written as broadcast-multiply-sums, never as matmuls, so
+no float32 product on the card can run in TF32.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
+from typing import Optional
 
 import numpy as np
 import torch
@@ -36,7 +44,8 @@ from dxk_tpu_torch.core import fastmath as fm
 from dxk_tpu_torch.core.maths import (const, cross, dot, get_tangents,
                                       length, noz, quat_conj,
                                       quat_from_axis_angle, quat_mul,
-                                      quat_rotate, rotate_from_to, skew, sqrt,
+                                      quat_rotate, rotate_from_to, skew,
+                                      solve_2x2, solve_3x3, sqrt,
                                       squared_length)
 from dxk_tpu_torch.ops.integrator import SolverBodies, _mat3_mul
 from dxk_tpu_torch.ops.kernels.cm_narrowphase import _clip
@@ -299,30 +308,6 @@ def _contact_phased_pass(views, v, w, accs, inv_deg_phases, omega=1.0):
     return vw[..., :3], vw[..., 3:], (imp_n, imp_t)
 
 
-def solve_constraints(bodies: SolverBodies, contacts: ContactPrep,
-                      num_iterations: int, mode: str = "jacobi",
-                      omega: float = 1.0):
-    """Run `num_iterations` rounds of the phased contact pass. Returns
-    (bodies, contact_imp_n (B, P, 4) or None): the accumulated normal
-    impulses per pair point."""
-    if mode not in ("jacobi", "colored"):
-        raise NotImplementedError(
-            f"solver_mode={mode!r} on the reference step is not ported to "
-            "dxk_tpu_torch yet; only 'jacobi' and 'colored' (the sequential "
-            "'scan' contact pass is ROADMAP Queue A 4)")
-    if contacts is None:
-        return bodies, None
-    v, w = bodies.v, bodies.w
-    z = torch.zeros(contacts.bias.shape, dtype=v.dtype, device=v.device)
-    accs = (z, z.clone())
-    inv_deg_phases = contact_phase_inv_degrees(contacts, v.shape[1])
-    views = _phase_views(contacts, v.shape[1])
-    for _ in range(num_iterations):
-        v, w, accs = _contact_phased_pass(views, v, w, accs, inv_deg_phases,
-                                          omega=omega)
-    return bodies.replace(v=v, w=w), accs[0]
-
-
 # ===========================================================================
 # Joint preps (constraints.cpp:189-2845). Every function takes the
 # integrated bodies, the joints of one type and, for the motorised types,
@@ -413,6 +398,8 @@ class DistancePrep:
     eff_mass: torch.Tensor
     to_wa: torch.Tensor
     to_wb: torch.Tensor
+    color: torch.Tensor = None
+    num_colors: int = 1
 
 
 def prep_distance(bodies: SolverBodies, j, dt) -> DistancePrep:
@@ -433,7 +420,8 @@ def prep_distance(bodies: SolverBodies, j, dt) -> DistancePrep:
           + jb["inv_mb"] + dot(cr_b, _mat_vec(inv_ib, cr_b)))
     bias = st.gate((l - j.length) * st.gain(DISTANCE_BETA))
     return DistancePrep(
-        body_a=jb["a"], body_b=jb["b"], rel_a=rel_a, rel_b=rel_b, u=u,
+        body_a=jb["a"], body_b=jb["b"], color=j.color,
+        num_colors=j.num_colors, rel_a=rel_a, rel_b=rel_b, u=u,
         bias=bias, eff_mass=_inv_or_zero(im),
         to_wa=_mat_vec(inv_ia, cr_a), to_wb=_mat_vec(inv_ib, cr_b))
 
@@ -446,6 +434,8 @@ class BallPrep:
     rel_b: torch.Tensor
     bias: torch.Tensor
     inv_eff_mass: torch.Tensor
+    color: torch.Tensor = None
+    num_colors: int = 1
 
 
 def prep_ball(bodies: SolverBodies, j, dt) -> BallPrep:
@@ -455,7 +445,8 @@ def prep_ball(bodies: SolverBodies, j, dt) -> BallPrep:
     m = _point_inv_effective_mass(jb["inv_ia"], jb["inv_ib"], jb["inv_ma"],
                                   jb["inv_mb"], jb["rel_a"], jb["rel_b"])
     bias = st.gate((jb["gb"] - jb["ga"]) * st.gain(BALL_BETA))
-    return BallPrep(body_a=jb["a"], body_b=jb["b"], rel_a=jb["rel_a"],
+    return BallPrep(body_a=jb["a"], body_b=jb["b"], color=j.color,
+                    num_colors=j.num_colors, rel_a=jb["rel_a"],
                     rel_b=jb["rel_b"], bias=bias, inv_eff_mass=m)
 
 
@@ -469,6 +460,8 @@ class FixedPrep:
     inv_eff_trans_mass: torch.Tensor
     rotation_bias: torch.Tensor
     inv_eff_rot_mass: torch.Tensor
+    color: torch.Tensor = None
+    num_colors: int = 1
 
 
 def prep_fixed(bodies: SolverBodies, j, dt) -> FixedPrep:
@@ -479,7 +472,8 @@ def prep_fixed(bodies: SolverBodies, j, dt) -> FixedPrep:
     mt = _point_inv_effective_mass(inv_ia, inv_ib, jb["inv_ma"], jb["inv_mb"],
                                    jb["rel_a"], jb["rel_b"])
     return FixedPrep(
-        body_a=jb["a"], body_b=jb["b"], rel_a=jb["rel_a"], rel_b=jb["rel_b"],
+        body_a=jb["a"], body_b=jb["b"], color=j.color,
+        num_colors=j.num_colors, rel_a=jb["rel_a"], rel_b=jb["rel_b"],
         translation_bias=st.gate((jb["gb"] - jb["ga"]) * st.gain(BALL_BETA)),
         inv_eff_trans_mass=mt,
         rotation_bias=_rotation_error_bias(jb, j, st),
@@ -508,6 +502,8 @@ class HingePrep:
     max_motor_impulse: torch.Tensor
     ml_to_wa: torch.Tensor               # motorAndLimitImpulseToAngularVelocity
     ml_to_wb: torch.Tensor
+    color: torch.Tensor = None
+    num_colors: int = 1
 
 
 def prep_hinge(bodies: SolverBodies, j, controls, dt) -> HingePrep:
@@ -558,7 +554,8 @@ def prep_hinge(bodies: SolverBodies, j, controls, dt) -> HingePrep:
                             controls.hinge_target)
     d = torch.where(min_violated, angle - j.limit_min, j.limit_max - angle)
     return HingePrep(
-        body_a=jb["a"], body_b=jb["b"], rel_a=jb["rel_a"], rel_b=jb["rel_b"],
+        body_a=jb["a"], body_b=jb["b"], color=j.color,
+        num_colors=j.num_colors, rel_a=jb["rel_a"], rel_b=jb["rel_b"],
         translation_bias=t_bias, inv_eff_trans_mass=mt,
         rotation_bias=r_bias, inv_eff_rot_mass=mr, bxa=bxa, cxa=cxa,
         axis=axis_a, eff_axial_mass=_inv_or_zero(im_ax),
@@ -606,6 +603,8 @@ class ConeTwistPrep:
     solve_twist_motor: torch.Tensor
     twist_motor_velocity: torch.Tensor
     max_twist_motor_impulse: torch.Tensor
+    color: torch.Tensor = None
+    num_colors: int = 1
 
 
 def _axial_mass(axis, inv_ia, inv_ib):
@@ -680,7 +679,8 @@ def prep_cone_twist(bodies: SolverBodies, j, controls, dt) -> ConeTwistPrep:
     d = torch.where(min_tw, twist_limit + twist_angle,
                     twist_limit - twist_angle)
     return ConeTwistPrep(
-        body_a=jb["a"], body_b=jb["b"], rel_a=jb["rel_a"], rel_b=jb["rel_b"],
+        body_a=jb["a"], body_b=jb["b"], color=j.color,
+        num_colors=j.num_colors, rel_a=jb["rel_a"], rel_b=jb["rel_b"],
         bias=bias, inv_eff_mass=m,
         solve_swing_limit=(swing_limit >= 0.0) & (swing_angle >= swing_limit),
         swing_axis=swing_axis,
@@ -733,6 +733,8 @@ class SliderPrep:
     solve_motor: torch.Tensor
     motor_velocity: torch.Tensor
     max_motor_impulse: torch.Tensor
+    color: torch.Tensor = None
+    num_colors: int = 1
 
 
 def prep_slider(bodies: SolverBodies, j, controls, dt) -> SliderPrep:
@@ -777,7 +779,8 @@ def prep_slider(bodies: SolverBodies, j, controls, dt) -> SliderPrep:
     target = _clip(controls.slider_target, min_l, max_l)
     vel_p = st.gate((target - dist) * float(st.inv_dt))
     return SliderPrep(
-        body_a=jb["a"], body_b=jb["b"], r_au_x_t=rauxt, r_au_x_b=rauxb,
+        body_a=jb["a"], body_b=jb["b"], color=j.color,
+        num_colors=j.num_colors, r_au_x_t=rauxt, r_au_x_b=rauxb,
         r_b_x_t=rbxt, r_b_x_b=rbxb, tangent=tangent, bitangent=bitangent,
         inv_eff_trans_mass=mt, translation_bias=tb,
         inv_eff_rot_mass=inv_ia + inv_ib,
@@ -796,10 +799,9 @@ def prep_slider(bodies: SolverBodies, j, controls, dt) -> SliderPrep:
 
 def prep_joints(scene, bodies: SolverBodies, controls, dt):
     """The preps of every joint type present in `scene`, in
-    batched_solver.scene_joint_ab (reference solve) order."""
-    from dxk_tpu_torch.ops.kernels.batched_solver import scene_joint_types
+    reference solve order (Scene.joint_types)."""
     out = []
-    for name in scene_joint_types(scene):
+    for name in scene.joint_types:
         j = getattr(scene, name)
         if name in ("distance", "ball", "fixed"):
             out.append(_PREPS[name](bodies, j, dt))
@@ -811,3 +813,507 @@ def prep_joints(scene, bodies: SolverBodies, controls, dt):
 _PREPS = {"distance": prep_distance, "ball": prep_ball, "fixed": prep_fixed,
           "hinge": prep_hinge, "cone_twist": prep_cone_twist,
           "slider": prep_slider}
+
+
+# ===========================================================================
+# Joint solves (constraints.cpp:189-2845): one joint against its two bodies'
+# velocities. Every argument broadcasts: a row of one joint type ((B, ...)
+# fields) in the sequential pass, the whole type ((B, J, ...)) in the
+# averaged and coloured passes. inv_ma / inv_mb are the static inverse
+# masses, inv_ia / inv_ib the world inverse inertias.
+
+
+def _distance_solve_one(c, inv_ma, inv_mb, va, wa, vb, wb):
+    av = va + cross(wa, c.rel_a)
+    bv = vb + cross(wb, c.rel_b)
+    cdot = dot(c.u, bv - av) + c.bias
+    lam = -c.eff_mass * cdot
+    P = lam[..., None] * c.u
+    va = va - inv_ma[..., None] * P
+    wa = wa - c.to_wa * lam[..., None]
+    vb = vb + inv_mb[..., None] * P
+    wb = wb + c.to_wb * lam[..., None]
+    return va, wa, vb, wb
+
+
+def _point_solve(c, bias, inv_eff_mass, inv_ma, inv_mb, inv_ia, inv_ib,
+                 va, wa, vb, wb):
+    """The shared point-to-point (position) part: ball, fixed, hinge and
+    cone-twist joints."""
+    av = va + cross(wa, c.rel_a)
+    bv = vb + cross(wb, c.rel_b)
+    cdot = bv - av + bias
+    P = solve_3x3(inv_eff_mass, -cdot)
+    va = va - inv_ma[..., None] * P
+    wa = wa - _mat_vec(inv_ia, cross(c.rel_a, P))
+    vb = vb + inv_mb[..., None] * P
+    wb = wb + _mat_vec(inv_ib, cross(c.rel_b, P))
+    return va, wa, vb, wb
+
+
+def _ball_solve_one(c, inv_ma, inv_mb, inv_ia, inv_ib, va, wa, vb, wb):
+    return _point_solve(c, c.bias, c.inv_eff_mass, inv_ma, inv_mb, inv_ia,
+                        inv_ib, va, wa, vb, wb)
+
+
+def _fixed_solve_one(c, inv_ma, inv_mb, inv_ia, inv_ib, va, wa, vb, wb):
+    # rotation part
+    cdot = wb - wa
+    lam = solve_3x3(c.inv_eff_rot_mass, -(cdot + c.rotation_bias))
+    wa = wa - _mat_vec(inv_ia, lam)
+    wb = wb + _mat_vec(inv_ib, lam)
+    # position part
+    return _point_solve(c, c.translation_bias, c.inv_eff_trans_mass, inv_ma,
+                        inv_mb, inv_ia, inv_ib, va, wa, vb, wb)
+
+
+def _axial_impulse(lam, imp, solve, lo=None, hi=None):
+    """A clamped accumulated axial impulse: (applied lam, new accumulator).
+    With lo/hi the accumulator is clamped to [lo, hi] (motors), else to
+    >= 0 (limits); rows whose `solve` flag is off apply nothing."""
+    if lo is None:
+        new_imp = torch.clamp(imp + lam, min=0.0)
+    else:
+        new_imp = _clip(imp + lam, lo, hi)
+    return (torch.where(solve, new_imp - imp, 0.0),
+            torch.where(solve, new_imp, imp))
+
+
+def _hinge_solve_one(c, inv_ma, inv_mb, inv_ia, inv_ib, va, wa, vb, wb,
+                     limit_imp, motor_imp):
+    """Motor -> limit -> rotation -> position (constraints.cpp:1215-1306)."""
+    axis = c.axis
+    # motor
+    rel_w = dot(axis, wb) - dot(axis, wa)
+    lam = -c.eff_axial_mass * (rel_w - c.motor_velocity)
+    lam, motor_imp = _axial_impulse(lam, motor_imp, c.solve_motor,
+                                    -c.max_motor_impulse, c.max_motor_impulse)
+    wa = wa - c.ml_to_wa * lam[..., None]
+    wb = wb + c.ml_to_wb * lam[..., None]
+
+    # limit
+    rel_w = c.limit_sign * (dot(axis, wb) - dot(axis, wa))
+    lam = -c.eff_axial_mass * (rel_w + c.limit_bias)
+    lam, limit_imp = _axial_impulse(lam, limit_imp, c.solve_limit)
+    lam = lam * c.limit_sign
+    wa = wa - c.ml_to_wa * lam[..., None]
+    wb = wb + c.ml_to_wb * lam[..., None]
+
+    # rotation (2D)
+    dw = wb - wa
+    cdot2 = torch.stack([dot(c.bxa, dw), dot(c.cxa, dw)], dim=-1)
+    lam2 = solve_2x2(c.inv_eff_rot_mass, -(cdot2 + c.rotation_bias))
+    rot_p = c.bxa * lam2[..., 0:1] + c.cxa * lam2[..., 1:2]
+    wa = wa - _mat_vec(inv_ia, rot_p)
+    wb = wb + _mat_vec(inv_ib, rot_p)
+
+    # position (3D)
+    va, wa, vb, wb = _point_solve(c, c.translation_bias,
+                                  c.inv_eff_trans_mass, inv_ma, inv_mb,
+                                  inv_ia, inv_ib, va, wa, vb, wb)
+    return va, wa, vb, wb, limit_imp, motor_imp
+
+
+def _cone_twist_solve_one(c, inv_ma, inv_mb, inv_ia, inv_ib, va, wa, vb, wb,
+                          swing_imp, twist_imp, sm_imp, tm_imp):
+    """Twist motor -> swing motor -> twist limit -> swing limit -> position
+    (constraints.cpp:1955-2068)."""
+    # twist motor
+    rel_w = dot(c.twist_axis, wb) - dot(c.twist_axis, wa)
+    lam = -c.eff_twist_mass * (rel_w - c.twist_motor_velocity)
+    lam, tm_imp = _axial_impulse(lam, tm_imp, c.solve_twist_motor,
+                                 -c.max_twist_motor_impulse,
+                                 c.max_twist_motor_impulse)
+    wa = wa - c.tw_to_wa * lam[..., None]
+    wb = wb + c.tw_to_wb * lam[..., None]
+
+    # swing motor
+    rel_w = dot(c.swing_motor_axis, wb) - dot(c.swing_motor_axis, wa)
+    lam = -c.eff_swing_motor_mass * (rel_w - c.swing_motor_velocity)
+    lam, sm_imp = _axial_impulse(lam, sm_imp, c.solve_swing_motor,
+                                 -c.max_swing_motor_impulse,
+                                 c.max_swing_motor_impulse)
+    wa = wa - c.sm_to_wa * lam[..., None]
+    wb = wb + c.sm_to_wb * lam[..., None]
+
+    # twist limit
+    rel_w = c.twist_limit_sign * (dot(c.twist_axis, wb)
+                                  - dot(c.twist_axis, wa))
+    lam = -c.eff_twist_mass * (rel_w + c.twist_limit_bias)
+    lam, twist_imp = _axial_impulse(lam, twist_imp, c.solve_twist_limit)
+    lam = lam * c.twist_limit_sign
+    wa = wa - c.tw_to_wa * lam[..., None]
+    wb = wb + c.tw_to_wb * lam[..., None]
+
+    # swing limit (reversed signs: Cdot = aDotWA - aDotWB + bias,
+    # wa += ..., wb -= ...; constraints.cpp:2035-2048)
+    cdot = dot(c.swing_axis, wa) - dot(c.swing_axis, wb) + c.swing_limit_bias
+    lam = -c.eff_swing_limit_mass * cdot
+    lam, swing_imp = _axial_impulse(lam, swing_imp, c.solve_swing_limit)
+    wa = wa + c.sl_to_wa * lam[..., None]
+    wb = wb - c.sl_to_wb * lam[..., None]
+
+    # position
+    va, wa, vb, wb = _point_solve(c, c.bias, c.inv_eff_mass, inv_ma, inv_mb,
+                                  inv_ia, inv_ib, va, wa, vb, wb)
+    return va, wa, vb, wb, swing_imp, twist_imp, sm_imp, tm_imp
+
+
+def _slider_solve_one(c, inv_ma, inv_mb, inv_ia, inv_ib, va, wa, vb, wb,
+                      limit_imp, motor_imp):
+    """Motor -> limit -> rotation -> position (constraints.cpp:2761-2845)."""
+    # motor (linear along the axis)
+    cdot = dot(vb, c.axis) - dot(va, c.axis) - c.motor_velocity
+    mass = _inv_or_zero(inv_ma + inv_mb)
+    lam = -mass * cdot
+    lam, motor_imp = _axial_impulse(lam, motor_imp, c.solve_motor,
+                                    -c.max_motor_impulse, c.max_motor_impulse)
+    P = lam[..., None] * c.axis
+    va = va - inv_ma[..., None] * P
+    vb = vb + inv_mb[..., None] * P
+
+    # limit
+    cdot = (dot(vb, c.axis) + dot(wb, c.r_b_x_s)
+            - dot(va, c.axis) - dot(wa, c.r_au_x_s))
+    lam = -c.eff_axial_mass * (c.limit_sign * cdot + c.limit_bias)
+    lam, limit_imp = _axial_impulse(lam, limit_imp, c.solve_limit)
+    lam = lam * c.limit_sign
+    P = lam[..., None] * c.axis
+    va = va - inv_ma[..., None] * P
+    wa = wa - c.l_to_wa * lam[..., None]
+    vb = vb + inv_mb[..., None] * P
+    wb = wb + c.l_to_wb * lam[..., None]
+
+    # rotation (3D)
+    cdot = wb - wa
+    lam3 = solve_3x3(c.inv_eff_rot_mass, -(cdot + c.rotation_bias))
+    wa = wa - _mat_vec(inv_ia, lam3)
+    wb = wb + _mat_vec(inv_ib, lam3)
+
+    # position (2D in the plane normal to the slider axis)
+    cx = (dot(c.tangent, vb) + dot(c.r_b_x_t, wb)
+          - dot(c.tangent, va) - dot(c.r_au_x_t, wa))
+    cy = (dot(c.bitangent, vb) + dot(c.r_b_x_b, wb)
+          - dot(c.bitangent, va) - dot(c.r_au_x_b, wa))
+    cdot2 = torch.stack([cx, cy], dim=-1)
+    lam2 = solve_2x2(c.inv_eff_trans_mass, -(cdot2 + c.translation_bias))
+    l0, l1 = lam2[..., 0:1], lam2[..., 1:2]
+    tbv = c.tangent * l0 + c.bitangent * l1
+    va = va - inv_ma[..., None] * tbv
+    wa = wa - _mat_vec(inv_ia, c.r_au_x_t * l0 + c.r_au_x_b * l1)
+    vb = vb + inv_mb[..., None] * tbv
+    wb = wb + _mat_vec(inv_ib, c.r_b_x_t * l0 + c.r_b_x_b * l1)
+    return va, wa, vb, wb, limit_imp, motor_imp
+
+
+# ===========================================================================
+# Orchestration
+
+
+@dataclass
+class Prepped:
+    contacts: Optional[ContactPrep] = None
+    distance: Optional[DistancePrep] = None
+    ball: Optional[BallPrep] = None
+    fixed: Optional[FixedPrep] = None
+    hinge: Optional[HingePrep] = None
+    cone_twist: Optional[ConeTwistPrep] = None
+    slider: Optional[SliderPrep] = None
+
+
+# per joint type: solve function and accumulators
+_JOINT_SOLVES = {
+    "distance": (_distance_solve_one, 0),
+    "ball": (_ball_solve_one, 0),
+    "fixed": (_fixed_solve_one, 0),
+    "hinge": (_hinge_solve_one, 2),
+    "cone_twist": (_cone_twist_solve_one, 4),
+    "slider": (_slider_solve_one, 2),
+}
+_STATIC_FIELDS = ("body_a", "body_b", "color", "num_colors")
+
+
+class _Row:
+    """Row i of a joint prep: every batched field (B, J, ...) -> (B, ...);
+    body indices as Python ints."""
+
+    def __init__(self, prep, i):
+        for f in fields(prep):
+            if f.name not in _STATIC_FIELDS:
+                setattr(self, f.name, getattr(prep, f.name)[:, i])
+
+
+def joint_rows(prep):
+    """(row views, body_a ints, body_b ints) of a joint prep, made once a
+    step for the sequential pass."""
+    a = prep.body_a.tolist()
+    b = prep.body_b.tolist()
+    return [_Row(prep, i) for i in range(len(a))], a, b
+
+
+def _gs_pass(prep, solve_fn, n_acc, v, w, inv_mass, inv_inertia, accs,
+             rows=None):
+    """Sequential impulses over one joint type, joint by joint in order;
+    each joint writes body a's velocities, then body b's. v, w (B, N, 3);
+    accs: n_acc (B, J) accumulators. `rows` (joint_rows) may be passed in
+    when the pass is repeated."""
+    count = prep.body_a.shape[0]
+    if count == 0:
+        return v, w, accs
+    rows, ia, ib = rows if rows is not None else joint_rows(prep)
+    inertia = solve_fn is not _distance_solve_one
+    v, w = v.clone(), w.clone()
+    cols = [list(acc.unbind(1)) for acc in accs]
+    for i, (c, a, b) in enumerate(zip(rows, ia, ib)):
+        args = [c, inv_mass[a], inv_mass[b]]
+        if inertia:
+            args += [inv_inertia[:, a], inv_inertia[:, b]]
+        args += [v[:, a], w[:, a], v[:, b], w[:, b]]
+        args += [col[i] for col in cols]
+        out = solve_fn(*args)
+        v[:, a] = out[0]
+        v[:, b] = out[2]
+        w[:, a] = out[1]
+        w[:, b] = out[3]
+        for col, val in zip(cols, out[4:]):
+            col[i] = val
+    return v, w, tuple(torch.stack(col, dim=1) for col in cols)
+
+
+def _jacobi_pass(prep, solve_fn, v, w, inv_mass, inv_inertia, accs,
+                 omega=1.0):
+    """Averaged Jacobi over one joint type: all joints against the same
+    body velocities, per-body deltas summed and scaled by omega / degree."""
+    count = prep.body_a.shape[0]
+    if count == 0:
+        return v, w, accs
+    a, b = prep.body_a, prep.body_b
+    args = [prep, inv_mass[a], inv_mass[b]]
+    if solve_fn is not _distance_solve_one:
+        args += [inv_inertia[:, a], inv_inertia[:, b]]
+    va, wa = v[:, a], w[:, a]
+    vb, wb = v[:, b], w[:, b]
+    out = solve_fn(*args, va, wa, vb, wb, *accs)
+    nva, nwa, nvb, nwb = out[:4]
+
+    n = v.shape[1]
+    ones = torch.ones(count, dtype=v.dtype, device=v.device)
+    deg = torch.zeros(n, dtype=v.dtype, device=v.device)
+    deg.index_add_(0, a, ones)
+    deg.index_add_(0, b, ones)
+    inv_deg = 1.0 / torch.clamp(deg, min=1.0)
+
+    dv = torch.zeros_like(v).index_add_(1, a, nva - va).index_add_(
+        1, b, nvb - vb)
+    dw = torch.zeros_like(w).index_add_(1, a, nwa - wa).index_add_(
+        1, b, nwb - wb)
+    scale = (omega * inv_deg)[:, None]
+    return v + dv * scale, w + dw * scale, tuple(out[4:])
+
+
+def _colored_pass(prep, solve_fn, v, w, inv_mass, inv_inertia, accs):
+    """Coloured Gauss-Seidel over one joint type: colours in order, the
+    joints of a colour (which share no body) in parallel."""
+    count = prep.body_a.shape[0]
+    if count == 0:
+        return v, w, accs
+    a, b = prep.body_a, prep.body_b
+    inertia = solve_fn is not _distance_solve_one
+    for col in range(prep.num_colors):
+        mask = prep.color == col
+        args = [prep, inv_mass[a], inv_mass[b]]
+        if inertia:
+            args += [inv_inertia[:, a], inv_inertia[:, b]]
+        va, wa = v[:, a], w[:, a]
+        vb, wb = v[:, b], w[:, b]
+        out = solve_fn(*args, va, wa, vb, wb, *accs)
+        nva, nwa, nvb, nwb = out[:4]
+        mf = mask.to(v.dtype)[:, None]
+        dv = torch.zeros_like(v).index_add_(1, a, (nva - va) * mf).index_add_(
+            1, b, (nvb - vb) * mf)
+        dw = torch.zeros_like(w).index_add_(1, a, (nwa - wa) * mf).index_add_(
+            1, b, (nwb - wb) * mf)
+        v = v + dv
+        w = w + dw
+        accs = tuple(torch.where(mask, new, old)
+                     for new, old in zip(out[4:], accs))
+    return v, w, accs
+
+
+_YZX = (1, 2, 0)
+_ZXY = (2, 0, 1)
+
+
+def live_points(prep: ContactPrep, accs):
+    """(P, 4) numpy bool: the points that a sequential pass from the
+    accumulators `accs` can change in some env: a non-zero effective mass,
+    or an accumulated impulse outside its clamp (a negative normal impulse,
+    a friction impulse past friction x normal impulse). Any other point
+    solves to zero impulses and leaves every velocity and accumulator as it
+    was (up to the sign of a zero), so `_contact_gs_pass` skips it, and a
+    row without a live point (its gathers and writes too). Each point's
+    accumulators change only in its own solve, so the test at the start of
+    a pass holds for the whole pass. One copy to the host a pass."""
+    imp_n, imp_t = accs
+    live = ((prep.eff_mass_n != 0.0) | (prep.eff_mass_t != 0.0)
+            | (imp_n < 0.0) | (imp_t.abs() > prep.friction * imp_n))
+    return torch.any(live, dim=0).cpu().numpy()
+
+
+def contact_rows(prep: ContactPrep, num_rows: int):
+    """Per pair row of a contact prep, the constants of its sequential
+    solve, made once a step: both sides stacked on a leading axis of 2
+    (side a, side b), so that one operation serves both, with the signs of
+    side a's updates folded in (a - x == a + (-x) exactly); per point the
+    anchors and their component rotations for the cross product, the
+    direction, the negated effective masses and the impulse-to-angular-
+    velocity factors; the flat (B * num_rows) indices of the two bodies."""
+    idx = [_flat_index(x, num_rows).view(x.shape)
+           for x in (prep.body_a, prep.body_b)]
+    m = torch.stack([-prep.inv_ma, prep.inv_mb])[..., None]  # (2, B, P, 1)
+    rel = torch.stack([prep.rel_a, prep.rel_b])              # (2, B, P, 4, 3)
+    rel_yzx, rel_zxy = rel[..., _YZX], rel[..., _ZXY]
+    t2w = torch.stack([-prep.t_to_wa, prep.t_to_wb])
+    n2w = torch.stack([-prep.n_to_wa, prep.n_to_wb])
+    neg_t, neg_n = -prep.eff_mass_t, -prep.eff_mass_n
+    rows = []
+    for i in range(prep.body_a.shape[1]):
+        points = [(k, dict(ryzx=rel_yzx[:, :, i, k], rzxy=rel_zxy[:, :, i, k],
+                       t=prep.tangent[:, i, k], n=prep.normal[:, i, k],
+                       neg_t=neg_t[:, i, k], neg_n=neg_n[:, i, k],
+                       bias=prep.bias[:, i, k],
+                       friction=prep.friction[:, i, k],
+                       t2w=t2w[:, :, i, k], n2w=n2w[:, :, i, k]))
+                  for k in range(prep.bias.shape[-1])]
+        rows.append((i, points, m[:, :, i], idx[0][:, i], idx[1][:, i]))
+    return rows
+
+
+def _cross_rows(w, p):
+    """cross(w, r) of stacked rows from r's component rotations p: the
+    components of maths.cross, each the same two products and difference."""
+    return w[..., _YZX] * p["rzxy"] - w[..., _ZXY] * p["ryzx"]
+
+
+def _contact_row(points, m, v, w, imp_n, imp_t):
+    """One pair row of the sequential pass: its <= 4 points in order,
+    friction then normal, on the stacked velocities v, w (2, B, 3) of its
+    two bodies; the operations of _contact_solve_point, both sides at
+    once. points: (point index, constants); imp_n / imp_t: lists of the
+    row's per-point (B,) impulses."""
+    for k, p in points:
+        # tangent
+        x = v + _cross_rows(w, p)
+        vt = torch.sum((x[1] - x[0]) * p["t"], dim=-1)
+        lam = p["neg_t"] * vt
+        max_f = p["friction"] * imp_n[k]
+        new_imp = torch.clamp(imp_t[k] + lam, -max_f, max_f)
+        lam = new_imp - imp_t[k]
+        imp_t[k] = new_imp
+        v = v + m * (lam[:, None] * p["t"])
+        w = w + p["t2w"] * lam[:, None]
+        # normal
+        x = v + _cross_rows(w, p)
+        vn = torch.sum((x[1] - x[0]) * p["n"], dim=-1)
+        lam = p["neg_n"] * (vn - p["bias"])
+        new_imp = torch.clamp(imp_n[k] + lam, min=0.0)
+        lam = new_imp - imp_n[k]
+        imp_n[k] = new_imp
+        v = v + m * (lam[:, None] * p["n"])
+        w = w + p["n2w"] * lam[:, None]
+    return v, w
+
+
+def _contact_gs_pass(prep: ContactPrep, v, w, accs, rows=None):
+    """Sequential impulses over contacts: pair rows in order, each row's
+    <= 4 points in order, each row reading the velocities its predecessor
+    wrote and writing body a's, then body b's (a dead row's two bodies are
+    both the dummy row); points that cannot change anything are skipped
+    (live_points). accs: (imp_n, imp_t), (B, P, 4) each. `rows`
+    (contact_rows) may be passed in when the pass is repeated."""
+    count = prep.body_a.shape[1]
+    if count == 0:
+        return v, w, accs
+    B, n = v.shape[0], v.shape[1]
+    rows = rows if rows is not None else contact_rows(prep, n)
+    live = live_points(prep, accs)
+    vw = torch.cat([v, w], dim=-1).view(B * n, 6)
+    imp_n = [list(x.unbind(-1)) for x in accs[0].unbind(1)]
+    imp_t = [list(x.unbind(-1)) for x in accs[1].unbind(1)]
+    for i, points, m, fa, fb in rows:
+        points = [(k, p) for k, p in points if live[i, k]]
+        if not points:
+            continue
+        g = torch.stack([vw[fa], vw[fb]])                # (2, B, 6)
+        rv, rw = _contact_row(points, m, g[..., :3], g[..., 3:],
+                              imp_n[i], imp_t[i])
+        out = torch.cat([rv, rw], dim=-1)
+        vw.index_copy_(0, fa, out[0])
+        vw.index_copy_(0, fb, out[1])
+    vw = vw.view(B, n, 6)
+    return (vw[..., :3], vw[..., 3:],
+            (torch.stack([torch.stack(x, -1) for x in imp_n], 1),
+             torch.stack([torch.stack(x, -1) for x in imp_t], 1)))
+
+
+def solve_constraints(bodies: SolverBodies, prepped: Prepped,
+                      num_iterations: int, mode: str = "scan",
+                      omega: float = 1.0):
+    """Run `num_iterations` rounds over all constraint types in the
+    reference's order: distance, ball, fixed, hinge, cone-twist, slider,
+    contacts. Contacts take the sequential pass in "scan" and the phased
+    pass otherwise; joints take the sequential pass in "scan", the
+    coloured pass in "colored" (where the prep has colours) and the
+    averaged pass otherwise.
+
+    Returns (bodies, contact_imp_n): the accumulated normal impulses per
+    pair point, (B, P, 4), or None without contacts."""
+    if mode not in ("scan", "jacobi", "colored"):
+        raise ValueError(f"unknown solver mode {mode!r}")
+    v, w = bodies.v, bodies.w
+    inv_m, inv_i = bodies.inv_mass, bodies.inv_inertia
+    n = v.shape[1]
+    p = prepped
+    joints = [(name, getattr(p, name)) for name in _JOINT_SOLVES
+              if getattr(p, name) is not None]
+
+    accs = {}
+    for name, prep in joints:
+        z = torch.zeros(v.shape[0], prep.body_a.shape[0], dtype=v.dtype,
+                        device=v.device)
+        accs[name] = tuple(z for _ in range(_JOINT_SOLVES[name][1]))
+    if p.contacts is not None:
+        z = torch.zeros(p.contacts.bias.shape, dtype=v.dtype, device=v.device)
+        accs["contacts"] = (z, z)
+
+    # constant across iterations: the sequential passes' row views, the
+    # phased pass's slices and per-body 1/degree
+    if mode == "scan":
+        rows = {name: joint_rows(prep) for name, prep in joints}
+        if p.contacts is not None:
+            rows["contacts"] = contact_rows(p.contacts, n)
+    elif p.contacts is not None:
+        inv_deg_phases = contact_phase_inv_degrees(p.contacts, n)
+        views = _phase_views(p.contacts, n)
+
+    for _ in range(num_iterations):
+        for name, prep in joints:
+            fn, n_acc = _JOINT_SOLVES[name]
+            if mode == "scan":
+                v, w, accs[name] = _gs_pass(prep, fn, n_acc, v, w, inv_m,
+                                            inv_i, accs[name], rows[name])
+            elif mode == "colored" and prep.color is not None:
+                v, w, accs[name] = _colored_pass(prep, fn, v, w, inv_m,
+                                                 inv_i, accs[name])
+            else:
+                v, w, accs[name] = _jacobi_pass(prep, fn, v, w, inv_m,
+                                                inv_i, accs[name], omega)
+        if p.contacts is not None:
+            if mode == "scan":
+                v, w, accs["contacts"] = _contact_gs_pass(
+                    p.contacts, v, w, accs["contacts"], rows["contacts"])
+            else:
+                v, w, accs["contacts"] = _contact_phased_pass(
+                    views, v, w, accs["contacts"], inv_deg_phases, omega)
+    contact_imp_n = accs["contacts"][0] if p.contacts is not None else None
+    return bodies.replace(v=v, w=w), contact_imp_n

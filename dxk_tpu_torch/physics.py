@@ -4,19 +4,19 @@ Pipeline per substep, batched over environments (same order as the JAX
 package's physics.py):
   1. world-space collider flattening + AABBs
   2. broadphase: static pair tables, K-select or sort-and-sweep
-  3. narrowphase: per-bucket contact manifolds
+  3. narrowphase: per-bucket contact manifolds (+ heightfield terrain rows)
   4. integrate forces (gravity, damping)
-  5. contact prep + N solver iterations
+  5. contact and joint prep + N solver iterations over the seven types
   6. integrate velocities
 
 Two branches, as in the JAX package: the fused step (``solver_mode=
 "fused"`` or ``"fused_seq"`` on a scene the fused kernel takes), where 3
 and 5 run inside one kernel (ops/kernels/fused_step.py), heightfield
 terrain contacts prepared beside it and passed in; and the reference step
-for every other scene, where "fused" falls back to "jacobi". The reference
-step is ported for box-box contacts in the "jacobi" and "colored" modes;
-"scan", the other contact buckets, joints, heightfields, overlaps and cloth
-raise NotImplementedError there, and cloth raises on both branches.
+for every other scene and mode ("scan", "jacobi", "colored"; "fused" runs
+"jacobi" there and "fused_seq" runs "scan"), with all 15 contact buckets,
+the six joint types and heightfield terrain. Cloth and trigger /
+force-field overlaps raise NotImplementedError on both branches.
 """
 
 from __future__ import annotations
@@ -32,10 +32,9 @@ from dxk_tpu_torch.core.maths import cross, quat_inv_rotate, quat_rotate, sqrt
 from dxk_tpu_torch.ops.integrator import (integrate_forces,
                                           integrate_velocities)
 from dxk_tpu_torch.ops.shapes import collider_aabbs, world_colliders
-from dxk_tpu_torch.scene.scene import SHAPE_BOX, Scene, State, StepInfo
-
-JOINT_TYPES = ("distance", "ball", "fixed", "hinge", "cone_twist", "slider")
-
+from dxk_tpu_torch.scene.scene import (SHAPE_BOX, SHAPE_CAPSULE,
+                                       SHAPE_CYLINDER, SHAPE_HULL,
+                                       SHAPE_SPHERE, Scene, State, StepInfo)
 
 @dataclass(frozen=True)
 class PhysicsSettings:
@@ -52,11 +51,10 @@ def controls_pack(scene: Scene, controls, dt) -> torch.Tensor:
     """(B, R+1) controls pack for the fused step: per joint type in solve
     order, per joint, the type's control fields as float32 (distance, ball
     and fixed joints have none); dt last."""
-    from dxk_tpu_torch.ops.kernels.batched_solver import scene_joint_types
     from dxk_tpu_torch.ops.kernels.cm_joint_prep import CTL_ATTRS, CTL_FIELDS
     like = controls.hinge_target                            # (B, Jh)
     cols = []
-    for name in scene_joint_types(scene):
+    for name in scene.joint_types:
         per_field = [getattr(controls, CTL_ATTRS[name][f]).to(torch.float32)
                      for f in CTL_FIELDS[name]]             # each (B, J)
         if per_field:
@@ -78,43 +76,92 @@ def physics_step(scene: Scene, state: State, settings: PhysicsSettings,
         from dxk_tpu_torch.ops.kernels.fused_step import fused2_eligible
         if fused2_eligible(scene):
             return _physics_step_fused(scene, state, settings, dt)
-    if scene.heightfield is not None:
-        raise NotImplementedError(
-            "heightfield terrain on the reference step is not ported yet; "
-            "the fused step takes it")
     return _physics_step_reference(scene, state, settings, dt)
 
 
-def _pair_params(w, idx):
-    """World box params (center, half extents, rotation) of one side of a
-    (B, P) pair list."""
-    ar = torch.arange(idx.shape[0], device=idx.device)[:, None]
-    return w.a[ar, idx], w.b[ar, idx], w.rot[ar, idx]
+def _hull_tables(hulls, hid):
+    """The per-pair hull tables of the SAT recipes, gathered by hull id
+    (hid (B, P)): vertices, vertex mask, face polygons' normals, offsets,
+    mask, loops, loop lengths, edge directions and edge mask."""
+    return tuple(t[hid] for t in (
+        hulls.vertices, hulls.vertex_mask, hulls.poly_normals,
+        hulls.poly_offsets, hulls.poly_mask, hulls.loop_pts, hulls.loop_len,
+        hulls.edge_dirs, hulls.edge_mask))
 
 
-def _contacts_for_group(w, group, pairs, mask):
+def _contacts_for_group(scene, w, group, pairs, mask):
     """Contact manifolds of one (typeA, typeB) bucket. pairs (B, P, 2),
     mask (B, P). Returns (points (B, P, 4, 3), depths (B, P, 4),
     normal (B, P, 3), count (B, P), hit (B, P))."""
     from dxk_tpu_torch.ops import narrowphase as np_ops
     ta, tb = group.type_a, group.type_b
-    if (ta, tb) != (SHAPE_BOX, SHAPE_BOX):
-        raise NotImplementedError(
-            f"contact pair ({ta}, {tb}) on the reference step is not ported "
-            "to dxk_tpu_torch yet; only box-box")
     ia, ib = pairs[..., 0].long(), pairs[..., 1].long()
-    a_a, a_b, a_q = _pair_params(w, ia)
-    b_a, b_b, b_q = _pair_params(w, ib)
-    pts, dps, nrm, cnt, hit = np_ops.box_box_contact(a_a, a_b, a_q,
-                                                     b_a, b_b, b_q)
+    ar = torch.arange(ia.shape[0], device=ia.device)[:, None]
+    a_a, a_b, a_r, a_q = w.a[ar, ia], w.b[ar, ia], w.r[ia], w.rot[ar, ia]
+    b_a, b_b, b_r, b_q = w.a[ar, ib], w.b[ar, ib], w.r[ib], w.rot[ar, ib]
+
+    if (ta, tb) == (SHAPE_SPHERE, SHAPE_SPHERE):
+        out = np_ops.sphere_sphere_contact(a_a, a_r, b_a, b_r)
+    elif (ta, tb) == (SHAPE_SPHERE, SHAPE_CAPSULE):
+        out = np_ops.sphere_capsule_contact(a_a, a_r, b_a, b_b, b_r)
+    elif (ta, tb) == (SHAPE_SPHERE, SHAPE_CYLINDER):
+        out = np_ops.sphere_cylinder_contact(a_a, a_r, b_a, b_b, b_r)
+    elif (ta, tb) == (SHAPE_SPHERE, SHAPE_BOX):
+        out = np_ops.sphere_box_contact(a_a, a_r, b_a, b_b, b_q)
+    elif (ta, tb) == (SHAPE_CAPSULE, SHAPE_CAPSULE):
+        out = np_ops.capsule_capsule_contact(a_a, a_b, a_r, b_a, b_b, b_r)
+    elif (ta, tb) == (SHAPE_CAPSULE, SHAPE_CYLINDER):
+        out = np_ops.capsule_cylinder_contact(a_a, a_b, a_r, b_a, b_b, b_r)
+    elif (ta, tb) == (SHAPE_CAPSULE, SHAPE_BOX):
+        out = np_ops.capsule_box_contact(a_a, a_b, a_r, b_a, b_b, b_q)
+    elif (ta, tb) == (SHAPE_CYLINDER, SHAPE_CYLINDER):
+        out = np_ops.cylinder_cylinder_contact(a_a, a_b, a_r, b_a, b_b, b_r)
+    elif (ta, tb) == (SHAPE_CYLINDER, SHAPE_BOX):
+        out = np_ops.cylinder_box_contact(a_a, a_b, a_r, b_a, b_b, b_q)
+    elif (ta, tb) == (SHAPE_BOX, SHAPE_BOX):
+        out = np_ops.box_box_contact(a_a, a_b, a_q, b_a, b_b, b_q)
+    elif tb == SHAPE_HULL:
+        h = scene.hulls
+        hid_b = w.hull_id.long()[ib]
+        tb_tabs = _hull_tables(h, hid_b)
+        hv, hm = tb_tabs[:2]
+        tri = (h.face_normals[hid_b], h.face_offsets[hid_b],
+               h.face_mask[hid_b])
+        if ta == SHAPE_SPHERE:
+            out = np_ops.sphere_hull_contact(a_a, a_r, b_a, b_q, hv, hm, *tri)
+        elif ta == SHAPE_CAPSULE:
+            out = np_ops.capsule_hull_contact(a_a, a_b, a_r, b_a, b_q, hv, hm,
+                                              *tri)
+        elif ta == SHAPE_CYLINDER:
+            out = np_ops.cylinder_hull_contact(a_a, a_b, a_r, b_a, b_q,
+                                               *tb_tabs)
+        elif ta == SHAPE_BOX:
+            out = np_ops.box_hull_contact(a_a, a_b, a_q, b_a, b_q, *tb_tabs)
+        else:
+            out = np_ops.hull_hull_contact(
+                a_a, a_q, *_hull_tables(h, w.hull_id.long()[ia]),
+                b_a, b_q, *tb_tabs)
+    else:
+        raise NotImplementedError(f"contact pair ({ta}, {tb}) not implemented")
+    pts, dps, nrm, cnt, hit = out
     hit = hit & mask
     cnt = torch.where(hit, cnt, 0)
     return pts, dps, nrm, cnt, hit
 
 
+def reference_preps(scene, bodies, controls, dt32, contacts=None):
+    """The Prepped of the solve: the contact prep `contacts` and the
+    scene's joints prepared on the integrated `bodies`."""
+    from dxk_tpu_torch.ops.solver import Prepped, prep_joints
+    return Prepped(contacts=contacts, **dict(zip(
+        scene.joint_types,
+        prep_joints(scene, bodies, controls, dt32))))
+
+
 def _physics_step_reference(scene, state, settings, dt):
-    """The reference step: broadphase, narrowphase per type bucket, contact
-    prep and the phased contact solve as separate stages."""
+    """The reference step: broadphase, narrowphase per type bucket,
+    heightfield terrain rows, contact and joint prep and the solve as
+    separate stages."""
     from dxk_tpu_torch.ops.broadphase import (aabb_overlap_mask,
                                               compact_pairs, is_dense,
                                               kselect_group_pairs)
@@ -122,18 +169,12 @@ def _physics_step_reference(scene, state, settings, dt):
         aabb_overlap_matrix)
     from dxk_tpu_torch.ops.solver import prep_contacts, solve_constraints
 
+    # "fused" / "fused_seq" on a scene the fused kernel does not take run
+    # their semantics here
     mode = {"fused": "jacobi", "fused_seq": "scan"}.get(
         settings.solver_mode, settings.solver_mode)
-    if mode not in ("jacobi", "colored"):
-        raise NotImplementedError(
-            f"solver_mode={settings.solver_mode!r} on the reference step is "
-            "not ported to dxk_tpu_torch yet; only 'jacobi', 'colored' and "
-            "'fused' (which runs 'jacobi' here)")
-    joints = [n for n in JOINT_TYPES if getattr(scene, n) is not None]
-    if joints:
-        raise NotImplementedError(
-            f"joints ({', '.join(joints)}) on the reference step are not "
-            "ported to dxk_tpu_torch yet")
+    if mode not in ("scan", "jacobi", "colored"):
+        raise ValueError(f"unknown solver_mode {settings.solver_mode!r}")
     if mode == "colored" and scene.pair_groups \
             and scene.num_contact_phases <= 1:
         warnings.warn(
@@ -142,6 +183,8 @@ def _physics_step_reference(scene, state, settings, dt):
             "Pass contact_phases=4 (or more) to SceneBuilder.finalize "
             "for conflict-free Gauss-Seidel contact slices.",
             stacklevel=3)
+    controls = state.controls if state.controls is not None \
+        else scene.batched_controls(state.pos.shape[0])
     dt32 = float(np.float32(dt))
     B = state.pos.shape[0]
     dev = state.pos.device
@@ -189,7 +232,7 @@ def _physics_step_reference(scene, state, settings, dt):
     for items in buckets.values():
         cat_pairs = torch.cat([it[2] for it in items], dim=1)
         cat_mask = torch.cat([it[3] for it in items], dim=1)
-        out = _contacts_for_group(w, items[0][1], cat_pairs, cat_mask)
+        out = _contacts_for_group(scene, w, items[0][1], cat_pairs, cat_mask)
         ia, ib = cat_pairs[..., 0].long(), cat_pairs[..., 1].long()
         # friction/restitution combine
         fric = torch.clamp(sqrt(w.friction[ia] * w.friction[ib]),
@@ -203,43 +246,73 @@ def _physics_step_reference(scene, state, settings, dt):
             narrow[gi] = tuple(x[:, off:off + n] for x in fields)
             off += n
 
+    # 3b: heightfield terrain contacts, a trailing phase slice of one row
+    # per collider
+    hf = None
+    if scene.heightfield is not None:
+        from dxk_tpu_torch.ops.heightmap import (heightfield_contacts,
+                                                 heightfield_plan)
+        hf = heightfield_contacts(scene.heightfield, w, w.body, mn, mx,
+                                  scene.num_bodies,
+                                  plan=heightfield_plan(scene))
+
     # 4: integrate forces
     bodies = integrate_forces(scene, state, dt32)
 
     # pair-major contact rows: (B, P, 4) points per pair, phases contiguous
-    prepped = None
+    prepped_contacts = None
     contact_pairs = None
     contact_mask = None
     total_contacts = torch.zeros(B, dtype=torch.int32, device=dev)
-    if selected:
-        cols = [[] for _ in range(9)]
-        phase_sizes = {}
-        for gi, group, pairs, _mask in selected:
-            for col, x in zip(cols, narrow[gi]):
-                col.append(x)
-            phase_sizes[group.phase] = (phase_sizes.get(group.phase, 0)
-                                        + pairs.shape[1])
-        pts, dps, nrm, cnt, hit, body_a, body_b, fric, rest = (
-            torch.cat(c, dim=1) for c in cols)
-        P = pts.shape[1]
-        nrm = nrm[:, :, None, :].expand(B, P, 4, 3)
-        cmask = hit[..., None] & (torch.arange(4, device=dev)
-                                  < cnt[..., None])
-        # dead pairs point at the dummy static body, so they do not count
-        # in the per-body degrees of the averaged solve
-        live = torch.any(cmask, dim=-1)
-        body_a = torch.where(live, body_a, scene.num_bodies)
-        body_b = torch.where(live, body_b, scene.num_bodies)
-        sizes = tuple(phase_sizes[p] for p in sorted(phase_sizes))
+    if selected or hf is not None:
+        parts = []
+        sizes = ()
+        if selected:
+            cols = [[] for _ in range(9)]
+            phase_sizes = {}
+            for gi, group, pairs, _mask in selected:
+                for col, x in zip(cols, narrow[gi]):
+                    col.append(x)
+                phase_sizes[group.phase] = (phase_sizes.get(group.phase, 0)
+                                            + pairs.shape[1])
+            pts, dps, nrm, cnt, hit, body_a, body_b, fric, rest = (
+                torch.cat(c, dim=1) for c in cols)
+            P = pts.shape[1]
+            nrm = nrm[:, :, None, :].expand(B, P, 4, 3)
+            cmask = hit[..., None] & (torch.arange(4, device=dev)
+                                      < cnt[..., None])
+            # dead pairs point at the dummy static body, so they do not
+            # count in the per-body degrees of the averaged solve
+            live = torch.any(cmask, dim=-1)
+            body_a = torch.where(live, body_a, scene.num_bodies)
+            body_b = torch.where(live, body_b, scene.num_bodies)
+            parts.append((pts, nrm, dps, body_a, body_b, fric, rest, cmask))
+            sizes = tuple(phase_sizes[p] for p in sorted(phase_sizes))
+        if hf is not None:
+            hpts, hnrm, hdps, hba, hbb, hfr, hre, hcm = hf
+            C = hpts.shape[1]
+            parts.append((hpts, hnrm, hdps, hba, hbb,
+                          hfr.expand(B, C), hre.expand(B, C), hcm))
+            sizes = sizes + (C,)
+        pts, nrm, dps, body_a, body_b, fric, rest, cmask = (
+            torch.cat([p[i] for p in parts], dim=1) for i in range(8))
         total_contacts = torch.sum(cmask.flatten(1), dim=-1,
                                    dtype=torch.int32)
-        contact_mask = live
-        contact_pairs = torch.cat([it[2] for it in selected], dim=1)
-        prepped = prep_contacts(bodies, body_a, body_b, pts, nrm, dps, fric,
-                                rest, cmask.to(pts.dtype), dt32,
-                                phase_sizes=sizes)
+        contact_mask = torch.any(cmask, dim=-1)
+        if selected:
+            cpairs = [it[2] for it in selected]
+            if hf is not None:
+                cpairs.append(torch.full((B, hf[0].shape[1], 2), -1,
+                                         dtype=cpairs[0].dtype, device=dev))
+            contact_pairs = torch.cat(cpairs, dim=1)
+        prepped_contacts = prep_contacts(bodies, body_a, body_b, pts, nrm,
+                                         dps, fric, rest,
+                                         cmask.to(pts.dtype), dt32,
+                                         phase_sizes=sizes)
 
-    # 5: contact solve
+    # 5: constraint prep + solve
+    prepped = reference_preps(scene, bodies, controls, dt32,
+                              prepped_contacts)
     bodies, contact_imp_n = solve_constraints(
         bodies, prepped, settings.num_rigid_solver_iterations, mode,
         settings.sor_omega)
@@ -268,12 +341,11 @@ def joint_inputs(scene, bodies, controls, dt32, prep_in_kernel):
     (batched_solver.pack_joint_type), in scene_joint_ab order."""
     if prep_in_kernel:
         return controls_pack(scene, controls, dt32)
-    from dxk_tpu_torch.ops.kernels.batched_solver import (pack_joint_type,
-                                                          scene_joint_types)
+    from dxk_tpu_torch.ops.kernels.batched_solver import pack_joint_type
     from dxk_tpu_torch.ops.solver import prep_joints
     preps = prep_joints(scene, bodies, controls, dt32)
     return tuple(pack_joint_type(name, prep) for name, prep
-                 in zip(scene_joint_types(scene), preps))
+                 in zip(scene.joint_types, preps))
 
 
 def terrain_inputs(scene, w, bodies, dt32):

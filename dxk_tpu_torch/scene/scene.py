@@ -34,6 +34,9 @@ OWNER_STATIC = 1
 OWNER_FORCE_FIELD = 2
 OWNER_TRIGGER = 3
 
+# the joint types, in the reference's solve order
+JOINT_TYPES = ("distance", "ball", "fixed", "hinge", "cone_twist", "slider")
+
 
 def resolve_device(device) -> torch.device:
     """`device` as a torch.device. Asking for CUDA on a machine without a
@@ -234,6 +237,14 @@ class Scene(_Struct):
     @property
     def device(self):
         return self.init_pos.device
+
+    @property
+    def joint_types(self) -> list:
+        """Names of the joint types with at least one joint, in solve
+        order."""
+        return [name for name in JOINT_TYPES
+                if getattr(self, name) is not None
+                and getattr(self, name).body_a.shape[0] > 0]
 
     def batched_controls(self, batch: int) -> MotorControls:
         c = self.default_controls

@@ -269,9 +269,10 @@ def test_box_box_contact_matches_jax():
     assert np.abs(pts.numpy() - w_pts)[slots].max() <= 1e-6
 
 
-def test_prep_and_solve_match_jax():
-    """prep_contacts + solve_constraints (phased jacobi) on random bodies
-    and contact rows: prep within 1e-6, solved velocities within 1e-5."""
+def _prep_and_solve(mode):
+    """prep_contacts + solve_constraints in `mode` on random bodies and
+    contact rows, in both packages. Returns (bodies, JAX prep, solved
+    bodies and impulses, port prep, solved bodies and impulses)."""
     rng = np.random.default_rng(6)
     nb, P, iters = 7, 12, 10             # 6 bodies + dummy, 12 pair rows
     q = rng.normal(size=(B, nb, 4))
@@ -311,7 +312,7 @@ def test_prep_and_solve_match_jax():
         prep = jsolver.prep_contacts(jb, body_a, body_b, point, nrm, depth,
                                      fric, rest, mask, dt, phase_sizes=sizes)
         out, imp = jsolver.solve_constraints(
-            jb, jsolver.Prepped(contacts=prep), iters, "jacobi")
+            jb, jsolver.Prepped(contacts=prep), iters, mode)
         return prep, out, imp
 
     prep, out, imp = jax.jit(jax.vmap(jax_env))(
@@ -324,7 +325,15 @@ def test_prep_and_solve_match_jax():
         tb, _t(body_a).long(), _t(body_b).long(), _t(point), _t(nrm),
         _t(depth), _t(fric), _t(rest), _t(mask), float(dt),
         phase_sizes=sizes)
-    tout, timp = tsolver.solve_constraints(tb, tprep, iters, "jacobi")
+    tout, timp = tsolver.solve_constraints(
+        tb, tsolver.Prepped(contacts=tprep), iters, mode)
+    return bodies, prep, out, imp, tprep, tout, timp
+
+
+def test_prep_and_solve_match_jax():
+    """prep_contacts + solve_constraints (phased jacobi) on random bodies
+    and contact rows: prep within 1e-6, solved velocities within 1e-5."""
+    bodies, prep, out, imp, tprep, tout, timp = _prep_and_solve("jacobi")
     for name in ("rel_a", "rel_b", "tangent", "eff_mass_n", "eff_mass_t",
                  "bias", "friction", "n_to_wa", "n_to_wb", "t_to_wa",
                  "t_to_wb", "inv_ma", "inv_mb"):
@@ -339,8 +348,14 @@ def test_prep_and_solve_match_jax():
 
 
 def test_scan_mode_raises():
-    with pytest.raises(NotImplementedError):
-        tsolver.solve_constraints(None, None, 1, "scan")
+    """The sequential "scan" contact pass is ported: on the random rows of
+    test_prep_and_solve_match_jax it runs and its solved velocities and
+    impulses are within 1e-5 of the JAX package's."""
+    bodies, _prep, out, imp, _tprep, tout, timp = _prep_and_solve("scan")
+    assert np.abs(tout.v.numpy() - np.asarray(out.v)).max() <= 1e-5
+    assert np.abs(tout.w.numpy() - np.asarray(out.w)).max() <= 1e-5
+    assert np.abs(timp.numpy() - np.asarray(imp)).max() <= 1e-5
+    assert np.abs(np.asarray(out.v) - bodies["v"]).max() > 1e-2
 
 
 @pytest.mark.parametrize("fn", [

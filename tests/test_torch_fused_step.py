@@ -259,18 +259,42 @@ def test_cuda_tensor_never_takes_plain_version(envs):
 @pytest.mark.parametrize("kwargs", [
     dict(sequential=True), dict(joint_prep_in_kernel=False)])
 def test_unported_solver_options_raise(envs, kwargs):
-    """Both options are ported; a scene the fused step does not take (a
-    dynamic broadphase, whose reference step with joints is not ported)
-    still raises under each."""
+    """Both options are ported; the fused kernel does not take a scene
+    with a dynamic broadphase (physics_step runs such a scene on the
+    reference step), and make_fused_step_solver raises for it under
+    each."""
     scene = envs[1].scene.replace(broadphase_k=8)
     with pytest.raises(NotImplementedError):
         fs.make_fused_step_solver(scene, 10, **kwargs)
 
 
 def test_unported_solver_mode_raises(envs, states):
-    _jenv, tenv = envs
-    with pytest.raises(NotImplementedError):
-        physics_step(tenv.scene, state_from_numpy(states, "cpu"),
-                     PhysicsSettings(solver_mode="jacobi"), DT)
-    with pytest.raises(NotImplementedError):
-        TorchLocoEnv(solver_mode="scan", device="cpu")
+    """Every solver mode is ported now (the test keeps its name): "jacobi"
+    on the loco scene, which the fused step takes only in the fused modes,
+    runs the reference step and matches the JAX package's compiled step on
+    one env (positions within 1e-6, velocities within 1e-5 of max(1,
+    their largest)); LocoEnv(solver_mode="scan") builds the JAX package's
+    capped tables."""
+    jenv, tenv = envs
+    tst = state_from_numpy(states, "cpu")
+    tout = physics_step(tenv.scene, tst, PhysicsSettings(
+        num_rigid_solver_iterations=ITERS, solver_mode="jacobi"), DT)[0]
+    jsettings = dataclasses.replace(jenv.settings, solver_mode="jacobi")
+    jst = jenv.scene.initial_state()
+    jst = jst.replace(
+        controls=jst.controls.replace(**{
+            k: jnp.asarray(v[0]) for k, v in states["controls"].items()}),
+        **{k: jnp.asarray(states[k][0]) for k in (
+            "pos", "rot", "lin_vel", "ang_vel", "force_acc", "torque_acc")})
+    from dxk_tpu.physics import physics_step as jax_physics_step
+    jout = jax.jit(lambda s: jax_physics_step(jenv.scene, s, jsettings,
+                                              DT)[0])(jst)
+    for k in ("pos", "rot", "lin_vel", "ang_vel"):
+        want = np.asarray(getattr(jout, k))
+        tol = 1e-6 if k in ("pos", "rot") else 1e-5 * max(
+            1.0, float(np.abs(want).max()))
+        assert np.abs(getattr(tout, k)[0].numpy() - want).max() <= tol, k
+    env = TorchLocoEnv(solver_mode="scan", device="cpu")
+    assert env.settings.solver_mode == "scan"
+    assert [g.max_narrow for g in env.scene.pair_groups] == [
+        g.max_narrow for g in jle.LocoEnv().scene.pair_groups]

@@ -167,7 +167,8 @@ def test_step_with_pokes_matches_jax(envs, rollout):
 
 
 def test_public_step_draws_pokes_from_generator():
-    env = tle.LocoEnv(solver_iterations=2, enable_pokes=True, device="cpu")
+    env = tle.LocoEnv(solver_iterations=2, solver_mode="fused",
+                      enable_pokes=True, device="cpu")
     act = torch.zeros((64, 27))
     outs = []
     for seed in (3, 3, 4):

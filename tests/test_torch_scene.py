@@ -98,20 +98,17 @@ def test_ragdoll_tables():
     assert trag.SCALE == jrag.SCALE
 
 
-def _heightfield_on_reference_step(b):
-    """A heightfield scene stepped on the reference step ("jacobi"): the
-    builder and the fused step take heightfields, the reference step not
-    yet."""
-    from dxk_tpu_torch.physics import PhysicsSettings, physics_step
-    b.set_heightfield(np.zeros((4, 4)), 1.0)
-    scene = b.finalize(device="cpu")
-    physics_step(scene, scene.initial_state(1),
-                 PhysicsSettings(solver_mode="jacobi"), 1 / 120)
+def _trigger_volume(b):
+    """A trigger volume (Queue A 8). This case stepped a heightfield scene
+    on the reference step until that was ported;
+    tests/test_torch_scan_terrain.py holds that step against the JAX
+    package now."""
+    b.mark_trigger(b.add_static())
 
 
 @pytest.mark.parametrize("call", [
     lambda b: b.add_cloth(1.0, 1.0, 4, 4, 1.0),
-    _heightfield_on_reference_step,
+    _trigger_volume,
     lambda b: b.finalize(orbit_margin=0.25, device="cpu"),
 ])
 def test_unported_builder_features_raise(call):
@@ -166,7 +163,7 @@ def test_box_stack_scene_arrays_equal(broadphase):
 
 
 def test_initial_state_batch():
-    env = TorchLocoEnv(device="cpu")
+    env = TorchLocoEnv(solver_mode="fused", device="cpu")
     st = env.scene.initial_state(3)
     assert st.pos.shape == (3, 16, 3) and st.rot.shape == (3, 16, 4)
     assert st.pos.dtype == torch.float32
