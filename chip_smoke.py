@@ -24,6 +24,10 @@ checkout and holding each against its plain PyTorch version on the card:
   - bench.py's 1k-box stack (64 towers of 16 boxes, 32 envs) on the
     reference step under each of the three broadphases (table, K-select,
     sort-and-sweep);
+  - the same stack on BASELINE config 1's default path: islandize makes
+    its 64 towers 64 island envs a world, and the fused step steps the
+    32 worlds' 2,048 island envs in one launch; then the engine services
+    (the gym adapter, validate, editor picking) on the card;
   - the JAX package's entry() configuration, the ragdoll locomotion env
     on the reference step in "scan" (sequential impulses, 10 iterations,
     capped narrowphase tables), 4096 envs.
@@ -83,7 +87,7 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
   terrain    the prepped kernel with prep-passed terrain rows vs its plain
              version in both modes (initial, after 60 steps, terrain poses);
              live terrain rows by shape and window and live safety
-             contacts; then 600 steps at each batch: launches, finiteness,
+             contacts; then 300 steps at each batch: launches, finiteness,
              no body's centre deep below the terrain, body-steps/s, host and
              device ms and launches per step, the kernel's times and bound,
              and the fused_seq kernel's times
@@ -107,6 +111,19 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
              across the broadphases, then the box stack stepped in each
              broadphase: launches per step, overflow, agreement with the
              table broadphase, body-steps/s
+  islands    the box stack finalized as bench.py's fused_islands takes it
+             (contact_phases=2, candidate_margin=0.25) and islandized: the
+             fused-step kernel vs its plain version on the 2,048 island
+             envs (initial, after 60 steps); one world's full scene and its
+             islands, scattered back, after 3 "colored" steps (1e-5 on
+             positions, 1e-4 on velocities); 600 fused steps of all island
+             envs: launches, finiteness, the towers standing over the
+             first 120 (top box down less than 0.15 m, no box more than
+             0.25 m sideways; ISLAND_STAND_REASON) and their 600-step values,
+             body-steps/s, host ms, device launches and idle share a step,
+             the kernel's times and bound; then VecLocoEnv(16 envs) steps,
+             validate's stage of a NaN position on the fused step, and
+             SceneSession.pick_nearest_body, all on the card
   scan       the entry() configuration (LocoEnv(solver_mode="scan",
              solver_iterations=10, max_narrow_pairs=32), 4096 envs, zero
              actions, pokes on) stepped after warm steps: env-steps/s,
@@ -123,7 +140,8 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
              at one env (box_stack gated over 25, SCAN_GOLDEN_REASON)
 The line before the last is the card's name and power limit; the line before
 that lists every kernel (the fused step once per phase that runs it: loco,
-train, zoo, settle, shapes, fidelity and terrain, each with the launch plan
+train, zoo, settle, shapes, fidelity, terrain and islands, each with the
+launch plan
 of its timed batch, envs per block and warps per env; then the three
 broadphase kernels, the overlap matrix with the launches of the box stack's
 table path and of the scan phase's entry configuration). The last line is
@@ -785,8 +803,8 @@ def train_phase(seed):
 DEVICE = "cuda"
 BOX_TOWERS, BOX_PER_TOWER = 64, 16        # bench.py _box_towers(1024)
 BOX_BATCH = 32                            # bench.py's on-chip box_batch
-BOX_STEPS = 60
-BOX_WARM = 60
+BOX_STEPS = 15
+BOX_WARM = 15
 BOX_DT = 1.0 / 120.0
 BOX_MODES = ("table", "kselect", "sap")
 BOX_PATH_TOL = 1e-4
@@ -2906,7 +2924,7 @@ def terrain_poses(scene, batch, seed):
 
 TERRAIN_BATCHES = (256, 4096)             # bench.py's on-chip batch; 4096
 TERRAIN_RAGGED = 1000
-TERRAIN_STEPS = 600
+TERRAIN_STEPS = 300
 TERRAIN_WARM = 60
 TERRAIN_PROFILED = 3                      # steps under torch.profiler
 TERRAIN_TAGS = ("sphere", "capsule", "box", "cylinder")
@@ -3266,6 +3284,277 @@ def bigpile_phase(seed):
     if not all(c["live_rows_per_env"] > 0 for k, c in checks.items()
                if "after" in k):
         raise RuntimeError("bigpile: no live contact row after the steps")
+
+
+# ---------------------------------------------------------------------------
+# BASELINE config 1's default path: the 1k-box stack as island envs on the
+# fused step (bench.py's "fused_islands")
+
+ISLAND_PHASES = 2                         # bench.py's tuned box stack
+ISLAND_MARGIN = 0.25
+ISLAND_WARM = 60
+ISLAND_STEPS = 600                        # tests/test_islands.py's horizon
+ISLAND_FULL_STEPS = 3                     # tests/test_islands.py
+ISLAND_POS_TOL = 1e-5
+ISLAND_VEL_TOL = 1e-4
+ISLAND_TOL_REASON = ("tests/test_islands.py's bound between a scene and its "
+                     "islands: the same contacts and joints, their per-body "
+                     "sums in another order")
+ISLAND_TOP_DROP = 0.15                    # tests/test_islands.py's standing
+ISLAND_XZ_MOVE = 0.25                     # tower bounds (bench tuning)
+ISLAND_STAND_GATED = 120                  # steps the bounds are held over
+ISLAND_STAND_REASON = (
+    "the towers lean in the JAX package's own island step too: on the CPU "
+    "its \"fused\" step, 64 towers, has by step 600 a box past 0.25 m "
+    "sideways in all 64 islands and a top box down past 0.15 m in 54 from "
+    "bench.py's spawn, 64 and 51 from this phase's 0.5 mm jitter (the "
+    "port's plain version: 64 and 41, 64 and 57; the median sideways move "
+    "1.27 m and 1.34 m in JAX, 1.23 m and 1.38 m in the port), and no "
+    "island of either package past either bound up to step 175 "
+    "(tools/island_towers_cpu.py); "
+    "tests/test_torch_island_drift.py holds the port's drift against the "
+    "JAX step's; so the bounds are held over the first ISLAND_STAND_GATED "
+    "steps of every island env and the 600-step values are printed")
+ISLAND_PROFILED = 3
+SERVICE_ENVS = 16
+SERVICE_STEPS = 3
+SERVICE_NAN_ENV = 5
+
+
+def island_scene(device=None):
+    """bench.py's 1k-box stack finalized as its fused_islands default
+    takes it: 2 contact phases, candidate margin 0.25."""
+    from dxk_tpu_torch.scene import SceneBuilder
+    return box_towers(SceneBuilder).finalize(
+        contact_phases=ISLAND_PHASES, candidate_margin=ISLAND_MARGIN,
+        device=device or DEVICE)
+
+
+def services_check(sub, state, seed):
+    """The engine services on the card: VecLocoEnv steps, the validate
+    stage of a NaN position on the fused step, editor picking."""
+    from dxk_tpu_torch.envs.gym_adapter import VecLocoEnv
+    from dxk_tpu_torch.physics import PhysicsSettings, physics_step
+    from dxk_tpu_torch.scene.session import SceneSession
+    from dxk_tpu_torch.utils.knn import knn
+    from dxk_tpu_torch.utils.validate import STAGE_ID
+
+    venv = VecLocoEnv(num_envs=SERVICE_ENVS, seed=seed, device=DEVICE)
+    obs = venv.reset()
+    rewards = []
+    for _ in range(SERVICE_STEPS):
+        obs, rew, done, _infos = venv.step(
+            np.zeros((SERVICE_ENVS, 27), np.float32))
+        rewards.append(float(rew.mean()))
+    vec = dict(envs=SERVICE_ENVS, steps=SERVICE_STEPS,
+               solver_mode=venv.env.settings.solver_mode,
+               obs_shape=list(obs.shape), mean_reward_by_step=rewards,
+               finite=bool(np.isfinite(obs).all() and np.isfinite(rewards)
+                           .all()))
+
+    vset = PhysicsSettings(num_rigid_solver_iterations=ITERATIONS,
+                           solver_mode="fused", validate=True)
+    clean = physics_step(sub, state, vset, BOX_DT)[1].validate_stage
+    pos = state.pos.clone()
+    pos[SERVICE_NAN_ENV, 0, 1] = float("nan")
+    bad = physics_step(sub, state.replace(pos=pos), vset,
+                       BOX_DT)[1].validate_stage
+    want = torch.full_like(bad, -1)
+    want[SERVICE_NAN_ENV] = STAGE_ID["world_colliders"]
+    validate = dict(device=str(bad.device), dtype=str(bad.dtype),
+                    clean_all_minus_one=bool((clean == -1).all()),
+                    nan_env=SERVICE_NAN_ENV,
+                    nan_env_stage=int(bad[SERVICE_NAN_ENV]),
+                    as_expected=bool(torch.equal(bad, want)))
+
+    sess = SceneSession(sub, lambda s: s, state)
+    point = state.pos[0, 0].tolist()
+    idx, sq = sess.pick_nearest_body((point[0] + 0.05, point[1], point[2]))
+    cpu_idx, _sq = knn(state.pos.cpu(), torch.tensor(
+        [[point[0] + 0.05, point[1], point[2]]]).expand(
+            state.pos.shape[0], 1, 3), 1)
+    pick = dict(device=str(idx.device), env0_index=int(idx[0, 0]),
+                env0_sq_dist=float(sq[0, 0]),
+                equal_to_cpu=bool(torch.equal(idx.cpu(), cpu_idx[:, 0])))
+    out = dict(vec_env=vec, validate=validate, pick=pick)
+    if not (vec["finite"] and validate["clean_all_minus_one"]
+            and validate["as_expected"] and pick["env0_index"] == 0
+            and pick["equal_to_cpu"] and idx.device.type == "cuda"
+            and bad.device.type == "cuda"):
+        raise RuntimeError(f"services check failed: {out}")
+    return out
+
+
+def islands_phase(seed, smi):
+    """BASELINE config 1 on its default path: islandize turns the 64 towers
+    into 64 identical 16-box sub-scenes, gather puts BOX_BATCH worlds of them
+    on the batch axis (2,048 envs of 17 bodies) and one fused-kernel launch
+    steps them all. The kernel vs its plain version on the island states;
+    the full scene and its islands scattered back agreeing on "colored"
+    steps; the main path over ISLAND_STEPS steps with the standing-tower
+    invariant; then the services check."""
+    from dxk_tpu_torch.ops.kernels import broadphase_kernel as bk
+    from dxk_tpu_torch.ops.kernels import fused_step as fs
+    from dxk_tpu_torch.ops.kernels import kselect_broadphase as ks
+    from dxk_tpu_torch.ops.kernels import sap_broadphase as sp
+    from dxk_tpu_torch.physics import PhysicsSettings, physics_step
+    from dxk_tpu_torch.scene.islands import islandize
+
+    t_phase = time.perf_counter()
+    counters = {"fused_step": fs, "aabb_overlap_matrix": bk,
+                "kselect_broadphase": ks, "sap_broadphase": sp}
+    scene = island_scene()
+    t0 = time.perf_counter()
+    im = islandize(scene)
+    islandize_s = time.perf_counter() - t0
+    sub = im.sub_scene
+    tab = fs.fused_tables(sub, DEVICE)
+    settings = PhysicsSettings(num_rigid_solver_iterations=ITERATIONS,
+                               solver_mode="fused")
+    full0 = box_initial_state(scene, seed)
+    isl0 = im.gather(full0)
+    B = isl0.pos.shape[0]
+    top = sub.num_bodies - 1              # an island's top box
+    boxes = scene.num_bodies - 1          # body 0 owns the ground
+
+    # ---- kernel vs plain version on the island states
+    st = isl0
+    for _ in range(ISLAND_WARM):
+        st = physics_step(sub, st, settings, BOX_DT)[0]
+    checks = {}
+    for where, state in (("initial", isl0), (f"after_{ISLAND_WARM}_steps",
+                                             st)):
+        checks[where] = compare_kernel(sub, state, B, BOX_DT)[0]
+        hold_fused(checks[where])
+
+    # ---- islands are exact: one world, the full scene and its islands
+    colored = PhysicsSettings(num_rigid_solver_iterations=ITERATIONS,
+                              solver_mode="colored")
+    one = _sub_state(full0, lambda x: x[:1].contiguous())
+    full, isl = one, im.gather(one)
+    for _ in range(ISLAND_FULL_STEPS):
+        full = physics_step(scene, full, colored, BOX_DT)[0]
+        isl = physics_step(sub, isl, colored, BOX_DT)[0]
+    back = im.scatter(isl, one)
+    exact = dict(
+        worlds=1, steps=ISLAND_FULL_STEPS, mode="colored",
+        err_pos=float((back.pos - full.pos).abs().max()),
+        err_vel=float((back.lin_vel - full.lin_vel).abs().max()),
+        err_ang_vel=float((back.ang_vel - full.ang_vel).abs().max()),
+        moved_by=float((full.pos - one.pos).abs().max()))
+
+    # ---- the main path, counts from zero just before it
+    def standing(s):
+        """Each island env's top-box fall and largest sideways box move."""
+        return (isl0.pos[:, top, 1] - s.pos[:, top, 1],
+                (s.pos - isl0.pos)[:, :sub.num_bodies][..., [0, 2]].abs()
+                .amax(dim=(1, 2)))
+
+    def finite(s):
+        return bool(torch.isfinite(s.pos).all()
+                    & torch.isfinite(s.lin_vel).all())
+
+    # the timed loop steps and nothing else: the state after
+    # ISLAND_STAND_GATED steps is kept, and both are checked after it
+    st, at_gate = isl0, None
+    for mod in counters.values():
+        mod.reset_launch_count()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(ISLAND_STEPS):
+        st = physics_step(sub, st, settings, BOX_DT)[0]
+        if i + 1 == ISLAND_STAND_GATED:
+            at_gate = st
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {n: mod.launch_count() for n, mod in counters.items()}
+    launches["fused_step.base"] = fs.launch_count("base")
+    gated, (drop, xz) = standing(at_gate), standing(st)
+    holder = [st]
+
+    def step():
+        holder[0] = physics_step(sub, holder[0], settings, BOX_DT)[0]
+    prof = profile_steps(step, ISLAND_PROFILED)
+    host_ms = secs / ISLAND_STEPS * 1e3
+    run = dict(
+        steps=ISLAND_STEPS, seconds=secs,
+        body_steps_per_s=boxes * BOX_BATCH * ISLAND_STEPS / secs,
+        ms_per_step=host_ms, launches=launches,
+        finite=finite(at_gate) and finite(st),
+        gated_steps=ISLAND_STAND_GATED,
+        gated_top_box_drop_max_m=float(gated[0].max()),
+        gated_top_box_drop_median_m=float(gated[0].median()),
+        gated_max_xz_move_m=float(gated[1].max()),
+        gated_median_xz_move_m=float(gated[1].median()),
+        top_box_drop_max_m=float(drop.max()),
+        top_box_drop_median_m=float(drop.median()),
+        max_xz_move_m=float(xz.max()),
+        median_xz_move_m=float(xz.median()),
+        envs_past_drop_bound=int((drop >= ISLAND_TOP_DROP).sum()),
+        envs_past_xz_bound=int((xz >= ISLAND_XZ_MOVE).sum()),
+        scatter_back_finite=bool(torch.isfinite(
+            im.scatter(st, full0).pos).all()),
+        **{k: v for k, v in prof.items()},
+        device_idle_share=1.0 - prof["device_busy_ms_per_step"] / host_ms)
+
+    # ---- the kernel at B on the state after the run
+    inputs = kernel_inputs(sub, st, BOX_DT)
+    bodies, wcol, ctl, inv_dt, passed = inputs
+    solver = fs.make_fused_step_solver(sub, ITERATIONS, 1.0)
+    for _ in range(3):
+        out = solver(*inputs)
+    klive = out[3]
+
+    def run_plain():
+        return fs._fused_core(
+            tab, ITERATIONS, 1.0, inv_dt, torch.cat([bodies.v, bodies.w], -1),
+            bodies.inv_mass, bodies.inv_inertia, bodies.pos_cog, bodies.rot,
+            ctl, wcol.a, wcol.b, wcol.rot, passed=passed)
+    b_ms, b_by, b_detail = bound_ms(tab, klive, B)
+    timing = dict(batch=B, ms=time_ms(lambda: solver(*inputs), 20),
+                  plain_ms=time_ms(run_plain, 2), bound_ms=b_ms,
+                  bound_by=b_by, bound_detail=b_detail,
+                  live_rows_per_env=float((klive != 0).sum()) / B)
+    services = services_check(sub, st, seed)
+    emit("islands", device=smi, worlds=BOX_BATCH, boxes=boxes,
+         islands=im.num_islands, island_bodies=sub.num_bodies,
+         kernel_envs=B, colliders_per_island=tab.num_colliders,
+         pair_rows_per_island=tab.num_rows, contact_phases=tab.num_phases,
+         iterations=ITERATIONS, dt=BOX_DT, islandize_s=islandize_s,
+         plans=plans_by_batch(tab, (B, im.num_islands)), tolerance=KERNEL_TOL,
+         tolerance_reason=TOL_REASON, checks=checks,
+         full_vs_islands=exact, full_vs_islands_tol=dict(
+             pos=ISLAND_POS_TOL, vel=ISLAND_VEL_TOL,
+             reason=ISLAND_TOL_REASON),
+         standing_tol=dict(top_box_drop_m=ISLAND_TOP_DROP,
+                           xz_move_m=ISLAND_XZ_MOVE,
+                           gated_steps=ISLAND_STAND_GATED,
+                           reason=ISLAND_STAND_REASON),
+         run=run, kernel=timing, services=services,
+         seconds=time.perf_counter() - t_phase)
+    if not (exact["err_pos"] <= ISLAND_POS_TOL
+            and exact["err_vel"] <= ISLAND_VEL_TOL and exact["moved_by"] > 0):
+        raise RuntimeError(f"islands: the full scene and its islands "
+                           f"disagree: {exact}")
+    want = {n: (ISLAND_STEPS if n == "fused_step" else 0) for n in counters}
+    want["fused_step.base"] = ISLAND_STEPS
+    if launches != want or not run["finite"] or not run["scatter_back_finite"]:
+        raise RuntimeError(f"islands: launches {launches} (expected {want}), "
+                           f"finite {run['finite']}")
+    if not (run["gated_top_box_drop_max_m"] < ISLAND_TOP_DROP
+            and run["gated_max_xz_move_m"] < ISLAND_XZ_MOVE):
+        raise RuntimeError(f"islands: a tower fell within "
+                           f"{ISLAND_STAND_GATED} steps: {run}")
+    return {
+        "name": "fused_step_islands", "route": "cuda",
+        "source": "dxk_tpu_torch/ops/kernels/csrc/fused_step.cu",
+        "replaces": "dxk_tpu/ops/pallas/fused_step.py:1177",
+        "launches": launches["fused_step"],
+        "max_abs_err": max(c[k] for c in checks.values() for k in (
+            "err_v", "err_w", "err_pos", "err_rot", "err_imp")),
+        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        **plan_fields(tab, B)}
 
 
 # ---------------------------------------------------------------------------
@@ -3666,6 +3955,10 @@ def main():
     # ---- the box stack on the reference step, each broadphase
     box_kernels = box_stack_phase(args.seed + 3)
 
+    # ---- config 1's default path: the box stack as island envs on the
+    # fused step, and the engine services
+    islands_kernel = islands_phase(args.seed + 12, smi)
+
     # ---- the reference step in "scan": the entry() configuration, the
     # other reference modes, the step-1 gate and the fast goldens
     scan_launches, scan_matrix = scan_phase(args.seed + 11)
@@ -3687,7 +3980,7 @@ def main():
         "bound_by": b_by, "library_ms": None,
         **plan_fields(tab, NUM_ENVS)}, train_kernel, zoo_kernel,
         settle_kernel,
-        shapes_kernel, fidelity_kernel, terrain_kernel]
+        shapes_kernel, fidelity_kernel, terrain_kernel, islands_kernel]
         + box_kernels}),
         flush=True)
     print(smi, flush=True)

@@ -8,10 +8,14 @@ dimension where the JAX package used ``vmap``, and every entry point takes a
 Top-level API:
     SceneBuilder      — describe bodies/colliders/joints, finalize() -> Scene
     physics_step      — (Scene, State, PhysicsSettings, dt) -> (State, StepInfo)
-    PhysicsSettings   — solver iterations / mode (``"fused"``; ``"jacobi"``
-                        and ``"colored"`` on the reference step)
+    PhysicsSettings   — solver iterations / mode (``"scan"`` by default,
+                        ``"jacobi"`` and ``"colored"`` on the reference
+                        step; ``"fused"`` and ``"fused_seq"`` on the fused
+                        kernel)
     apply_ray_impulse — poke interaction
     LocoEnv           — batched ragdoll locomotion environment
+    islandize         — decompose a scene of identical sub-structures into
+                        island envs on the batch axis (scene/islands.py)
 """
 
 __version__ = "0.1.0"
@@ -25,4 +29,7 @@ def __getattr__(name):
     if name == "LocoEnv":
         from dxk_tpu_torch.envs.loco_env import LocoEnv
         return LocoEnv
+    if name == "islandize":
+        from dxk_tpu_torch.scene.islands import islandize
+        return islandize
     raise AttributeError(name)

@@ -38,12 +38,16 @@ from dxk_tpu_torch.scene.scene import (SHAPE_BOX, SHAPE_CAPSULE,
 
 @dataclass(frozen=True)
 class PhysicsSettings:
-    """Solver settings (the fields of the JAX package's PhysicsSettings
-    that the ported path reads)."""
+    """Solver settings: the rigid-body fields of the JAX package's
+    PhysicsSettings, with its defaults. `solver_mode` is "scan" (sequential
+    impulses), "jacobi", "colored", "fused" or "fused_seq"; `validate`
+    reports the first pipeline stage with a non-finite value in
+    StepInfo.validate_stage (utils/validate.py)."""
 
     num_rigid_solver_iterations: int = 30
-    solver_mode: str = "fused"
+    solver_mode: str = "scan"
     sor_omega: float = 1.0
+    validate: bool = False
     joint_prep_in_kernel: bool = True
 
 
@@ -72,11 +76,15 @@ def physics_step(scene: Scene, state: State, settings: PhysicsSettings,
     if scene.overlap_pairs is not None and scene.overlap_pairs.shape[0] > 0:
         raise NotImplementedError(
             "trigger / force-field overlaps are not ported yet")
+    tracker = None
+    if settings.validate:
+        from dxk_tpu_torch.utils.validate import StageTracker
+        tracker = StageTracker(state.pos.shape[0], state.pos.device)
     if settings.solver_mode in ("fused", "fused_seq"):
         from dxk_tpu_torch.ops.kernels.fused_step import fused2_eligible
         if fused2_eligible(scene):
-            return _physics_step_fused(scene, state, settings, dt)
-    return _physics_step_reference(scene, state, settings, dt)
+            return _physics_step_fused(scene, state, settings, dt, tracker)
+    return _physics_step_reference(scene, state, settings, dt, tracker)
 
 
 def _hull_tables(hulls, hid):
@@ -158,10 +166,11 @@ def reference_preps(scene, bodies, controls, dt32, contacts=None):
         prep_joints(scene, bodies, controls, dt32))))
 
 
-def _physics_step_reference(scene, state, settings, dt):
+def _physics_step_reference(scene, state, settings, dt, tracker=None):
     """The reference step: broadphase, narrowphase per type bucket,
     heightfield terrain rows, contact and joint prep and the solve as
-    separate stages."""
+    separate stages. `tracker` (utils/validate.StageTracker or None)
+    checks each stage's output."""
     from dxk_tpu_torch.ops.broadphase import (aabb_overlap_mask,
                                               compact_pairs, is_dense,
                                               kselect_group_pairs)
@@ -192,6 +201,9 @@ def _physics_step_reference(scene, state, settings, dt):
     # 1-2: colliders -> AABBs -> candidate overlaps
     w = world_colliders(scene, state.pos, state.rot)
     mn, mx = collider_aabbs(scene, w)
+    if tracker is not None:
+        tracker.check("world_colliders", w)
+        tracker.check("aabbs", (mn, mx))
 
     # groups in ascending contact-phase order, so the concatenated contact
     # rows are phase-contiguous for the solver's phase slices
@@ -305,6 +317,8 @@ def _physics_step_reference(scene, state, settings, dt):
                 cpairs.append(torch.full((B, hf[0].shape[1], 2), -1,
                                          dtype=cpairs[0].dtype, device=dev))
             contact_pairs = torch.cat(cpairs, dim=1)
+        if tracker is not None:
+            tracker.check("contacts", (pts, nrm, dps))
         prepped_contacts = prep_contacts(bodies, body_a, body_b, pts, nrm,
                                          dps, fric, rest,
                                          cmask.to(pts.dtype), dt32,
@@ -313,12 +327,19 @@ def _physics_step_reference(scene, state, settings, dt):
     # 5: constraint prep + solve
     prepped = reference_preps(scene, bodies, controls, dt32,
                               prepped_contacts)
+    if tracker is not None:
+        tracker.check("body_velocities", (bodies.v, bodies.w))
+        tracker.check("constraint_prep", prepped)
     bodies, contact_imp_n = solve_constraints(
         bodies, prepped, settings.num_rigid_solver_iterations, mode,
         settings.sor_omega)
+    if tracker is not None:
+        tracker.check("solved_velocities", (bodies.v, bodies.w))
 
     # 6: integrate velocities
     new_state = integrate_velocities(scene, bodies, state, dt32)
+    if tracker is not None:
+        tracker.check("integrated_state", (new_state.pos, new_state.rot))
 
     info = StepInfo(
         num_broadphase_overlaps=num_overlaps,
@@ -329,7 +350,7 @@ def _physics_step_reference(scene, state, settings, dt):
         contact_mask=contact_mask,
         contact_impulse=(torch.sum(contact_imp_n, dim=-1)
                          if contact_imp_n is not None else None),
-        validate_stage=None,
+        validate_stage=tracker.first_bad() if tracker is not None else None,
     )
     return new_state, info
 
@@ -366,7 +387,7 @@ def terrain_inputs(scene, w, bodies, dt32):
                          hcm.to(hpts.dtype), dt32)
 
 
-def _physics_step_fused(scene, state, settings, dt):
+def _physics_step_fused(scene, state, settings, dt, tracker=None):
     """Fused-pipeline step: everything between force integration and
     velocity integration runs inside the fused-step kernel. The sequential
     solve (``"fused_seq"``) always takes joint rows prepared outside the
@@ -383,10 +404,15 @@ def _physics_step_fused(scene, state, settings, dt):
     jp_in_kernel = settings.joint_prep_in_kernel and not sequential
 
     w = world_colliders(scene, state.pos, state.rot)
+    if tracker is not None:
+        tracker.check("world_colliders", w)
+        tracker.check("aabbs", collider_aabbs(scene, w))
     bodies = integrate_forces(scene, state, float(dt32))
     joints = joint_inputs(scene, bodies, controls, dt32, jp_in_kernel)
 
     passed = terrain_inputs(scene, w, bodies, dt32)
+    if tracker is not None:
+        tracker.check("body_velocities", (bodies.v, bodies.w))
 
     fused = make_fused_step_solver(
         scene, settings.num_rigid_solver_iterations, settings.sor_omega,
@@ -396,8 +422,12 @@ def _physics_step_fused(scene, state, settings, dt):
                                             passed)
     live = point_mask != 0
     bodies = bodies.replace(v=v_new, w=w_new)
+    if tracker is not None:
+        tracker.check("solved_velocities", (bodies.v, bodies.w))
 
     new_state = integrate_velocities(scene, bodies, state, float(dt32))
+    if tracker is not None:
+        tracker.check("integrated_state", (new_state.pos, new_state.rot))
 
     order = sorted(range(len(scene.pair_groups)),
                    key=lambda gi: scene.pair_groups[gi].phase)
@@ -417,7 +447,7 @@ def _physics_step_fused(scene, state, settings, dt):
         contact_pairs=contact_pairs,
         contact_mask=live,
         contact_impulse=torch.sum(imp_n, dim=-1),
-        validate_stage=None,
+        validate_stage=tracker.first_bad() if tracker is not None else None,
     )
     return new_state, info
 

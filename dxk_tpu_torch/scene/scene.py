@@ -50,24 +50,29 @@ def resolve_device(device) -> torch.device:
 
 
 class _Struct:
-    """Mixin: `replace` (like flax.struct) and `to(device)` over tensor
-    fields, recursing into nested structs and tuples of structs."""
+    """Mixin: `replace` (like flax.struct), and `map_tensors(fn)` and
+    `to(device)` over tensor fields, recursing into nested structs and
+    tuples of structs."""
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
 
-    def to(self, device):
+    def map_tensors(self, fn):
+        """A copy with `fn` applied to every tensor, in field order."""
         def move(x):
             if isinstance(x, torch.Tensor):
-                return x.to(device)
+                return fn(x)
             if isinstance(x, _Struct):
-                return x.to(device)
+                return x.map_tensors(fn)
             if isinstance(x, tuple):
                 return tuple(move(y) for y in x)
             return x
         return dataclasses.replace(self, **{
             f.name: move(getattr(self, f.name))
             for f in dataclasses.fields(self)})
+
+    def to(self, device):
+        return self.map_tensors(lambda x: x.to(device))
 
 
 @dataclass

@@ -135,7 +135,8 @@ def stepped(envs, states):
     jinfo = jax.tree_util.tree_map(lambda a: a[:B], jinfo)
     tst, tinfo = physics_step(
         tenv.scene, state_from_numpy(states, device="cpu"),
-        PhysicsSettings(num_rigid_solver_iterations=ITERS), DT)
+        PhysicsSettings(num_rigid_solver_iterations=ITERS,
+                        solver_mode="fused"), DT)
     return jst, jinfo, tst, tinfo
 
 
@@ -209,7 +210,8 @@ def test_ragged_batch_and_single_env(envs, states):
     """The plain version has no batch padding: env i of a batch equals the
     same env stepped alone, bit for bit."""
     _jenv, tenv = envs
-    settings = PhysicsSettings(num_rigid_solver_iterations=3)
+    settings = PhysicsSettings(num_rigid_solver_iterations=3,
+                               solver_mode="fused")
     full, _ = physics_step(tenv.scene, state_from_numpy(states, "cpu"),
                            settings, DT)
     one = {k: (v[2:3] if k != "controls"

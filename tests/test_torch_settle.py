@@ -161,7 +161,8 @@ def _trajectory(name, state, steps):
                           for k in FIELDS})
     tst = state_from_numpy({k: getattr(state, k).numpy() for k in FIELDS}
                            | {"controls": None}, device="cpu")
-    tsettings = PhysicsSettings(num_rigid_solver_iterations=ITERS)
+    tsettings = PhysicsSettings(num_rigid_solver_iterations=ITERS,
+                                solver_mode="fused")
     out = []
     for _ in range(steps):
         # op by op, as tests/test_torch_shapes.py runs its JAX steps: a

@@ -561,7 +561,8 @@ def _trajectory(name, state, steps):
         **{k: jnp.asarray(getattr(state, k)[0].numpy()) for k in FIELDS})
     tst = state_from_numpy({k: getattr(state, k).numpy() for k in FIELDS}
                            | {"controls": None}, device="cpu")
-    tsettings = PhysicsSettings(num_rigid_solver_iterations=ITERS)
+    tsettings = PhysicsSettings(num_rigid_solver_iterations=ITERS,
+                                solver_mode="fused")
     out = []
     for _ in range(steps):
         # op by op: the same values as the default eager path (each jnp call

@@ -334,7 +334,8 @@ def small_state(state):
     _jscene, tscene = scenes("small")
     st = tscene.initial_state(1)
     if state == "warm":
-        s = PhysicsSettings(num_rigid_solver_iterations=10)
+        s = PhysicsSettings(num_rigid_solver_iterations=10,
+                            solver_mode="fused")
         for _ in range(SMALL_WARM):
             st, _info = physics_step(tscene, st, s, DT)
     return _fields(st)

@@ -335,7 +335,8 @@ def trajectories(zoo_states):
         **{k: jnp.asarray(v) for k, v in zoo_states.items()
            if k != "controls"})
     tst = state_from_numpy(zoo_states, device="cpu")
-    tsettings = PhysicsSettings(num_rigid_solver_iterations=ITERS)
+    tsettings = PhysicsSettings(num_rigid_solver_iterations=ITERS,
+                                solver_mode="fused")
     out = []
     for _ in range(3):
         jst = jstep(jst)
