@@ -20,6 +20,9 @@ checkout and holding each against its plain PyTorch version on the card:
   - BASELINE config 4's heightfield terrain under config 3's ragdoll and
     four pieces of shape debris, 256 and 4096 envs, on the fused step with
     the terrain rows prepared outside the kernel and passed in;
+  - the same scene with config 4's 12 x 12 cloth and a second, thick one
+    that falls on the ragdoll and the terrain (config 4 without its
+    vehicle), 128 and 4096 envs, "colored" cloth with two-way coupling;
   - a 1,081-row pile of 46 boxes, 256 and 1000 envs, on the fused step;
   - bench.py's 1k-box stack (64 towers of 16 boxes, 32 envs) on the
     reference step under each of the three broadphases (table, K-select,
@@ -91,6 +94,18 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
              no body's centre deep below the terrain, body-steps/s, host and
              device ms and launches per step, the kernel's times and bound,
              and the fused_seq kernel's times
+  cloth      the prepped kernel vs its plain version on the cloth scene
+             (128 and a ragged 1000 envs, initial and after 60 steps); the
+             cloth step on the card against the CPU over 5 steps at 8 envs,
+             "colored" and "scan"; the particle SDF and push-out against the
+             CPU on seeded particles around a sphere, capsule, cylinder, box
+             and hull and over the terrain; the cloth substep's launches in
+             each mode; then 60 warm steps and 300 (128 envs) or 150 (4096)
+             steps of the main path: launches, finiteness, pinned rows
+             bit-unchanged, median stretch, particle hits by kind (ragdoll,
+             debris, terrain), depth inside the shells, env-, body- and
+             particle-steps/s, host and device ms and launches a step, peak
+             memory, the kernel's times and bound
   bigpile    the fused-step kernel vs plain version on a 1,081-row box pile
              (46 boxes on a ground box, all pairs; more shared memory than
              a block holds in the one-env-per-block layout) at 256 and a
@@ -140,7 +155,7 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
              at one env (box_stack gated over 25, SCAN_GOLDEN_REASON)
 The line before the last is the card's name and power limit; the line before
 that lists every kernel (the fused step once per phase that runs it: loco,
-train, zoo, settle, shapes, fidelity, terrain and islands, each with the
+train, zoo, settle, shapes, fidelity, terrain, cloth and islands, each with the
 launch plan
 of its timed batch, envs per block and warps per env; then the three
 broadphase kernels, the overlap matrix with the launches of the box stack's
@@ -3189,6 +3204,643 @@ def terrain_phase(seed):
 
 
 # ---------------------------------------------------------------------------
+# cloth: BASELINE config 4's sheet, and a thick one on the ragdoll and terrain
+
+CLOTH_SHEET = dict(width=2.0, height=2.0, grid_x=12, grid_y=12,
+                   total_mass=1.0)                 # bench.py:386-387
+CLOTH_A_POS = (6.0, 3.0, 0.0)                      # bench.py:387, thickness 0
+CLOTH_B_POS = (0.0, 2.0, 1.0)                      # pinned beside the ragdoll
+CLOTH_B_ROT = (0.0, 1.0, 0.0, 0.0)                 # turned to reach +z
+CLOTH_B_THICKNESS = 0.05
+
+
+def cloth_builder(builder, add_ragdoll=None):
+    """BASELINE config 4 without its vehicle: terrain_builder's terrain,
+    ragdoll and debris, config 4's 12 x 12 sheet as bench.py:386-387 adds
+    it (cloth A, no thickness), and the same sheet with a 0.05 m thickness
+    (cloth B) pinned along x at CLOTH_B_POS, 2 m up and 0.9 m in front of
+    the ragdoll, lying flat away from it: it swings down like a pendulum,
+    its free edge reaches the terrain and sweeps through the falling
+    ragdoll."""
+    b = terrain_builder(builder, add_ragdoll)
+    b.add_cloth(**CLOTH_SHEET, transform_pos=CLOTH_A_POS)
+    b.add_cloth(**CLOTH_SHEET, transform_pos=CLOTH_B_POS,
+                transform_rot=CLOTH_B_ROT, thickness=CLOTH_B_THICKNESS)
+    return b
+
+
+def cloth_scene(device=DEVICE):
+    from dxk_tpu_torch.models.ragdoll import add_ragdoll
+    from dxk_tpu_torch.scene import SceneBuilder
+    return cloth_builder(SceneBuilder, add_ragdoll).finalize(device=device)
+
+
+CLOTH_BATCHES = (128, 4096)               # bench.py:794's on-chip batch; 4096
+CLOTH_STEPS = (300, 150)                  # steps of the main path, per batch
+CLOTH_RAGGED = 1000
+CLOTH_WARM = 60
+CLOTH_DT = 1.0 / 120.0
+CLOTH_MODE = "colored"                    # bench.py:393-395
+CLOTH_EVERY = 25                          # steps between contact reads
+CLOTH_HIT_MARGIN = 0.005                  # m outside its shell: a hit
+CLOTH_STRETCH_TOL = 0.15                  # tests/test_cloth.py:47
+CLOTH_DEPTH_TOL = 0.02                    # tests/test_cloth.py:146
+CLOTH_DEPTH_REASON = (
+    "the thick sheet's depth inside the surfaces at the end of each run is "
+    "reported by the kind of the deepest surface, not gated: the push-out "
+    "(collide_particles, as in the JAX package) moves a particle out of its "
+    "deepest surface only, so a particle between a limb sunk into the "
+    "terrain (up to 0.128 m, sink_reason of the terrain line) and the "
+    "terrain, or in the overlap of two limbs at a joint, stays inside the "
+    "other (`trapped`), and a limb moves up to ~2 cm into the sheet in the "
+    "step after its push-out; tests/test_cloth.py's bound is held where the "
+    "push-out guarantees it, on that test's drape scene on the card "
+    "(`drape`: a static sphere, 128 envs x 600 steps)")
+CLOTH_PROFILED = 3
+CLOTH_CPU_ENVS = 8
+CLOTH_CPU_STEPS = 5
+CLOTH_CPU_TOL = 1e-4
+CLOTH_CPU_REASON = (
+    "the cloth step on the card against the same code on the CPU from the "
+    "same inputs (the state after the warm-up, the colliders and bodies of "
+    "its next step copied over), each field after 5 steps held relative to "
+    "max(1, its largest value): the wind's per-vertex sums and the two-way "
+    "per-body sums are index_add_ / scatter_add_ atomics over repeated "
+    "indices on the card, in no fixed order, and the card's reductions over "
+    "3 components may round in another order; a position difference of an "
+    "ulp (2.4e-7 at 3 m) is 120 times that in the velocity, (pos - prev) / "
+    "dt")
+CLOTH_SDF_TOL = 1e-5
+CLOTH_SDF_REASON = (
+    "the same elementwise float32 operations on both devices (sqrt and "
+    "division correctly rounded on both), reductions over 3 components "
+    "perhaps in another order; per-body impulse sums by scatter_add_ atomics "
+    "on the card; each field held relative to max(1, its largest value)")
+
+
+def cloth_kinds(scene):
+    """Each collider's kind for the hit counts, (C,) int64 on the scene's
+    device: 0 a ragdoll collider, 1 debris (the last TERRAIN_DEBRIS bodies
+    of terrain_builder); the terrain is kind 2."""
+    n_rag = scene.num_bodies - len(TERRAIN_DEBRIS)
+    return (scene.colliders.body.long() >= n_rag).long()
+
+
+CLOTH_KIND_NAMES = ("ragdoll", "debris", "terrain")
+
+
+def cloth_contacts(scene, state, kinds):
+    """For the free particles with a thickness, their deepest surface as
+    ops/cloth.collide_particles picks it (the deepest collider, or the
+    terrain where deeper) on `state`'s colliders: hits (B, 3) int64, each
+    env's particles within CLOTH_HIT_MARGIN of their shell by the surface's
+    kind (cloth_kinds), and the deepest particle's depth inside its shell
+    (m), both on the device."""
+    from dxk_tpu_torch.ops.cloth import _particle_collider_sdf
+    from dxk_tpu_torch.ops.heightmap import height_at
+    from dxk_tpu_torch.ops.shapes import world_colliders
+    cl = scene.cloth
+    p = state.cloth.positions
+    w = world_colliders(scene, state.pos, state.rot)
+    sd, _n = _particle_collider_sdf(w, scene.hulls, p, cl.collider_groups)
+    depth, ci = torch.max(cl.thickness - sd, dim=1)
+    hdep = cl.thickness - (p[..., 1] - height_at(scene.heightfield,
+                                                 p[..., 0], p[..., 2]))
+    use_h = hdep > depth
+    depth = torch.where(use_h, hdep, depth)
+    kind = torch.where(use_h, 2, kinds[ci])
+    thick = (cl.thickness > 0.0) & (cl.inv_masses > 0.0)
+    hit = (depth > -CLOTH_HIT_MARGIN) & thick
+    hits = torch.stack([(hit & (kind == k)).sum(1) for k in range(3)], -1)
+    return hits, depth[:, thick].max()
+
+
+def cloth_depth_report(scene, state, kinds):
+    """The thick sheet's free particles inside their shells at `state`, by
+    the kind of their deepest surface (cloth_kinds): the deepest depth (m)
+    and the particles deeper than CLOTH_DEPTH_TOL; and the particles inside
+    two surfaces at once (`trapped`: between a limb and the terrain, or in
+    the overlap of two limbs at a joint), of which `trapped_deep` are
+    deeper than CLOTH_DEPTH_TOL. The push-out moves a particle out of its
+    deepest surface only, in both packages."""
+    from dxk_tpu_torch.ops.cloth import _particle_collider_sdf
+    from dxk_tpu_torch.ops.heightmap import height_at
+    from dxk_tpu_torch.ops.shapes import world_colliders
+    cl = scene.cloth
+    thick = (cl.thickness > 0.0) & (cl.inv_masses > 0.0)
+    p = state.cloth.positions[:, thick]
+    th = cl.thickness[thick]
+    w = world_colliders(scene, state.pos, state.rot)
+    sd, _n = _particle_collider_sdf(w, scene.hulls, p, cl.collider_groups)
+    dep = th - sd                                         # (B, C, P')
+    hdep = th - (p[..., 1] - height_at(scene.heightfield, p[..., 0],
+                                       p[..., 2]))
+    depth, ci = torch.max(dep, dim=1)
+    use_h = hdep > depth
+    depth = torch.where(use_h, hdep, depth)
+    kind = torch.where(use_h, 2, kinds[ci])
+    inside = (dep > 0.0).sum(1) + (hdep > 0.0).long()
+    trapped = inside >= 2
+    deep = depth > CLOTH_DEPTH_TOL
+    out = dict(trapped=int(trapped.sum()),
+               trapped_deep=int((trapped & deep).sum()))
+    for k, name in enumerate(CLOTH_KIND_NAMES):
+        m = kind == k
+        out[name] = dict(
+            deepest_m=float(torch.where(m, depth, -float("inf")).max()),
+            deeper_than_tol=int((m & deep).sum()))
+    return out
+
+
+def cloth_drape_builder(builder, thickness=CLOTH_B_THICKNESS):
+    """tests/test_cloth.py:108-116: a 0.8 m static sphere at (0, 1.5, 0)
+    under an 8 x 8 sheet with a thickness, pinned at (0, 3, 0)."""
+    b = builder()
+    g = b.add_static(position=(0.0, 1.5, 0.0))
+    b.add_sphere_collider(g, (0, 0, 0), 0.8)
+    b.add_cloth(width=2.0, height=2.0, grid_x=8, grid_y=8, total_mass=1.0,
+                transform_pos=(0, 3, 0), thickness=thickness)
+    return b
+
+
+CLOTH_DRAPE_ENVS = 128
+CLOTH_DRAPE_STEPS = 600                   # tests/test_cloth.py:118's horizon
+CLOTH_DRAPE_BOUND = 0.8 + 0.05 - 0.02     # tests/test_cloth.py:146
+
+
+def cloth_drape_check(seed):
+    """tests/test_cloth.py::test_drapes_on_sphere on the card: the sheet's
+    free particles never come nearer the sphere's centre than its radius
+    plus the thickness less 0.02 m, read every 10th step over
+    CLOTH_DRAPE_STEPS "colored" steps of CLOTH_DRAPE_ENVS envs (their
+    particle velocities given a seeded 0.01 m/s noise so that they
+    differ)."""
+    from dxk_tpu_torch.physics import PhysicsSettings, physics_step
+    from dxk_tpu_torch.scene import SceneBuilder
+    scene = cloth_drape_builder(SceneBuilder).finalize(device=DEVICE)
+    st = scene.initial_state(CLOTH_DRAPE_ENVS)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    st = st.replace(cloth=st.cloth.replace(velocities=torch.randn(
+        st.cloth.velocities.shape, generator=gen, device=DEVICE) * 0.01))
+    free = scene.cloth.inv_masses > 0.0
+    centre = torch.tensor([0.0, 1.5, 0.0], device=DEVICE)
+    settings = PhysicsSettings(cloth_solver_mode=CLOTH_MODE)
+    dmin = torch.full((), float("inf"), device=DEVICE)
+    finite = torch.ones((), dtype=torch.bool, device=DEVICE)
+    t0 = time.perf_counter()
+    for i in range(CLOTH_DRAPE_STEPS):
+        st = physics_step(scene, st, settings, CLOTH_DT)[0]
+        if i % 10 == 0:
+            p = st.cloth.positions[:, free]
+            finite &= torch.isfinite(p).all()
+            dmin = torch.minimum(dmin, torch.linalg.vector_norm(
+                p - centre, dim=-1).min())
+    return dict(envs=CLOTH_DRAPE_ENVS, steps=CLOTH_DRAPE_STEPS,
+                min_distance_m=float(dmin), bound_m=CLOTH_DRAPE_BOUND,
+                finite=bool(finite), seconds=time.perf_counter() - t0)
+
+
+def cloth_stretch(scene, state):
+    """Per cloth, the largest over envs of the median relative stretch
+    |length - rest| / rest of its constraints (tests/test_cloth.py:37-47)."""
+    cl = scene.cloth
+    cons = cl.constraints.long()
+    p = state.cloth.positions
+    cur = torch.linalg.vector_norm(p[:, cons[:, 0]] - p[:, cons[:, 1]],
+                                   dim=-1)
+    rel = (cur - cl.rest_lengths).abs() / torch.clamp(cl.rest_lengths,
+                                                       min=1e-6)
+    offs = [g[2] for g in cl.grids] + [cl.inv_masses.shape[0]]
+    first = cl.constraints[:, 0].cpu().numpy()
+    out = []
+    for lo, hi in zip(offs[:-1], offs[1:]):
+        k = np.flatnonzero((first >= lo) & (first < hi))
+        out.append(float(rel[:, torch.from_numpy(k).to(p.device)]
+                         .median(dim=1).values.max()))
+    return out
+
+
+def cloth_finite(state):
+    """Every field of the state, cloth included, finite (on the device)."""
+    ok = torch.ones((), dtype=torch.bool, device=state.pos.device)
+    for x in (state.pos, state.rot, state.lin_vel, state.ang_vel,
+              state.cloth.positions, state.cloth.prev_positions,
+              state.cloth.velocities):
+        ok &= torch.isfinite(x).all()
+    return ok
+
+
+def cloth_pinned_equal(scene, state):
+    """The pinned particles (inverse mass 0) of every env bit-equal to their
+    initial positions."""
+    cl = scene.cloth
+    pinned = cl.inv_masses == 0.0
+    return bool(torch.equal(state.cloth.positions[:, pinned],
+                            cl.init_positions[pinned].expand(
+                                state.pos.shape[0], -1, -1)))
+
+
+def _world_to(w, device):
+    import dataclasses
+    return dataclasses.replace(w, **{
+        f.name: getattr(w, f.name).to(device)
+        for f in dataclasses.fields(w)})
+
+
+def _rel_err(a, b):
+    """Largest |a - b| and max(1, the largest |b|), on the host."""
+    return (float((a.cpu() - b.cpu()).abs().max()),
+            max(1.0, float(b.abs().max())))
+
+
+def cloth_cpu_check(scene, cpu_scene, state, mode):
+    """CLOTH_CPU_STEPS cloth steps of CLOTH_CPU_ENVS envs of `state` on the
+    card and on the CPU from the same inputs: the cloth state, and the
+    colliders and solver bodies of `state`'s next step computed on the card
+    and copied over. Returns each field's error and scale after the last
+    step, and the last step's largest two-way impulse on a ragdoll body."""
+    from dxk_tpu_torch.ops.cloth import cloth_step
+    from dxk_tpu_torch.ops.integrator import integrate_forces
+    from dxk_tpu_torch.ops.shapes import world_colliders
+    from dxk_tpu_torch.physics import PhysicsSettings
+    n = CLOTH_CPU_ENVS
+    st = _sub_state(state, lambda x: x[:n].contiguous())
+    dt32 = float(np.float32(CLOTH_DT))
+    w = world_colliders(scene, st.pos, st.rot)
+    bodies = integrate_forces(scene, st, dt32)
+    settings = PhysicsSettings(cloth_solver_mode=mode)
+    sides = {}
+    for name, sc, ww, bb, cl in (
+            ("card", scene, w, bodies, st.cloth),
+            ("cpu", cpu_scene, _world_to(w, "cpu"), bodies.to("cpu"),
+             st.cloth.to("cpu"))):
+        for _ in range(CLOTH_CPU_STEPS):
+            cl, imp = cloth_step(sc.cloth, cl, settings, sc.global_ff_force,
+                                 dt32, world=ww, hulls=sc.hulls,
+                                 heightfield=sc.heightfield, bodies=bb,
+                                 colbody=sc.colliders.body)
+        sides[name] = (cl, imp)
+    (kc, (kj, kt)), (cc, (cj, ct)) = sides["card"], sides["cpu"]
+    out = {}
+    for key, a, b in (("positions", kc.positions, cc.positions),
+                      ("velocities", kc.velocities, cc.velocities),
+                      ("jsum", kj, cj), ("tsum", kt, ct)):
+        err, scale = _rel_err(a, b)
+        out[key] = dict(err=err, scale=scale)
+    n_rag = scene.num_bodies - len(TERRAIN_DEBRIS)
+    out["ragdoll_impulse_max"] = float(kj[:, :n_rag].abs().max())
+    return out
+
+
+def sdf_case_builder(builder):
+    """One collider of each type on a body of its own (a sphere, a capsule,
+    a cylinder, a box and the golden hull) over a patch of config 4's
+    terrain, and a 20 x 16 sheet with a 0.05 m thickness whose particles
+    cloth_sdf_case places around them."""
+    b = builder()
+    b.set_heightfield(terrain_heights()[:9, :9], cell_size=1.0,
+                      min_corner=(-4.0, 0.0, -4.0), friction=1.0)
+    s = b.add_body(position=(-2.0, 1.5, -2.0))
+    b.add_sphere_collider(s, (0, 0, 0), 0.4)
+    c = b.add_body(position=(0.0, 1.5, -2.0))
+    b.add_capsule_collider(c, (-0.3, 0, 0), (0.3, 0, 0), 0.2)
+    y = b.add_body(position=(2.0, 1.5, -2.0))
+    b.add_cylinder_collider(y, (0, -0.3, 0), (0, 0.3, 0), 0.3)
+    x = b.add_body(position=(-2.0, 1.5, 2.0))
+    b.add_box_collider(x, (0, 0, 0), (0.3, 0.2, 0.4))
+    h = b.add_body(position=(2.0, 1.5, 2.0))
+    b.add_hull_collider(h, b.add_hull_geometry_from_mesh(GOLDEN_HULL))
+    b.add_cloth(width=2.0, height=2.0, grid_x=20, grid_y=16, total_mass=1.0,
+                transform_pos=(0.0, 3.0, 0.0), thickness=0.05)
+    return b
+
+
+SDF_CASE_ENVS = 256
+SDF_CASE_TARGETS = ("sphere", "capsule", "cylinder", "box", "hull", "terrain")
+
+
+def cloth_sdf_case(seed):
+    """Seeded inputs of the SDF case, on the CPU: SDF_CASE_ENVS envs of
+    sdf_case_builder's scene with each body turned at random and given
+    random velocities, and every particle placed at random within 0.7 m of
+    the centre of one of the five colliders or 0-0.2 m over the terrain
+    (particle i by target i mod 6). Returns the scene, the state, the
+    particles (B, P, 3) and their velocities."""
+    from dxk_tpu_torch.core.maths import quat_normalize
+    from dxk_tpu_torch.ops.heightmap import height_at
+    from dxk_tpu_torch.scene import SceneBuilder
+    scene = sdf_case_builder(SceneBuilder).finalize(device="cpu")
+    rng = np.random.default_rng(seed)
+    B, nb = SDF_CASE_ENVS, scene.num_bodies
+    P = scene.cloth.inv_masses.shape[0]
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32))
+    st = scene.initial_state(B)
+    rot = st.rot.clone()
+    rot[:, :nb] = quat_normalize(f32(rng.normal(size=(B, nb, 4))))
+    st = st.replace(rot=rot, lin_vel=f32(rng.normal(size=(B, nb + 1, 3))),
+                    ang_vel=f32(rng.normal(size=(B, nb + 1, 3))))
+    target = np.arange(P) % len(SDF_CASE_TARGETS)
+    p = st.pos[:, np.minimum(target, nb - 1)] + f32(
+        rng.uniform(-0.7, 0.7, (B, P, 3)))
+    ter = torch.from_numpy(target == nb)
+    p[:, ter, 1] = height_at(scene.heightfield, p[:, ter, 0],
+                             p[:, ter, 2]) + f32(rng.uniform(
+                                 0.0, 0.2, (B, int(ter.sum()))))
+    return scene, st, p, f32(rng.normal(size=(B, P, 3)))
+
+
+def cloth_sdf_check(seed):
+    """_particle_collider_sdf and collide_particles (two-way) on the card
+    against the CPU on cloth_sdf_case's inputs, copied over to the card:
+    each output's error and scale, and per collider the particles outside
+    and inside its surface, and the terrain's particles pushed and clear."""
+    from dxk_tpu_torch.ops.cloth import (_particle_collider_sdf,
+                                         collide_particles)
+    from dxk_tpu_torch.ops.integrator import integrate_forces
+    from dxk_tpu_torch.ops.shapes import world_colliders
+    from dxk_tpu_torch.scene import SceneBuilder
+    scene_c, st, p, vel = cloth_sdf_case(seed)
+    w_c = world_colliders(scene_c, st.pos, st.rot)
+    bodies_c = integrate_forces(scene_c, st, float(np.float32(CLOTH_DT)))
+    scene_k = sdf_case_builder(SceneBuilder).finalize(device=DEVICE)
+    res = {}
+    for name, sc, ww, bb, pp, vv in (
+            ("cpu", scene_c, w_c, bodies_c, p, vel),
+            ("card", scene_k, _world_to(w_c, DEVICE), bodies_c.to(DEVICE),
+             p.to(DEVICE), vel.to(DEVICE))):
+        sd, n = _particle_collider_sdf(ww, sc.hulls, pp,
+                                       sc.cloth.collider_groups)
+        res[name] = (sd, n) + collide_particles(
+            sc.cloth, ww, sc.hulls, sc.heightfield, pp, vv, bodies=bb,
+            colbody=sc.colliders.body)
+    out = {}
+    for i, key in enumerate(("sd", "normal", "pos", "vel", "jsum", "tsum")):
+        err, scale = _rel_err(res["card"][i], res["cpu"][i])
+        out[key] = dict(err=err, scale=scale)
+    sd = res["cpu"][0]                                 # (B, C, P)
+    target = np.arange(p.shape[1]) % len(SDF_CASE_TARGETS)
+    cover = {}
+    for t, tname in enumerate(SDF_CASE_TARGETS[:-1]):
+        own = sd[:, t, torch.from_numpy(target == t)]
+        cover[tname] = dict(outside=int((own > 0).sum()),
+                            inside=int((own <= 0).sum()))
+    ter = torch.from_numpy(target == len(SDF_CASE_TARGETS) - 1)
+    pushed = (res["cpu"][2] - p).abs().amax(-1)[:, ter]
+    cover["terrain"] = dict(pushed=int((pushed > 0).sum()),
+                            clear=int((pushed == 0).sum()))
+    out["coverage"] = cover
+    return out
+
+
+def cloth_phase(seed):
+    """BASELINE config 4 without its vehicle (cloth_builder): the terrain,
+    config 3's ragdoll, the debris, config 4's sheet and a thick sheet
+    that swings onto the ragdoll and the terrain, on the fused step
+    (prepped build, terrain rows passed in) with "colored" cloth and
+    two-way coupling. The main path at each batch (launches, finiteness,
+    pinned rows, stretch, hits by kind, depth inside the shells, rates,
+    memory, the kernel's times); the kernel vs its plain version on bench's
+    batch (initial, after the warm-up) and a ragged one; the cloth step on
+    the card against the CPU in both cloth modes on the envs of bench's
+    batch with the most ragdoll hits at the end; the particle SDF and
+    push-out on seeded cases of every collider type and the terrain; the
+    cloth substep's launches in each mode."""
+    from dxk_tpu_torch.ops.cloth import cloth_step
+    from dxk_tpu_torch.ops.integrator import integrate_forces
+    from dxk_tpu_torch.ops.kernels import broadphase_kernel as bk
+    from dxk_tpu_torch.ops.kernels import fused_step as fs
+    from dxk_tpu_torch.ops.kernels import kselect_broadphase as ks
+    from dxk_tpu_torch.ops.kernels import sap_broadphase as sp
+    from dxk_tpu_torch.ops.shapes import world_colliders
+    from dxk_tpu_torch.physics import PhysicsSettings, physics_step
+
+    t_phase = time.perf_counter()
+    counters = {"fused_step": fs, "aabb_overlap_matrix": bk,
+                "kselect_broadphase": ks, "sap_broadphase": sp}
+    scene = cloth_scene(DEVICE)
+    cpu_scene = cloth_scene("cpu")
+    tab = fs.fused_tables(scene, DEVICE)
+    solver = fs.make_fused_step_solver(scene, ITERATIONS, 1.0)
+    kinds = cloth_kinds(scene)
+    settings = PhysicsSettings(num_rigid_solver_iterations=ITERATIONS,
+                               solver_mode="fused",
+                               cloth_solver_mode=CLOTH_MODE,
+                               cloth_two_way=True)
+    P = scene.cloth.inv_masses.shape[0]
+
+    def warm_up(st):
+        """CLOTH_WARM steps; hits by kind every 10th."""
+        hits = torch.zeros(3, dtype=torch.int64, device=DEVICE)
+        for i in range(CLOTH_WARM):
+            st, _info = physics_step(scene, st, settings, CLOTH_DT)
+            if i % 10 == 9:
+                hits += cloth_contacts(scene, st, kinds)[0].sum(0)
+        return st, dict(zip(CLOTH_KIND_NAMES, hits.tolist()))
+
+    marks = {}
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t_phase
+
+    # ---- the ragged batch's states for the kernel check
+    states = {}
+    st = terrain_initial_state(scene, CLOTH_RAGGED, seed)
+    states[f"B{CLOTH_RAGGED}_initial"] = st
+    st, ragged_hits = warm_up(st)
+    states[f"B{CLOTH_RAGGED}_after_{CLOTH_WARM}_steps"] = st
+    mark("ragged_warm_up")
+
+    # ---- the main path at each batch, counts from zero just before it
+    runs, timing = {}, {}
+    for batch, steps in zip(CLOTH_BATCHES, CLOTH_STEPS):
+        st = terrain_initial_state(scene, batch, seed + 1)
+        if batch == CLOTH_BATCHES[0]:
+            states[f"B{batch}_initial"] = st
+        st, run_warm_hits = warm_up(st)
+        if batch == CLOTH_BATCHES[0]:
+            states[f"B{batch}_after_{CLOTH_WARM}_steps"] = st
+        hits = torch.zeros(3, dtype=torch.int64, device=DEVICE)
+        deepest = torch.full((), -float("inf"), device=DEVICE)
+        for mod in counters.values():
+            mod.reset_launch_count()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            st, _info = physics_step(scene, st, settings, CLOTH_DT)
+            if i % CLOTH_EVERY == CLOTH_EVERY - 1:
+                h, d = cloth_contacts(scene, st, kinds)
+                hits += h.sum(0)
+                deepest = torch.maximum(deepest, d)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {n: mod.launch_count() for n, mod in counters.items()}
+        launches["fused_step.prepped"] = fs.launch_count("prepped")
+        end_hits, end_depth = cloth_contacts(scene, st, kinds)
+        end_report = cloth_depth_report(scene, st, kinds)
+        if batch == CLOTH_BATCHES[0]:
+            end_state, end_ragdoll_hits = st, end_hits[:, 0]
+        holder = [st]
+
+        def step():
+            holder[0] = physics_step(scene, holder[0], settings,
+                                     CLOTH_DT)[0]
+        prof = profile_steps(step, CLOTH_PROFILED)
+        ms = secs / steps * 1e3
+        runs[batch] = dict(
+            warm_steps=CLOTH_WARM, warm_hits_by_kind=run_warm_hits,
+            steps=steps, seconds=secs,
+            env_steps_per_s=batch * steps / secs,
+            body_steps_per_s=scene.num_bodies * batch * steps / secs,
+            particle_steps_per_s=P * batch * steps / secs,
+            ms_per_step=ms, launches=launches,
+            finite=bool(cloth_finite(st)),
+            pinned_bit_equal=cloth_pinned_equal(scene, st),
+            median_stretch_by_cloth=cloth_stretch(scene, st),
+            hits_by_kind=dict(zip(CLOTH_KIND_NAMES, hits.tolist())),
+            end_hits_by_kind=dict(zip(CLOTH_KIND_NAMES,
+                                      end_hits.sum(0).tolist())),
+            deepest_in_shell_m=float(deepest),
+            end_deepest_in_shell_m=float(end_depth),
+            end_depth_by_kind=end_report,
+            peak_memory_bytes=peak,
+            **{k: v for k, v in prof.items() if k != "top_device_kernels"},
+            top_device_kernels=prof["top_device_kernels"][:4],
+            device_idle_share=1.0 - prof["device_busy_ms_per_step"] / ms)
+        # the kernel at this batch on the state after the run
+        inputs = kernel_inputs(scene, st, CLOTH_DT)
+        for _ in range(3):
+            out = solver(*inputs)
+        work = recipe_flops(tab, fs.recipe_branches(
+            tab, inputs[1].a, inputs[1].b, inputs[1].rot), batch)
+        b_ms, b_by, b_detail = bound_ms(tab, out[3], batch, work,
+                                        prepped=False)
+        timing[batch] = dict(ms=time_ms(lambda: solver(*inputs), 20),
+                             bound_ms=b_ms, bound_by=b_by,
+                             bound_detail=b_detail)
+        mark(f"run_B{batch}")
+    big = CLOTH_BATCHES[-1]
+    bodies_k, wcol, ctl, inv_dt, passed = inputs
+    timing[big]["plain_ms"] = time_ms(lambda: fs._fused_core(
+        tab, ITERATIONS, 1.0, inv_dt, torch.cat([bodies_k.v, bodies_k.w], -1),
+        bodies_k.inv_mass, bodies_k.inv_inertia, bodies_k.pos_cog,
+        bodies_k.rot, ctl, wcol.a, wcol.b, wcol.rot, passed=passed), 1)
+
+    mark("plain_ms")
+
+    # ---- kernel vs plain version on bench's batch and the ragged one
+    checks = hold_modes(scene, states, CLOTH_DT, False, prep_in_kernel=True)
+    mark("kernel_checks")
+
+    # ---- the cloth step on the card against the CPU, both cloth modes,
+    # on the envs of bench's batch with the most ragdoll hits at the end
+    envs = torch.argsort(end_ragdoll_hits, descending=True,
+                         stable=True)[:CLOTH_CPU_ENVS]
+    touching = _sub_state(end_state, lambda x: x[envs].contiguous())
+    cpu_checks = {mode: cloth_cpu_check(scene, cpu_scene, touching, mode)
+                  for mode in ("colored", "scan")}
+    mark("card_vs_cpu")
+    sdf = cloth_sdf_check(seed)
+    mark("sdf_cases")
+    drape = cloth_drape_check(seed + 2)
+    mark("drape")
+
+    # ---- launches of the cloth substep alone, each mode, at bench's batch
+    # (one profiled call each: the launches are the same every call)
+    w = world_colliders(scene, end_state.pos, end_state.rot)
+    bodies = integrate_forces(scene, end_state, float(np.float32(CLOTH_DT)))
+    cloth_prof = {}
+    for mode in ("colored", "scan"):
+        cs_ = PhysicsSettings(cloth_solver_mode=mode)
+
+        def substep():
+            cloth_step(scene.cloth, end_state.cloth, cs_,
+                       scene.global_ff_force, float(np.float32(CLOTH_DT)),
+                       world=w, hulls=scene.hulls,
+                       heightfield=scene.heightfield, bodies=bodies,
+                       colbody=scene.colliders.body)
+        substep()
+        prof = profile_steps(substep, 1)
+        cloth_prof[mode] = {k: v for k, v in prof.items()
+                            if k != "fused_kernel_ms_per_step"}
+    mark("cloth_substep_profiles")
+    seconds = time.perf_counter() - t_phase
+    emit("cloth", bodies=scene.num_bodies, colliders=tab.num_colliders,
+         particles=P, cloths=[list(g) for g in scene.cloth.grids],
+         constraints=int(scene.cloth.constraints.shape[0]),
+         colour_groups=len(scene.cloth.color_index),
+         scan_levels=len(scene.cloth.scan_levels),
+         cloth_b=dict(pos=list(CLOTH_B_POS), rot=list(CLOTH_B_ROT),
+                      thickness=CLOTH_B_THICKNESS),
+         iterations=ITERATIONS, dt=CLOTH_DT, cloth_solver_mode=CLOTH_MODE,
+         plans=plans_by_batch(tab, CLOTH_BATCHES + (CLOTH_RAGGED,)),
+         tolerance=KERNEL_TOL, tolerance_reason=TERRAIN_TOL_REASON,
+         checks=checks, ragged_warm_hits_by_kind=ragged_hits,
+         card_vs_cpu_envs=envs.tolist(),
+         card_vs_cpu=cpu_checks, card_vs_cpu_tol=CLOTH_CPU_TOL,
+         card_vs_cpu_reason=CLOTH_CPU_REASON, sdf_cases=sdf,
+         sdf_tol=CLOTH_SDF_TOL, sdf_reason=CLOTH_SDF_REASON, drape=drape,
+         depth_reason=CLOTH_DEPTH_REASON,
+         cloth_substep=cloth_prof, stretch_tol=CLOTH_STRETCH_TOL,
+         depth_tol=CLOTH_DEPTH_TOL, hit_margin=CLOTH_HIT_MARGIN,
+         runs=runs, kernel=timing, seconds=seconds,
+         seconds_at_end_of=marks)
+    # ---- gates
+    for name, c in checks.items():
+        worst = max(c["err_v"] / c["v_scale"], c["err_w"] / c["w_scale"],
+                    c["err_imp"] / c["imp_scale"])
+        if not c["finite"] or c["mask_mismatch"] or not worst <= KERNEL_TOL:
+            raise RuntimeError(f"cloth {name}: the kernel disagrees with its "
+                               f"plain version: {c}")
+    for mode, c in cpu_checks.items():
+        bad = {k: v for k, v in c.items() if k != "ragdoll_impulse_max"
+               and not v["err"] <= CLOTH_CPU_TOL * v["scale"]}
+        if bad:
+            raise RuntimeError(f"cloth {mode}: the card's cloth step "
+                               f"disagrees with the CPU's: {bad}")
+        if not c["ragdoll_impulse_max"] > 0.0:
+            raise RuntimeError(f"cloth {mode}: no two-way impulse on the "
+                               f"ragdoll: {c}")
+    if not (drape["finite"]
+            and drape["min_distance_m"] > CLOTH_DRAPE_BOUND):
+        raise RuntimeError(f"cloth drape: a free particle came within "
+                           f"{CLOTH_DRAPE_BOUND} m of the sphere: {drape}")
+    bad = {k: v for k, v in sdf.items() if k != "coverage"
+           and not v["err"] <= CLOTH_SDF_TOL * v["scale"]}
+    dead = [f"{t}.{k}" for t, c in sdf["coverage"].items()
+            for k, v in c.items() if v == 0]
+    if bad or dead:
+        raise RuntimeError(f"cloth sdf cases: card vs CPU {bad}, never "
+                           f"reached {dead}")
+    for batch, r in runs.items():
+        want = {n: (r["steps"] if n == "fused_step" else 0)
+                for n in counters}
+        want["fused_step.prepped"] = r["steps"]
+        hits = {k: r["warm_hits_by_kind"][k] + r["hits_by_kind"][k]
+                + r["end_hits_by_kind"][k] for k in CLOTH_KIND_NAMES}
+        if (r["launches"] != want or not r["finite"]
+                or not r["pinned_bit_equal"]
+                or not max(r["median_stretch_by_cloth"]) < CLOTH_STRETCH_TOL
+                or not hits["ragdoll"] or not hits["terrain"]):
+            raise RuntimeError(f"cloth B={batch}: launches {r['launches']} "
+                               f"(expected {want}), hits {hits}: {r}")
+    big = CLOTH_BATCHES[-1]
+    return {
+        "name": "fused_step_cloth", "route": "cuda",
+        "source": "dxk_tpu_torch/ops/kernels/csrc/fused_step.cu",
+        "replaces": "dxk_tpu/ops/pallas/fused_step.py:1177",
+        "launches": runs[big]["launches"]["fused_step.prepped"],
+        "max_abs_err": max(max(c["err_v"], c["err_w"], c["err_imp"])
+                           for c in checks.values()),
+        "ms": timing[big]["ms"], "plain_ms": timing[big]["plain_ms"],
+        "bound_ms": timing[big]["bound_ms"],
+        "bound_by": timing[big]["bound_by"], "library_ms": None,
+        **plan_fields(tab, big)}
+
+
+# ---------------------------------------------------------------------------
 # a 1,081-row box pile: a scene the one-env-per-block kernel refused
 
 BIGPILE_BOXES = 46
@@ -3946,6 +4598,9 @@ def main():
     # ---- heightfield terrain under a ragdoll and shape debris
     terrain_kernel = terrain_phase(args.seed + 8)
 
+    # ---- config 4 without its vehicle: cloth on the terrain and ragdoll
+    cloth_kernel = cloth_phase(args.seed + 13)
+
     # ---- a 1,081-row box pile, past the one-env-per-block kernel's limit
     bigpile_phase(args.seed + 9)
 
@@ -3980,7 +4635,8 @@ def main():
         "bound_by": b_by, "library_ms": None,
         **plan_fields(tab, NUM_ENVS)}, train_kernel, zoo_kernel,
         settle_kernel,
-        shapes_kernel, fidelity_kernel, terrain_kernel, islands_kernel]
+        shapes_kernel, fidelity_kernel, terrain_kernel, cloth_kernel,
+        islands_kernel]
         + box_kernels}),
         flush=True)
     print(smi, flush=True)

@@ -5,9 +5,12 @@ package's physics.py):
   1. world-space collider flattening + AABBs
   2. broadphase: static pair tables, K-select or sort-and-sweep
   3. narrowphase: per-bucket contact manifolds (+ heightfield terrain rows)
-  4. integrate forces (gravity, damping)
+  4. integrate forces (gravity, damping, global force fields)
   5. contact and joint prep + N solver iterations over the seven types
   6. integrate velocities
+  7. cloth (ops/cloth.py): wind, the constraint passes, the push-out from
+     the colliders and the terrain and, with two-way coupling, its
+     impulses on the bodies' velocities
 
 Two branches, as in the JAX package: the fused step (``solver_mode=
 "fused"`` or ``"fused_seq"`` on a scene the fused kernel takes), where 3
@@ -15,8 +18,9 @@ and 5 run inside one kernel (ops/kernels/fused_step.py), heightfield
 terrain contacts prepared beside it and passed in; and the reference step
 for every other scene and mode ("scan", "jacobi", "colored"; "fused" runs
 "jacobi" there and "fused_seq" runs "scan"), with all 15 contact buckets,
-the six joint types and heightfield terrain. Cloth and trigger /
-force-field overlaps raise NotImplementedError on both branches.
+the six joint types and heightfield terrain. Both branches step cloth.
+Trigger and localized force-field overlaps raise NotImplementedError on
+both branches.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import numpy as np
 import torch
 
 from dxk_tpu_torch.core.maths import cross, quat_inv_rotate, quat_rotate, sqrt
-from dxk_tpu_torch.ops.integrator import (integrate_forces,
+from dxk_tpu_torch.ops.integrator import (_mat3_vec, integrate_forces,
                                           integrate_velocities)
 from dxk_tpu_torch.ops.shapes import collider_aabbs, world_colliders
 from dxk_tpu_torch.scene.scene import (SHAPE_BOX, SHAPE_CAPSULE,
@@ -38,16 +42,25 @@ from dxk_tpu_torch.scene.scene import (SHAPE_BOX, SHAPE_CAPSULE,
 
 @dataclass(frozen=True)
 class PhysicsSettings:
-    """Solver settings: the rigid-body fields of the JAX package's
-    PhysicsSettings, with its defaults. `solver_mode` is "scan" (sequential
-    impulses), "jacobi", "colored", "fused" or "fused_seq"; `validate`
-    reports the first pipeline stage with a non-finite value in
-    StepInfo.validate_stage (utils/validate.py)."""
+    """Solver settings: the fields of the JAX package's PhysicsSettings,
+    with its defaults. `solver_mode` is "scan" (sequential impulses),
+    "jacobi", "colored", "fused" or "fused_seq"; `validate` reports the
+    first pipeline stage with a non-finite value in
+    StepInfo.validate_stage (utils/validate.py). The cloth passes run
+    `num_cloth_*_iterations` times each; `cloth_solver_mode` is "scan"
+    (the reference's sequential sweep) or "colored" (colour groups);
+    `cloth_two_way` gives the bodies the momentum the cloth's push-out
+    takes from the particles."""
 
     num_rigid_solver_iterations: int = 30
+    num_cloth_velocity_iterations: int = 0
+    num_cloth_position_iterations: int = 1
+    num_cloth_drift_iterations: int = 0
+    cloth_solver_mode: str = "scan"
     solver_mode: str = "scan"
     sor_omega: float = 1.0
     validate: bool = False
+    cloth_two_way: bool = True
     joint_prep_in_kernel: bool = True
 
 
@@ -68,11 +81,31 @@ def controls_pack(scene: Scene, controls, dt) -> torch.Tensor:
     return torch.cat(cols, dim=1).contiguous()
 
 
+def _cloth_substep(scene, new_state, state, settings, dt, w, bodies):
+    """The cloth step on the colliders `w` from before the step and, with
+    two-way coupling, its impulse and torque-impulse sums applied to the
+    post-solve velocities through `bodies` (the solve's SolverBodies: its
+    world inverse inertia and centres of mass from before integration).
+    Cloth runs last (physics.cpp:1354-1358)."""
+    from dxk_tpu_torch.ops.cloth import cloth_step
+    two_way = settings.cloth_two_way
+    cl, imp = cloth_step(
+        scene.cloth, state.cloth, settings, scene.global_ff_force, dt,
+        world=w, hulls=scene.hulls, heightfield=scene.heightfield,
+        bodies=bodies if two_way else None,
+        colbody=scene.colliders.body if two_way else None)
+    new_state = new_state.replace(cloth=cl)
+    if imp is not None:
+        jsum, tsum = imp
+        new_state = new_state.replace(
+            lin_vel=new_state.lin_vel + jsum * bodies.inv_mass[:, None],
+            ang_vel=new_state.ang_vel + _mat3_vec(bodies.inv_inertia, tsum))
+    return new_state
+
+
 def physics_step(scene: Scene, state: State, settings: PhysicsSettings,
                  dt: float) -> Tuple[State, StepInfo]:
     """One fixed substep of a batch of environments."""
-    if scene.cloth is not None:
-        raise NotImplementedError("cloth is not ported yet")
     if scene.overlap_pairs is not None and scene.overlap_pairs.shape[0] > 0:
         raise NotImplementedError(
             "trigger / force-field overlaps are not ported yet")
@@ -341,6 +374,11 @@ def _physics_step_reference(scene, state, settings, dt, tracker=None):
     if tracker is not None:
         tracker.check("integrated_state", (new_state.pos, new_state.rot))
 
+    # 7: cloth, on this step's colliders
+    if scene.cloth is not None and state.cloth is not None:
+        new_state = _cloth_substep(scene, new_state, state, settings, dt32,
+                                   w, bodies)
+
     info = StepInfo(
         num_broadphase_overlaps=num_overlaps,
         num_contacts=total_contacts,
@@ -428,6 +466,10 @@ def _physics_step_fused(scene, state, settings, dt, tracker=None):
     new_state = integrate_velocities(scene, bodies, state, float(dt32))
     if tracker is not None:
         tracker.check("integrated_state", (new_state.pos, new_state.rot))
+
+    if scene.cloth is not None and state.cloth is not None:
+        new_state = _cloth_substep(scene, new_state, state, settings,
+                                   float(dt32), w, bodies)
 
     order = sorted(range(len(scene.pair_groups)),
                    key=lambda gi: scene.pair_groups[gi].phase)

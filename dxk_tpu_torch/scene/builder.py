@@ -9,10 +9,12 @@ in the JAX package, so both builders round the same values to float32);
 
 Ported so far: rigid bodies, statics, sphere/capsule/cylinder/box colliders,
 convex hull geometry (from triangle faces or a point cloud) and hull
-colliders, heightfield terrain, all six joint types, static pair tables
-(capped or not, in contact phases or not, pruned by `candidate_margin` or
-not) and the K-select / sort-and-sweep broadphase settings. Everything
-else raises NotImplementedError naming what is missing.
+colliders, heightfield terrain, all six joint types, grid cloths, global
+(ownerless) force fields, static pair tables (capped or not, in contact
+phases or not, pruned by `candidate_margin` or not) and the K-select /
+sort-and-sweep broadphase settings. Force fields with an owner, trigger
+volumes and `orbit_margin` raise NotImplementedError naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -28,17 +30,18 @@ from dxk_tpu_torch.ops.heightmap import make_heightfield
 from dxk_tpu_torch.scene.scene import (
     SHAPE_SPHERE, SHAPE_CAPSULE, SHAPE_CYLINDER, SHAPE_BOX, SHAPE_HULL,
     OWNER_RIGID_BODY, OWNER_STATIC, OWNER_FORCE_FIELD, OWNER_TRIGGER,
-    BodyParams, Colliders, HullGeometry, JointsOfType, MotorControls,
-    PairGroup, Scene, resolve_device,
+    BodyParams, ClothParams, Colliders, HullGeometry, JointsOfType,
+    MotorControls, PairGroup, Scene, resolve_device,
 )
 
 GRAVITY = -9.81
 
 
-def _later(what):
+def _later(what, item=None):
+    where = f"ROADMAP.md Queue A {item}" if item else (
+        "see ROADMAP.md, PyTorch/CUDA port queues")
     return NotImplementedError(
-        f"{what} is not ported to dxk_tpu_torch yet (see ROADMAP.md, "
-        "PyTorch/CUDA port queues)")
+        f"{what} is not ported to dxk_tpu_torch yet ({where})")
 
 # ---------------------------------------------------------------------------
 # numpy quaternion helpers (host side)
@@ -151,6 +154,9 @@ class SceneBuilder:
         self._hull_props: list = []     # (mass, cog, inertia) per density
         self._hull_faces: list = []     # (normals, offsets) per hull
         self._heightfield: Optional[dict] = None
+        self._cloths: list = []         # add_cloth's arguments per cloth
+        self._force_fields: list = []   # {"force", "owner"} per field
+        self._num_triggers = 0
         self.max_narrow_pairs_per_group: Optional[int] = None
 
     # -- bodies --------------------------------------------------------
@@ -281,11 +287,18 @@ class SceneBuilder:
             friction, restitution, density, owner, OWNER_RIGID_BODY, 0,
             int(hull_id)))
 
-    def add_force_field(self, *a, **k):
-        raise _later("force fields")
+    def add_force_field(self, force, owner=None):
+        """A global force field: `force` acts on every rigid body and, as
+        wind, on every cloth. Returns its index. A localized field (an
+        `owner` whose colliders bound it) raises NotImplementedError."""
+        if owner is not None:
+            raise _later("force fields with an owner", "5c")
+        self._force_fields.append({"force": np.asarray(force, np.float64),
+                                   "owner": None})
+        return len(self._force_fields) - 1
 
-    def mark_trigger(self, *a, **k):
-        raise _later("trigger volumes")
+    def mark_trigger(self, owner):
+        raise _later("trigger volumes", "5c")
 
     # -- joints ----------------------------------------------------------
 
@@ -397,8 +410,23 @@ class SceneBuilder:
             min_corner=min_corner, friction=friction,
             restitution=restitution, window=window)
 
-    def add_cloth(self, *a, **k):
-        raise _later("cloth")
+    def add_cloth(self, width, height, grid_x, grid_y, total_mass,
+                  stiffness=1.0, damping=0.5, gravity_factor=1.0,
+                  transform_pos=(0, 0, 0), transform_rot=(0, 0, 0, 1),
+                  thickness=0.0):
+        """Grid cloth with the reference's constraint topology and particle
+        layout; its top row (y == 0) is pinned. May be called more than
+        once: all cloths bake into one flat particle and constraint system
+        (each one's particle range in scene.cloth.grids). Returns the
+        cloth's index."""
+        self._cloths.append(dict(
+            width=width, height=height, grid_x=grid_x,
+            grid_y=grid_y, total_mass=total_mass,
+            stiffness=stiffness, damping=damping,
+            gravity_factor=gravity_factor, thickness=thickness,
+            pos=np.asarray(transform_pos, np.float64),
+            rot=np.asarray(transform_rot, np.float64)))
+        return len(self._cloths) - 1
 
     # -- mass properties (physics.cpp:1416-1588) ---------------------------
 
@@ -762,7 +790,19 @@ class SceneBuilder:
             slider_max_force=neg(n_sl),
         )
 
+        # --- force fields: the global ones summed (ownerless, so not
+        # rotated); localized slots stay zero
+        global_ff = np.zeros(3)
+        ff_forces = np.zeros((max(len(self._force_fields), 1), 3))
+        for ff in self._force_fields:
+            global_ff += ff["force"]
+
         f32 = lambda x: tens(np.asarray(x).astype(dtype))
+        cloth = None
+        if self._cloths:
+            cloth = _cloth_params(
+                _merge_cloths([_bake_cloth(spec) for spec in self._cloths]),
+                col["ctype"], bool(self._hull_geoms), dtype, device)
         return Scene(
             num_bodies=nb,
             body_params=BodyParams(
@@ -792,11 +832,165 @@ class SceneBuilder:
             distance=distance, ball=ball, fixed=fixed, hinge=hinge,
             cone_twist=cone_twist, slider=slider,
             default_controls=controls,
-            global_ff_force=f32(np.zeros(3)),
-            ff_forces=f32(np.zeros((1, 3))),
-            cloth=None,
+            global_ff_force=f32(global_ff),
+            ff_forces=f32(ff_forces),
+            cloth=cloth,
             heightfield=(make_heightfield(**self._heightfield, device=device)
                          if self._heightfield is not None else None),
             init_pos=f32(init_pos),
             init_rot=f32(init_rot),
         )
+
+
+# ---------------------------------------------------------------------------
+# cloth baking (numpy, float64 until the final cast, as in the JAX package)
+
+def _bake_cloth(spec: dict) -> dict:
+    """One grid cloth's arrays (the reference's cloth.cpp:7-80): particle
+    positions and inverse masses (top row pinned), structural, shear and
+    bend constraints with their rest lengths, the wind triangles."""
+    gx, gy = spec["grid_x"], spec["grid_y"]
+    width, height = spec["width"], spec["height"]
+    n = gx * gy
+    inv_mass_per = n / spec["total_mass"]
+
+    positions = np.zeros((n, 3))
+    inv_masses = np.zeros(n)
+    for y in range(gy):
+        im = 0.0 if y == 0 else inv_mass_per
+        for x in range(gx):
+            i = y * gx + x
+            # x centred, y and z swapped (cloth.cpp:124-130)
+            rel_x, rel_y = x / (gx - 1), y / (gy - 1)
+            positions[i] = (rel_x * width - width * 0.5, 0.0,
+                            -rel_y * height)
+            inv_masses[i] = im
+    positions = _np_quat_rotate_batch(spec["rot"], positions) + spec["pos"]
+
+    cons = []
+    for y in range(gy):
+        for x in range(gx):
+            i = y * gx + x
+            if x < gx - 1:
+                cons.append((i, i + 1))
+            if y < gy - 1:
+                cons.append((i, i + gx))
+            if x < gx - 1 and y < gy - 1:
+                cons.append((i, i + gx + 1))
+                cons.append((i + gx, i + 1))
+            if x < gx - 2:
+                cons.append((i, i + 2))
+            if y < gy - 2:
+                cons.append((i, i + 2 * gx))
+    cons = np.asarray(cons, np.int32)
+    rest = np.linalg.norm(positions[cons[:, 0]] - positions[cons[:, 1]],
+                          axis=-1)
+    stiffness = min(max(spec["stiffness"], 0.01), 1.0)
+    inv_mass_sums = (inv_masses[cons[:, 0]]
+                     + inv_masses[cons[:, 1]]) / stiffness
+
+    tris = []
+    for y in range(gy - 1):
+        for x in range(gx - 1):
+            tl = y * gx + x
+            tr, bl = tl + 1, tl + gx
+            br = bl + 1
+            tris.append((tl, bl, tr))
+            tris.append((br, tr, bl))
+    return dict(
+        grids=((gx, gy, 0),), inv_masses=inv_masses, constraints=cons,
+        rest_lengths=rest, inv_mass_sums=inv_mass_sums,
+        init_positions=positions,
+        triangles=np.asarray(tris, np.int32),
+        gravity_factor=np.full(n, float(spec["gravity_factor"])),
+        damping=np.full(n, float(spec["damping"])),
+        thickness=np.full(n, float(spec.get("thickness", 0.0))))
+
+
+def _merge_cloths(parts: list) -> dict:
+    """N baked cloths as one flat system, particle indices offset."""
+    if len(parts) == 1:
+        return parts[0]
+    grids, off = [], 0
+    cons, tris = [], []
+    for c in parts:
+        gx, gy, _ = c["grids"][0]
+        grids.append((gx, gy, off))
+        cons.append(c["constraints"] + off)
+        tris.append(c["triangles"] + off)
+        off += c["inv_masses"].shape[0]
+    out = {k: np.concatenate([c[k] for c in parts], axis=0)
+           for k in parts[0] if k != "grids"}
+    out.update(grids=tuple(grids), constraints=np.concatenate(cons),
+               triangles=np.concatenate(tris))
+    return out
+
+
+def _constraint_colors(cons: np.ndarray) -> list:
+    """Greedy edge colouring of the constraint graph, in the JAX package's
+    visiting order (its ops/cloth.py _constraint_colors): each constraint
+    joins the first colour that holds neither of its particles. Returns
+    per colour the constraint indices, np.int64."""
+    used, colors = [], []
+    for i, (a, b) in enumerate(cons.tolist()):
+        for c in range(len(colors)):
+            if a not in used[c] and b not in used[c]:
+                colors[c].append(i)
+                used[c].update((a, b))
+                break
+        else:
+            colors.append([i])
+            used.append({a, b})
+    return [np.asarray(c, np.int64) for c in colors]
+
+
+def _sweep_levels(cons: np.ndarray) -> list:
+    """The sequential sweep's dependency levels: a constraint's level is
+    one past the last level, so far, of either of its particles. Each
+    level's constraints share no particle, and each particle's constraints
+    sit in rising levels in constraint order, so solving the levels in
+    turn is the sweep exactly. Returns per level the constraint indices,
+    np.int64, in constraint order."""
+    last, levels = {}, []
+    for i, (a, b) in enumerate(cons.tolist()):
+        lv = 1 + max(last.get(a, -1), last.get(b, -1))
+        last[a] = last[b] = lv
+        if lv == len(levels):
+            levels.append([])
+        levels[lv].append(i)
+    return [np.asarray(lv, np.int64) for lv in levels]
+
+
+def _cloth_params(c: dict, ctype, has_hulls, dtype, device) -> ClothParams:
+    """ClothParams on `device` from the baked arrays, with the index
+    tables and the flag the step reads (scene.ClothParams); `ctype` the
+    colliders' types (numpy)."""
+    from dxk_tpu_torch.ops.cloth import collider_groups
+    tens = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    f32 = lambda x: tens(np.asarray(x).astype(dtype))
+    i64 = lambda x: tens(np.asarray(x, np.int64))
+    cons = c["constraints"]
+    thickness = np.asarray(c["thickness"]).astype(dtype)
+    return ClothParams(
+        grids=tuple(c["grids"]),
+        inv_masses=f32(c["inv_masses"]),
+        constraints=tens(cons),
+        rest_lengths=f32(c["rest_lengths"]),
+        inv_mass_sums=f32(c["inv_mass_sums"]),
+        init_positions=f32(c["init_positions"]),
+        triangles=tens(c["triangles"]),
+        gravity_factor=f32(c["gravity_factor"]),
+        damping=f32(c["damping"]),
+        thickness=tens(thickness),
+        collides=bool(thickness.max() > 0.0),
+        color_index=tuple((i64(g), i64(cons[g, 0]), i64(cons[g, 1]))
+                          for g in _constraint_colors(cons)),
+        scan_levels=tuple((i64(g), i64(cons[g, 0]), i64(cons[g, 1]))
+                          for g in _sweep_levels(cons)),
+        collider_groups=collider_groups(ctype, has_hulls, device))
+
+
+def _np_quat_rotate_batch(q, vs):
+    u, w = np.asarray(q[:3]), q[3]
+    uv = np.cross(np.broadcast_to(u, vs.shape), vs)
+    return vs + 2.0 * (w * uv + np.cross(np.broadcast_to(u, vs.shape), uv))

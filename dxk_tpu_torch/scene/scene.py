@@ -194,11 +194,56 @@ class MotorControls(_Struct):
     slider_max_force: torch.Tensor      # (Js,)
 
 
+def port_only(default=None):
+    """A field the JAX package's struct does not have: data the port keeps
+    on the host (or derives at finalize) so that a step never reads a
+    device tensor back. utils.convert.scene_arrays leaves it out."""
+    return dataclasses.field(default=default, metadata={"port_only": True})
+
+
 @dataclass
 class ClothParams(_Struct):
-    """Placeholder: cloth is not ported yet (Scene.cloth is None)."""
+    """Static cloth description: a grid of particles with stretch / shear
+    / bend distance constraints. N cloths bake into one flat particle and
+    constraint system (cloths never interact); `grids` holds each one's
+    (num_x, num_y, particle_offset)."""
 
     grids: tuple = ()
+    inv_masses: torch.Tensor = None       # (P,)
+    constraints: torch.Tensor = None      # (K, 2) int32 particle pairs
+    rest_lengths: torch.Tensor = None     # (K,)
+    inv_mass_sums: torch.Tensor = None    # (K,) (wA + wB) / stiffness
+    init_positions: torch.Tensor = None   # (P, 3)
+    triangles: torch.Tensor = None        # (T, 3) int32, for the wind force
+    gravity_factor: torch.Tensor = None   # (P,)
+    damping: torch.Tensor = None          # (P,)
+    # particle collision radius against the colliders and the heightfield;
+    # 0 = no collision
+    thickness: torch.Tensor = None        # (P,)
+    # whether any particle has a thickness, on the host
+    collides: bool = port_only(False)
+    # on the device, per greedy colour group of the "colored" solve
+    # (color_index) and per dependency level of the "scan" sweep
+    # (scan_levels; ops/cloth.py): its constraints (indices into
+    # `constraints`, no particle twice in a group) and their a and b
+    # particles, (M,) int64 each
+    color_index: tuple = port_only(())
+    scan_levels: tuple = port_only(())
+    # the colliders by the branch of the particle SDF that serves them
+    # ("sphere", "capsule", "cylinder", "box", "hull"; ops/cloth.py
+    # collider_groups), each with its collider indices on the device,
+    # (C_k,) int64
+    collider_groups: tuple = port_only(())
+
+
+@dataclass
+class ClothState(_Struct):
+    """Cloth particles of a batch of envs, (B, P, 3) each."""
+
+    positions: torch.Tensor
+    prev_positions: torch.Tensor
+    velocities: torch.Tensor
+    forces: torch.Tensor
 
 
 def _expand(x, batch):
@@ -267,7 +312,13 @@ class Scene(_Struct):
             rot=_expand(self.init_rot, batch),
             lin_vel=z(), ang_vel=z(), force_acc=z(), torque_acc=z(),
             controls=self.batched_controls(batch),
-            cloth=None,
+            cloth=None if self.cloth is None else ClothState(
+                positions=_expand(self.cloth.init_positions, batch),
+                prev_positions=_expand(self.cloth.init_positions, batch),
+                velocities=torch.zeros_like(
+                    _expand(self.cloth.init_positions, batch)),
+                forces=torch.zeros_like(
+                    _expand(self.cloth.init_positions, batch))),
         )
 
 
@@ -286,7 +337,7 @@ class State(_Struct):
     force_acc: torch.Tensor   # (B, N+1, 3)
     torque_acc: torch.Tensor  # (B, N+1, 3)
     controls: Optional[MotorControls] = None
-    cloth: Any = None
+    cloth: Optional[ClothState] = None
 
 
 @dataclass

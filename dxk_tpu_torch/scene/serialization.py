@@ -5,16 +5,18 @@ through npz. Counterpart of the JAX package's scene/serialization.py, with
 the same files: a scene or state written by either package loads in the
 other.
 
-The port's builder has no cloth, force fields or triggers yet: they are
-written as empty (`cloths: []`, `force_fields: []`, `num_triggers: 0`), and
-a file that holds any of them raises NotImplementedError on load.
+Cloths and global (ownerless) force fields round-trip; the port's
+builder has no triggers or localized force fields yet, so it writes
+`num_triggers: 0`, and a file with a trigger or a force field that has an
+owner raises NotImplementedError on load.
 
 A state's npz holds its tensors as `leaf_0`, `leaf_1`, ... in field order
-(pos, rot, lin_vel, ang_vel, force_acc, torque_acc, then the controls'
-fields), as the JAX package's tree flattening orders them. The port's
-states carry the env batch as their first dimension, the JAX package's do
-not: `load_state` broadcasts an array that lacks it to the template's
-batch.
+(pos, rot, lin_vel, ang_vel, force_acc, torque_acc, the controls' fields,
+then the cloth's positions, prev_positions, velocities and forces where the
+state has a cloth), as the JAX package's tree flattening orders them. The
+port's states carry the env batch as their first dimension, the JAX
+package's do not: `load_state` broadcasts an array that lacks it to the
+template's batch.
 """
 
 from __future__ import annotations
@@ -62,18 +64,22 @@ def builder_to_dict(b: SceneBuilder) -> dict:
                         "cog": np.asarray(c).tolist(),
                         "inertia_per_density": np.asarray(i).tolist()}
                        for m, c, i in b._hull_props],
-        "force_fields": [],
-        "num_triggers": 0,
-        "cloths": [],
+        "force_fields": [
+            {"force": np.asarray(ff["force"]).tolist(), "owner": ff["owner"]}
+            for ff in b._force_fields],
+        "num_triggers": b._num_triggers,
+        "cloths": [{**c, "pos": np.asarray(c["pos"]).tolist(),
+                    "rot": np.asarray(c["rot"]).tolist()}
+                   for c in b._cloths],
     }
 
 
 def builder_from_dict(d: dict) -> SceneBuilder:
-    if (d.get("force_fields") or d.get("num_triggers", 0)
-            or d.get("cloths") or d.get("cloth")):
+    if d.get("num_triggers", 0) or any(
+            ff["owner"] is not None for ff in d.get("force_fields", [])):
         raise NotImplementedError(
-            "the scene holds cloth, force fields or triggers, which are not "
-            "ported yet")
+            "the scene holds triggers or force fields with an owner, which "
+            "are not ported yet (ROADMAP.md Queue A 5c)")
     b = SceneBuilder()
     for body in d["bodies"]:
         b._bodies.append(_Body(
@@ -111,6 +117,16 @@ def builder_from_dict(d: dict) -> SceneBuilder:
                                   np.asarray(f["offsets"], np.float64)))
         else:
             b._hull_faces.append((np.zeros((0, 3)), np.zeros((0,))))
+    for ff in d.get("force_fields", []):
+        b._force_fields.append({"force": np.asarray(ff["force"], np.float64),
+                                "owner": None})
+    # "cloth" (singular) is the format from before scenes held several
+    legacy = [d["cloth"]] if d.get("cloth") else []
+    for c in legacy + list(d.get("cloths", [])):
+        c = dict(c)
+        c["pos"] = np.asarray(c["pos"], np.float64)
+        c["rot"] = np.asarray(c["rot"], np.float64)
+        b._cloths.append(c)
     return b
 
 

@@ -12,7 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from dxk_tpu_torch.scene.scene import MotorControls, State
+from dxk_tpu_torch.scene.scene import ClothState, MotorControls, State
 
 
 def policy_state_dict_from_flax(params) -> dict:
@@ -96,16 +96,29 @@ def controls_from_numpy(fields: dict, device="cuda", batch=None
         for f in dataclasses.fields(MotorControls)})
 
 
+def cloth_state_from_numpy(fields: dict, device="cuda", batch=None
+                           ) -> ClothState:
+    """ClothState from {"positions", "prev_positions", "velocities",
+    "forces": ndarray}, batched like controls_from_numpy."""
+    return ClothState(**{
+        f.name: _tensor(fields[f.name], device, batch).to(torch.float32)
+        for f in dataclasses.fields(ClothState)})
+
+
 def state_from_numpy(fields: dict, device="cuda", batch=None) -> State:
     """State from {"pos", "rot", "lin_vel", "ang_vel", "force_acc",
-    "torque_acc": ndarray, "controls": {field: ndarray} or None}."""
+    "torque_acc": ndarray, "controls": {field: ndarray} or None,
+    "cloth": <cloth_state_from_numpy fields> or None}."""
     ctl = fields.get("controls")
+    cloth = fields.get("cloth")
     return State(
         **{k: _tensor(fields[k], device, batch).to(torch.float32)
            for k in ("pos", "rot", "lin_vel", "ang_vel", "force_acc",
                      "torque_acc")},
         controls=(controls_from_numpy(ctl, device, batch)
-                  if ctl is not None else None))
+                  if ctl is not None else None),
+        cloth=(cloth_state_from_numpy(cloth, device, batch)
+               if cloth is not None else None))
 
 
 def env_state_from_numpy(fields: dict, device="cuda", batch=None):
@@ -129,6 +142,8 @@ def _flatten(prefix, obj, out):
             _flatten(f"{prefix}.{i}", x, out)
     elif dataclasses.is_dataclass(obj):
         for f in dataclasses.fields(obj):
+            if f.metadata.get("port_only"):
+                continue
             _flatten(f"{prefix}.{f.name}" if prefix else f.name,
                      getattr(obj, f.name), out)
     elif isinstance(obj, (int, float, str, bool)):
@@ -137,7 +152,9 @@ def _flatten(prefix, obj, out):
 
 def scene_arrays(scene) -> dict:
     """The port's Scene as a flat {dotted.name: ndarray} dict (static ints
-    and strings as 0-d arrays), for comparison with the JAX Scene."""
+    and strings as 0-d arrays), for comparison with the JAX Scene. Fields
+    the JAX package has no counterpart of (scene.port_only) are left
+    out."""
     out: dict = {}
     _flatten("", scene, out)
     return out

@@ -190,16 +190,26 @@ def test_refusals(name, kw):
 
 @pytest.mark.parametrize("field", ["cloth", "overlap_pairs"])
 def test_cloth_and_trigger_scenes_refused(field):
-    """The port's builder makes neither yet: the fields are set on the
-    finalized scenes, as such a scene would carry them."""
-    from dxk_tpu_torch.scene.scene import ClothParams
-    (jscene, _jim), (tscene, _tim) = both("towers")
-    tval = ClothParams() if field == "cloth" else torch.tensor([[0, 1]])
-    jval = object() if field == "cloth" else jnp.asarray([[0, 1]])
+    """A cloth scene as each package's add_cloth builds it, with the same
+    message in both. The port's builder makes no trigger yet: the overlap
+    pairs are set on the finalized scenes, as such a scene would carry
+    them."""
+    make, kw = SCENES["towers"]
+    if field == "cloth":
+        def with_cloth(builder):
+            b = make(builder)
+            b.add_cloth(1.0, 1.0, 4, 4, 1.0, transform_pos=(0, 6, 0))
+            return b
+        jscene = with_cloth(JaxSceneBuilder).finalize(**kw)
+        tscene = with_cloth(SceneBuilder).finalize(device="cpu", **kw)
+    else:
+        (jscene, _jim), (tscene, _tim) = both("towers")
+        tscene = tscene.replace(overlap_pairs=torch.tensor([[0, 1]]))
+        jscene = jscene.replace(overlap_pairs=jnp.asarray([[0, 1]]))
     with pytest.raises(NotIslandizable) as te:
-        islandize(tscene.replace(**{field: tval}))
+        islandize(tscene)
     with pytest.raises(JaxNotIslandizable) as je:
-        jax_islandize(jscene.replace(**{field: jval}))
+        jax_islandize(jscene)
     assert str(te.value) == str(je.value)
 
 

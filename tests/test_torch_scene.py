@@ -106,8 +106,15 @@ def _trigger_volume(b):
     b.mark_trigger(b.add_static())
 
 
+def _owned_force_field(b):
+    """A force field with an owner (Queue A 5c). This case was add_cloth
+    until cloth was ported; tests/test_torch_cloth.py and
+    tests/test_torch_cloth_step.py hold cloth against the JAX package now."""
+    b.add_force_field((0.0, 5.0, 0.0), owner=b.add_static())
+
+
 @pytest.mark.parametrize("call", [
-    lambda b: b.add_cloth(1.0, 1.0, 4, 4, 1.0),
+    _owned_force_field,
     _trigger_volume,
     lambda b: b.finalize(orbit_margin=0.25, device="cpu"),
 ])

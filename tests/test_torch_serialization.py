@@ -11,7 +11,12 @@ written by one package and read by the other.
     template's batch);
   - tests/test_utils.py's round trips on the port, and a reloaded hull
     scene stepping bit for bit as the original;
-  - a file with cloth, force fields or triggers refused by the port."""
+  - files with cloths (several, or one under the older "cloth" key) and
+    ownerless force fields loaded by both packages to the same scene, and a
+    cloth scene written by either loaded by the other; a State carrying a
+    ClothState round-tripped within the port and across the packages;
+  - a file with triggers or a force field that has an owner refused by the
+    port."""
 import json
 
 import jax
@@ -163,10 +168,94 @@ def test_scene_and_state_roundtrip(tmp_path):
 
 @pytest.mark.parametrize("key,value", [
     ("num_triggers", 1), ("force_fields", [{"force": [0, 1, 0],
-                                            "owner": None}]),
-    ("cloths", [{"pos": [0, 0, 0], "rot": [0, 0, 0, 1]}])])
+                                            "owner": 0}])])
 def test_unported_content_refused(key, value):
+    """Triggers and force fields with an owner (ROADMAP Queue A 5c). Cloths
+    and ownerless force fields load: test_cloth_content_loads."""
     d = tser.builder_to_dict(build(SceneBuilder))
     d[key] = value
     with pytest.raises(NotImplementedError):
         tser.builder_from_dict(d)
+
+
+CLOTH = dict(width=2.0, height=1.5, grid_x=6, grid_y=5, total_mass=1.0,
+             stiffness=0.8, damping=0.4, gravity_factor=1.0,
+             thickness=0.05, pos=[0.5, 3.0, 0.2], rot=[0.0, 0.0, 0.0, 1.0])
+
+
+@pytest.mark.parametrize("key,value", [
+    ("force_fields", [{"force": [0, 1, 0], "owner": None},
+                      {"force": [0.5, 0, -2], "owner": None}]),
+    ("cloths", [CLOTH, dict(CLOTH, pos=[4.0, 2.0, 0.0], thickness=0.0)]),
+    ("cloth", CLOTH)])
+def test_cloth_content_loads(key, value):
+    """A file with ownerless force fields, cloths, or one cloth under the
+    older singular "cloth" key: the port and the JAX package load the same
+    builder from it, and finalize the same scene (every array exact)."""
+    d = _json(tser.builder_to_dict(build(SceneBuilder)))
+    d[key] = value
+    tb, jb = tser.builder_from_dict(_json(d)), jser.builder_from_dict(
+        _json(d))
+    assert _json(tser.builder_to_dict(tb)) == _json(jser.builder_to_dict(jb))
+    tscene = tb.finalize(device="cpu")
+    _assert_scenes_equal(tscene, jb.finalize())
+    if key == "force_fields":
+        np.testing.assert_array_equal(tscene.global_ff_force.numpy(),
+                                      np.float32([0.5, 1.0, -2.0]))
+    else:
+        assert tscene.cloth is not None
+
+
+def _cloth_builder(builder):
+    b = build(builder)
+    b.add_cloth(**{k: v for k, v in CLOTH.items() if k not in ("pos",
+                                                               "rot")},
+                transform_pos=CLOTH["pos"], transform_rot=CLOTH["rot"])
+    b.add_force_field((0.0, 0.0, 3.0))
+    return b
+
+
+def test_cloth_scene_files_load_in_both(tmp_path):
+    """A cloth scene written by either package loads in the other."""
+    path = str(tmp_path / "scene.json")
+    tser.save_scene(path, _cloth_builder(SceneBuilder))
+    _assert_scenes_equal(_cloth_builder(SceneBuilder).finalize(device="cpu"),
+                         jser.load_scene(path).finalize())
+    jser.save_scene(path, _cloth_builder(JaxSceneBuilder))
+    _assert_scenes_equal(tser.load_scene(path).finalize(device="cpu"),
+                         _cloth_builder(JaxSceneBuilder).finalize())
+
+
+def test_cloth_state_roundtrip(tmp_path):
+    """A State that carries a ClothState: the port's npz reloads into the
+    port bit for bit, and into the JAX package (leaves in the JAX order,
+    the cloth's last); the JAX package's loads into the port."""
+    tscene = _cloth_builder(SceneBuilder).finalize(device="cpu")
+    jscene = _cloth_builder(JaxSceneBuilder).finalize()
+    settings = PhysicsSettings(num_rigid_solver_iterations=4,
+                               solver_mode="jacobi",
+                               cloth_solver_mode="colored")
+    st = tscene.initial_state(2)
+    for _ in range(3):
+        st = physics_step(tscene, st, settings, 1 / 120)[0]
+    path = str(tmp_path / "state.npz")
+    tser.save_state(path, st)
+    back = tser.load_state(path, tscene.initial_state(2))
+    for f in ("positions", "prev_positions", "velocities", "forces"):
+        assert torch.equal(getattr(back.cloth, f), getattr(st.cloth, f))
+    assert torch.equal(back.pos, st.pos)
+    restored = jser.load_state(path, jscene.initial_state())
+    assert len(jax.tree_util.tree_leaves(restored)) == 6 + 13 + 4
+    np.testing.assert_array_equal(
+        np.asarray(restored.cloth.positions)[1],
+        st.cloth.positions[1].numpy())
+    jst = jscene.initial_state()
+    jst = jst.replace(cloth=jst.cloth.replace(
+        velocities=jst.cloth.velocities + 0.25))
+    jser.save_state(path, jst)
+    tst = tser.load_state(path, tscene.initial_state(3))
+    for e in range(3):
+        np.testing.assert_array_equal(tst.cloth.velocities[e].numpy(),
+                                      np.asarray(jst.cloth.velocities))
+        np.testing.assert_array_equal(tst.cloth.positions[e].numpy(),
+                                      np.asarray(jst.cloth.positions))

@@ -1,7 +1,8 @@
-"""Port parity, PhysicsSettings (physics.py): every field the port shares
-with the JAX package's PhysicsSettings has the JAX default, so
-`physics_step(scene, state, PhysicsSettings())` runs the same solver in
-both packages ("scan", sequential impulses). Exact: these are constants."""
+"""Port parity, PhysicsSettings (physics.py): the port has every field of
+the JAX package's PhysicsSettings, each with the JAX default, so
+`physics_step(scene, state, PhysicsSettings())` runs the same solvers in
+both packages ("scan" sequential impulses, "scan" cloth). Exact: these are
+constants."""
 import dataclasses
 
 import pytest
@@ -18,7 +19,7 @@ from dxk_tpu_torch.scene import SceneBuilder
 torch.sqrt(torch.ones(4096))
 
 PORT_FIELDS = [f.name for f in dataclasses.fields(PhysicsSettings)]
-# the JAX fields the port does not have yet: cloth, ROADMAP Queue A 5a
+# the cloth fields, the last the port took over (ROADMAP Queue A 5a)
 CLOTH_FIELDS = {"num_cloth_velocity_iterations",
                 "num_cloth_position_iterations", "num_cloth_drift_iterations",
                 "cloth_solver_mode", "cloth_two_way"}
@@ -30,9 +31,11 @@ def test_default_matches_jax(name):
 
 
 def test_only_cloth_fields_missing():
-    jax_fields = {f.name for f in dataclasses.fields(JaxSettings)}
-    assert set(PORT_FIELDS) <= jax_fields
-    assert jax_fields - set(PORT_FIELDS) == CLOTH_FIELDS
+    """No field is missing any more: the port has every JAX field, in the
+    JAX package's order, the cloth fields among them."""
+    jax_fields = [f.name for f in dataclasses.fields(JaxSettings)]
+    assert PORT_FIELDS == jax_fields
+    assert CLOTH_FIELDS <= set(PORT_FIELDS)
 
 
 def test_default_step_is_scan():
