@@ -23,6 +23,10 @@ checkout and holding each against its plain PyTorch version on the card:
   - the same scene with config 4's 12 x 12 cloth and a second, thick one
     that falls on the ragdoll and the terrain (config 4 without its
     vehicle), 128 and 4096 envs, "colored" cloth with two-way coupling;
+  - BASELINE config 4 whole (bench.py:354-396): the gear-driven vehicle
+    and the 12 x 12 sheet on the terrain, pruned by orbit_margin=0.5, the
+    motor driven, 128 and 4096 envs; then a trigger volume and an owned
+    force field;
   - a 1,081-row pile of 46 boxes, 256 and 1000 envs, on the fused step;
   - bench.py's 1k-box stack (64 towers of 16 boxes, 32 envs) on the
     reference step under each of the three broadphases (table, K-select,
@@ -76,7 +80,8 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
              rows of the hull recipes and their branches; the piles stepped
              120 steps; then 600 steps at each batch: launches,
              finiteness, the debris' height, body-steps/s, the kernel's
-             times and bound
+             times and bound; a ray poke of the settled 256 envs (a quarter
+             of the rays at the hull debris) on the card against the CPU
   shapes     fused-step kernel vs plain version on the two golden scenes
              (initial, after 60 and 150 steps, after each main-path run) and
              on a sphere and cylinder check pile; live rows of the nine
@@ -106,6 +111,21 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
              debris, terrain), depth inside the shells, env-, body- and
              particle-steps/s, host and device ms and launches a step, peak
              memory, the kernel's times and bound
+  config4    the prepped kernel vs its plain version on config 4 (128 and
+             a ragged 1000 envs, initial and after 60 steps; 256 posed
+             envs in which all five contact recipes and the terrain rows
+             are live; the 4096 run's last state); 180 steps at 4096 envs
+             and 240 at 128 of the main path: launches, tests/test_vehicle.py's
+             drop-and-drive gates at step 180 (finite, spread and floor in
+             every env; the motor gear's spin in env 0, the undisturbed
+             drop, and in a share of the others), the sheet
+             finite, pinned and unstretched, env-, body- and
+             particle-steps/s, host and device ms and launches a step, peak
+             memory, the kernel's times and bound; the unpruned scene
+             (2,591 rows) on the kernel beside the pruned one over 240
+             steps; the cloth step on the card against the CPU; a trigger
+             and an owned force field: trigger masks and field forces on
+             the card against the CPU, enter and leave events
   bigpile    the fused-step kernel vs plain version on a 1,081-row box pile
              (46 boxes on a ground box, all pairs; more shared memory than
              a block holds in the one-env-per-block layout) at 256 and a
@@ -155,8 +175,8 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
              at one env (box_stack gated over 25, SCAN_GOLDEN_REASON)
 The line before the last is the card's name and power limit; the line before
 that lists every kernel (the fused step once per phase that runs it: loco,
-train, zoo, settle, shapes, fidelity, terrain, cloth and islands, each with the
-launch plan
+train, zoo, settle, shapes, fidelity, terrain, cloth, config4 and islands, each
+with the launch plan
 of its timed batch, envs per block and warps per env; then the three
 broadphase kernels, the overlap matrix with the launches of the box stack's
 table path and of the scan phase's entry configuration). The last line is
@@ -169,6 +189,7 @@ import argparse
 import json
 import os
 import subprocess
+import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -767,7 +788,7 @@ def train_phase(seed):
         run_kernel()
     b_ms, b_by, b_detail = bound_ms(tab, live, TRAIN_ENVS)
     out["kernel"] = dict(ms=time_ms(run_kernel, 20),
-                         plain_ms=time_ms(run_plain, 2), bound_ms=b_ms,
+                         plain_ms=time_ms(run_plain, 1), bound_ms=b_ms,
                          bound_by=b_by, bound_detail=b_detail,
                          err_v=cmp["err_v"], err_w=cmp["err_w"],
                          live_rows_by_recipe=cmp["live_rows_by_recipe"])
@@ -1513,7 +1534,7 @@ def zoo_phase(seed):
             run_kernel()
         b_ms, b_by, b_detail = bound_ms(tab, live, batch)
         timing[batch] = dict(ms=time_ms(run_kernel, 20),
-                             plain_ms=time_ms(run_plain, 2), bound_ms=b_ms,
+                             plain_ms=time_ms(run_plain, 1), bound_ms=b_ms,
                              bound_by=b_by, bound_detail=b_detail,
                              err_v=cmp["err_v"], err_w=cmp["err_w"])
     emit("zoo", chains=ZOO_CHAINS, bodies=n_bodies,
@@ -1820,6 +1841,64 @@ def debris_height(scene, state):
     return world[..., 1].amin(dim=1)
 
 
+POKE_ENVS = 256
+POKE_STRENGTH = 1000.0                    # N, LocoEnv's poke
+POKE_TOL = 1e-5
+POKE_REASON = (
+    "apply_ray_impulse on the card and on the CPU from the same state and "
+    "rays: the same float32 operations (sqrt and division correctly rounded "
+    "on both), reductions over 3 components perhaps in another order; each "
+    "accumulator held within 1e-5 of max(1, its largest value)")
+
+
+def poke_check(scene, cpu_scene, state, seed):
+    """physics.apply_ray_impulse on the card against the CPU on the first
+    POKE_ENVS envs of `state` (config 3's scene: the ragdoll and its hull
+    debris, the debris its last body): every fourth ray aimed down at the
+    debris from 3 m (the hull its first hit), the others at seeded ragdoll
+    parts, the last 8 far off (misses). The poked bodies, the accumulators'
+    errors and the envs whose debris was poked."""
+    from dxk_tpu_torch.physics import apply_ray_impulse
+    n = POKE_ENVS
+    st = _sub_state(state, lambda x: x[:n].contiguous())
+    st = st.replace(force_acc=torch.zeros_like(st.force_acc),
+                    torque_acc=torch.zeros_like(st.torque_acc))
+    rng = np.random.default_rng(seed)
+    nb = scene.num_bodies
+    debris = nb - 1
+    at_hull = np.arange(n) % 4 == 0
+    target_body = np.where(at_hull, debris, rng.integers(0, nb - 1, n))
+    target = st.pos.cpu().numpy()[np.arange(n), target_body]
+    d = rng.normal(size=(n, 3)) * 0.2
+    d[at_hull] += np.array([0.0, -1.0, 0.0])
+    d[~at_hull] += rng.normal(size=(int((~at_hull).sum()), 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    origin = target - 3.0 * d
+    origin[-8:] += 50.0
+    o, dd = (torch.from_numpy(x.astype(np.float32)) for x in (origin, d))
+    card = apply_ray_impulse(scene, st, o.to(DEVICE), dd.to(DEVICE),
+                             POKE_STRENGTH)
+    cpu = apply_ray_impulse(cpu_scene, _sub_state(st, lambda x: x.cpu()), o,
+                            dd, POKE_STRENGTH)
+    out = dict(envs=n, strength_n=POKE_STRENGTH, tolerance=POKE_TOL,
+               reason=POKE_REASON)
+    poked = {}
+    for key in ("force_acc", "torque_acc"):
+        a, b = getattr(card, key).cpu(), getattr(cpu, key)
+        out[f"{key}_nan_places_equal"] = bool(torch.equal(a.isnan(),
+                                                          b.isnan()))
+        a, b = a.nan_to_num(), b.nan_to_num()
+        err, scale = _rel_err(a, b)
+        out[key] = dict(err=err, scale=scale)
+        poked[key] = (a.abs().sum(-1) > 0, b.abs().sum(-1) > 0)
+    ka, ca = poked["force_acc"]
+    out["poked_bodies_equal"] = bool(torch.equal(ka, ca))
+    out["envs_poked"] = int(ka.any(-1).sum())
+    out["envs_hull_poked"] = int(ka[:, debris].sum())
+    out["device"] = str(card.force_acc.device)
+    return out
+
+
 def settle_phase(seed):
     """bench.py's ragdoll settle with its hull debris on the fused step:
     kernel vs plain version on the card (settle states, hull poses, the
@@ -1971,12 +2050,14 @@ def settle_phase(seed):
         work = recipe_flops(tab, cmp["branches"], batch)
         b_ms, b_by, b_detail = bound_ms(tab, klive, batch, work)
         timing[batch] = dict(ms=time_ms(run_kernel, 20),
-                             plain_ms=time_ms(run_plain, 2), bound_ms=b_ms,
+                             plain_ms=time_ms(run_plain, 1), bound_ms=b_ms,
                              bound_by=b_by, bound_detail=b_detail,
                              recipe_flops=work, err_v=cmp["err_v"],
                              err_w=cmp["err_w"],
                              live_rows_by_recipe=cmp["live_rows_by_recipe"],
                              branches=cmp["branches"])
+        if batch == SETTLE_BATCHES[0]:
+            poke = poke_check(scene, settle_scene("cpu"), st, seed + 2)
     emit("settle", bodies=scene.num_bodies, body_steps_counted=SETTLE_BODIES,
          colliders=tab.num_colliders, pair_rows=tab.num_rows,
          joints=tab.joint_counts, hull_dims=dict(zip(
@@ -1990,9 +2071,17 @@ def settle_phase(seed):
                    pair_rows=fs.fused_tables(pile, DEVICE).num_rows,
                    hull_dims=fs.fused_tables(pile, DEVICE).hull_dims),
          wide_checks=wide_checks, wide_pile=wide_timing, runs=runs,
-         kernel=timing)
+         kernel=timing, poke=poke)
     for c in list(checks.values()) + list(wide_checks.values()):
         hold_fused(c, relative=True)
+    if not (poke["poked_bodies_equal"] and poke["envs_hull_poked"]
+            and poke["force_acc_nan_places_equal"]
+            and poke["torque_acc_nan_places_equal"]
+            and poke["device"] != "cpu"
+            and all(poke[k]["err"] <= POKE_TOL * poke[k]["scale"]
+                    for k in ("force_acc", "torque_acc"))):
+        raise RuntimeError(f"settle: the poke on the card disagrees with the "
+                           f"CPU's: {poke}")
     dead = [r for r in ("capsule_hull", "box_hull", "hull_hull")
             if live.get(r, 0) == 0]
     dead += [f"{r}.{k}" for r, ks_ in (("capsule_hull", ("separated",
@@ -2422,7 +2511,7 @@ def shapes_phase(seed):
             work = recipe_flops(tab, cmp.get("branches", {}), batch)
             b_ms, b_by, b_detail = bound_ms(tab, klive, batch, work)
             timing[key] = dict(ms=time_ms(run_kernel, 20),
-                               plain_ms=time_ms(run_plain, 2), bound_ms=b_ms,
+                               plain_ms=time_ms(run_plain, 1), bound_ms=b_ms,
                                bound_by=b_by, bound_detail=b_detail,
                                recipe_flops=work,
                                live_rows_by_recipe=cmp["live_rows_by_recipe"])
@@ -3129,7 +3218,7 @@ def terrain_phase(seed):
         b_ms, b_by, b_detail = bound_ms(tab, klive, batch, work,
                                         prepped=False)
         timing[batch] = dict(ms=time_ms(lambda: solver(*inputs), 20),
-                             plain_ms=time_ms(run_plain, 2), bound_ms=b_ms,
+                             plain_ms=time_ms(run_plain, 1), bound_ms=b_ms,
                              bound_by=b_by, bound_detail=b_detail,
                              recipe_flops=work,
                              live_terrain_rows=int(
@@ -3459,7 +3548,8 @@ def cloth_cpu_check(scene, cpu_scene, state, mode):
     card and on the CPU from the same inputs: the cloth state, and the
     colliders and solver bodies of `state`'s next step computed on the card
     and copied over. Returns each field's error and scale after the last
-    step, and the last step's largest two-way impulse on a ragdoll body."""
+    step and, where the sheet collides, its two-way sums' and the last
+    step's largest two-way impulse on a ragdoll body."""
     from dxk_tpu_torch.ops.cloth import cloth_step
     from dxk_tpu_torch.ops.integrator import integrate_forces
     from dxk_tpu_torch.ops.shapes import world_colliders
@@ -3481,15 +3571,18 @@ def cloth_cpu_check(scene, cpu_scene, state, mode):
                                  heightfield=sc.heightfield, bodies=bb,
                                  colbody=sc.colliders.body)
         sides[name] = (cl, imp)
-    (kc, (kj, kt)), (cc, (cj, ct)) = sides["card"], sides["cpu"]
+    (kc, kimp), (cc, cimp) = sides["card"], sides["cpu"]
+    fields = [("positions", kc.positions, cc.positions),
+              ("velocities", kc.velocities, cc.velocities)]
+    if kimp is not None:       # the sheet collides: its two-way sums
+        fields += [("jsum", kimp[0], cimp[0]), ("tsum", kimp[1], cimp[1])]
     out = {}
-    for key, a, b in (("positions", kc.positions, cc.positions),
-                      ("velocities", kc.velocities, cc.velocities),
-                      ("jsum", kj, cj), ("tsum", kt, ct)):
+    for key, a, b in fields:
         err, scale = _rel_err(a, b)
         out[key] = dict(err=err, scale=scale)
-    n_rag = scene.num_bodies - len(TERRAIN_DEBRIS)
-    out["ragdoll_impulse_max"] = float(kj[:, :n_rag].abs().max())
+    if kimp is not None:
+        n_rag = scene.num_bodies - len(TERRAIN_DEBRIS)
+        out["ragdoll_impulse_max"] = float(kimp[0][:, :n_rag].abs().max())
     return out
 
 
@@ -3841,6 +3934,523 @@ def cloth_phase(seed):
 
 
 # ---------------------------------------------------------------------------
+# BASELINE config 4 whole: the vehicle and the sheet on the terrain
+
+CONFIG4_VEHICLE_POS = (0.0, 1.6, 0.0)              # bench.py:377
+CONFIG4_ORBIT_MARGIN = 0.5                         # bench.py:391
+CONFIG4_MOTOR = dict(hinge_motor_type=0, hinge_target=3.0,
+                     hinge_max_torque=500.0)       # bench.py:392-396
+
+
+def config4_builder(builder, add_vehicle):
+    """bench.py:367-388 (bench_cloth_vehicle_heightfield), copied: config
+    4's terrain (terrain_heights, cell 1.0, min corner (-16, 0, -16),
+    friction 1.0, no ground box), the vehicle at CONFIG4_VEHICLE_POS and
+    the 12 x 12 sheet at CLOTH_A_POS. `builder` is a SceneBuilder class
+    and `add_vehicle` its package's vehicle; returns (builder, vehicle),
+    finalized by the caller (bench.py: orbit_margin=0.5)."""
+    b = builder()
+    b.set_heightfield(terrain_heights(), cell_size=TERRAIN_CELL,
+                      min_corner=TERRAIN_CORNER, friction=1.0)
+    veh = add_vehicle(b, initial_position=CONFIG4_VEHICLE_POS)
+    b.add_cloth(**CLOTH_SHEET, transform_pos=CLOTH_A_POS)
+    return b, veh
+
+
+def with_motor(scene, veh):
+    """The port's scene with the vehicle's motor hinge driven as bench.py
+    drives it (velocity motor, target 3 rad/s, 500 N m)."""
+    c = scene.default_controls
+    fields = {}
+    for name, value in CONFIG4_MOTOR.items():
+        x = getattr(c, name).clone()
+        x[veh.motor_hinge] = value
+        fields[name] = x
+    return scene.replace(default_controls=c.replace(**fields))
+
+
+def config4_scene(device=DEVICE, orbit_margin=CONFIG4_ORBIT_MARGIN):
+    """BASELINE config 4 as bench.py builds it, on the port: (scene with
+    the motor driven, vehicle)."""
+    from dxk_tpu_torch.models.vehicle import add_vehicle
+    from dxk_tpu_torch.scene import SceneBuilder
+    b, veh = config4_builder(SceneBuilder, add_vehicle)
+    kw = {} if orbit_margin is None else dict(orbit_margin=orbit_margin)
+    return with_motor(b.finalize(device=device, **kw), veh), veh
+
+
+CONFIG4_BATCHES = (128, 4096)             # the cloth phase's batches
+CONFIG4_STEPS = 180                       # tests/test_vehicle.py's horizon
+CONFIG4_PRUNE_STEPS = 240                 # tests/test_orbit_prune.py's
+CONFIG4_PRUNE_BATCH = 128                 # run that far at this batch
+CONFIG4_RAGGED = 1000                     # envs of the 4096 run, held apart
+CONFIG4_WARM = 60
+CONFIG4_DT = 1.0 / 120.0
+CONFIG4_MODE = "colored"                  # bench.py:394
+CONFIG4_BODIES = 16
+CONFIG4_POSE_ENVS = 256
+CONFIG4_PROFILED = 3
+CONFIG4_SPREAD = 5.0                      # tests/test_vehicle.py's bounds
+CONFIG4_FLOOR = -1.0
+CONFIG4_SPIN = 0.05
+CONFIG4_SPIN_SHARE = 0.64                 # of envs 1.. above CONFIG4_SPIN at 180
+CONFIG4_PRUNE_TOL = 1e-5
+CONFIG4_RECIPES = ("capsule_capsule", "capsule_cylinder", "capsule_box",
+                   "cylinder_cylinder", "cylinder_box", "passed")
+CONFIG4_STATE_REASON = (
+    "every env starts from the scene's initial state, as bench.py's "
+    "_broadcast_state gives it; env 0 as it is, tests/test_vehicle.py's "
+    "drop, the others with a seeded 0.01 m/s normal velocity noise (as "
+    "tests/test_fused_solver.py perturbs its envs) so that they differ, "
+    "drawn with numpy so that tools/vehicle_spin_cpu.py replays the same "
+    "envs on the CPU")
+CONFIG4_SPIN_REASON = (
+    "tests/test_vehicle.py holds the motor gear's |w_y| > 0.05 rad/s at "
+    "step 180 of one undisturbed drop: env 0 is that drop and holds it "
+    "exactly; in envs that differ by the 0.01 m/s noise the loaded gear "
+    "train stalls and slips back and forth, and the instant misses the "
+    "bound in some envs in the JAX package too: its compiled \"jacobi\" "
+    "step of config 4 on the CPU (tools/vehicle_spin_cpu.py, envs 1-63 of "
+    "this phase's seed) has it in 50 of 63 (0.794, env 0 at 0.158 rad/s; "
+    "the port's plain fused step there: 49 of 63, env 0 at 0.159), "
+    "so the other envs hold a share: at least CONFIG4_SPIN_SHARE, JAX's "
+    "0.794 less three binomial standard errors of a 63-env share (0.153)")
+CONFIG4_PRUNE_REASON = (
+    "pruning leaves out only pair rows that never touch, and the kernel "
+    "skips a dead row and sums each body's deltas in row order, so the "
+    "pruned and the unpruned scene step alike: 0.0 expected, held within "
+    "1e-5 of max(1, the largest value)")
+CONFIG4_CLOTH_REASON = (
+    "bench.py adds config 4's sheet with no thickness, and a particle with "
+    "no thickness collides with nothing in both packages (ops/cloth.py "
+    "cloth_step calls collide_particles only where a thickness is > 0): the "
+    "sheet hangs from its pinned row and never meets the terrain, so its "
+    "terrain hits are 0 by construction; its clearance over the terrain is "
+    "printed instead")
+OVERLAP_ENVS = 256
+OVERLAP_STEPS = 240
+OVERLAP_EVERY = 20
+OVERLAP_TOL = 1e-5
+OVERLAP_REASON = (
+    "_overlap_interactions on the card and on the CPU from the same state: "
+    "the same float32 operations; the per-body force sums by index_add_ "
+    "(atomics on the card) held within 1e-5 of max(1, the largest force)")
+
+
+def config4_noise(batch, rows, seed):
+    """(batch, rows, 3) float32 linear-velocity noise, normal with 0.01 m/s
+    from numpy's default_rng(seed), env 0's zero; env e's rows are the same
+    at every batch."""
+    noise = np.random.default_rng(seed).normal(size=(batch, rows, 3)) * 0.01
+    noise[0] = 0.0
+    return noise.astype(np.float32)
+
+
+def config4_initial_state(scene, batch, seed):
+    """`batch` envs of config 4 from its initial state: env 0 as dropped,
+    the others with config4_noise's velocity noise."""
+    st = scene.initial_state(batch)
+    noise = config4_noise(batch, st.lin_vel.shape[1], seed)
+    return st.replace(lin_vel=st.lin_vel + torch.from_numpy(noise).to(
+        st.lin_vel.device))
+
+
+def config4_poses(scene, batch, seed):
+    """`batch` envs of config 4 in which each of the five contact recipes has
+    live rows: env e takes pair group e mod 5 (the groups hold capsule-
+    capsule, capsule-cylinder, capsule-box, cylinder-cylinder and
+    cylinder-box rows), picks a seeded row of it and turns the row's second
+    collider's body by up to 40 degrees, then moves it so that collider's
+    centre lies within 5 cm of the first's; then the whole vehicle is set
+    down until its lowest support point is a seeded 0-3 cm below the terrain,
+    so that terrain rows are live too."""
+    from dxk_tpu_torch.core.maths import quat_mul
+    from dxk_tpu_torch.ops.heightmap import height_at
+    from dxk_tpu_torch.ops.shapes import world_colliders
+    st = config4_initial_state(scene, batch, seed)
+    rng = np.random.default_rng(seed)
+    dev = st.pos.device
+    pos, rot = st.pos.clone(), st.rot.clone()
+    body = scene.colliders.body.long()
+    groups = [g.pairs.long() for g in scene.pair_groups]
+    for e in range(batch):
+        pairs = groups[e % len(groups)]
+        ia, ib = pairs[int(rng.integers(pairs.shape[0]))].tolist()
+        mover = int(body[ib])
+        axis = rng.normal(size=3)
+        ang = np.radians(rng.uniform(0, 40))
+        q = torch.tensor([*(axis / np.linalg.norm(axis) * np.sin(ang / 2)),
+                          np.cos(ang / 2)], dtype=torch.float32, device=dev)
+        rot[e, mover] = quat_mul(q, rot[e, mover])
+        w = world_colliders(scene, pos[e:e + 1], rot[e:e + 1])
+        centre = lambda c: (w.a[0, c] + w.b[0, c]) * 0.5 if int(
+            scene.colliders.ctype[c]) in (1, 2) else w.a[0, c]
+        target = centre(ia) + torch.from_numpy(
+            rng.uniform(-0.05, 0.05, 3)).float().to(dev)
+        pos[e, mover] += target - centre(ib)
+    w = world_colliders(scene, pos, rot)
+    low = terrain_lowest(scene, w)
+    gap = low[..., 1] - height_at(scene.heightfield, low[..., 0],
+                                  low[..., 2])
+    depth = torch.from_numpy(rng.uniform(0, 0.03, batch)).float().to(dev)
+    pos[:, :scene.num_bodies, 1] -= (gap.amin(dim=1) + depth)[:, None]
+    return st.replace(pos=pos, rot=rot)
+
+
+def vehicle_gates(scene, veh, state):
+    """tests/test_vehicle.py::test_drop_and_drive's measures in every env of
+    `state`, on the device: finite, each part's distance from the motor,
+    each part's height, the motor gear's spin about y."""
+    ids = torch.tensor(sorted(veh.parts.values()), device=state.pos.device)
+    pos, vel = state.pos[:, ids], state.lin_vel[:, ids]
+    spread = torch.linalg.vector_norm(
+        pos - state.pos[:, veh.parts["motor"]][:, None], dim=-1)
+    spin = state.ang_vel[:, veh.parts["motor_gear"], 1].abs()
+    return dict(finite=bool(torch.isfinite(pos).all()
+                            & torch.isfinite(vel).all()),
+                spread_max_m=float(spread.max()),
+                lowest_part_y_m=float(pos[..., 1].min()),
+                spin_env0_rad_s=float(spin[0]),
+                spin_min_rad_s=float(spin.min()),
+                share_spin_above=float(
+                    (spin[1:] > CONFIG4_SPIN).float().mean()))
+
+
+def sheet_clearance(scene, state):
+    """The sheet's lowest particle's height over the terrain below it (m),
+    on the device."""
+    from dxk_tpu_torch.ops.heightmap import height_at
+    p = state.cloth.positions
+    return (p[..., 1] - height_at(scene.heightfield, p[..., 0],
+                                  p[..., 2])).min()
+
+
+def overlap_check(seed):
+    """A trigger volume and a localized force field on the card
+    (overlap_builder's scene, OVERLAP_ENVS envs with seeded velocity noise,
+    the fused step): every OVERLAP_EVERY-th step the trigger mask and each
+    body's field force of _overlap_interactions on the card against the
+    CPU from the same state, and the mask physics_step returned against
+    the card's; over OVERLAP_STEPS steps, each env's trigger enter and leave
+    events by pair (trigger_events: both spheres fall through the trigger
+    box, one enter and one leave each) and the field bodies lifted."""
+    from dxk_tpu_torch.events import trigger_events
+    from dxk_tpu_torch.ops.shapes import collider_aabbs, world_colliders
+    from dxk_tpu_torch.physics import (PhysicsSettings, _overlap_interactions,
+                                       physics_step)
+    from dxk_tpu_torch.scene import SceneBuilder
+    b, field_bodies = overlap_builder(SceneBuilder)
+    scene = b.finalize(device=DEVICE)
+    cpu_scene = overlap_builder(SceneBuilder)[0].finalize(device="cpu")
+    settings = PhysicsSettings(num_rigid_solver_iterations=ITERATIONS,
+                               solver_mode="fused")
+    st = zoo_initial_state(scene, OVERLAP_ENVS, seed)
+    Q = scene.overlap_pairs.shape[0]
+    prev = torch.zeros((OVERLAP_ENVS, Q), dtype=torch.bool, device=DEVICE)
+    enters = torch.zeros_like(prev, dtype=torch.int64)
+    leaves = torch.zeros_like(enters)
+    lifted = torch.zeros(OVERLAP_ENVS, dtype=torch.bool, device=DEVICE)
+    mismatch, step_mismatch, force_err, force_scale, samples = 0, 0, 0.0, 1.0, 0
+    for i in range(OVERLAP_STEPS):
+        if i % OVERLAP_EVERY == 0:
+            outs = []
+            for sc, s in ((scene, st), (cpu_scene, _sub_state(
+                    st, lambda x: x.cpu()))):
+                w = world_colliders(sc, s.pos, s.rot)
+                mn, mx = collider_aabbs(sc, w)
+                outs.append(_overlap_interactions(sc, w, mn, mx))
+            (kt, kf), (ct, cf) = outs
+            mismatch += int((kt.cpu() != ct).sum())
+            err, scale = _rel_err(kf, cf)
+            force_err, force_scale = max(force_err, err), max(force_scale,
+                                                               scale)
+            samples += 1
+        st, info = physics_step(scene, st, settings, CONFIG4_DT)
+        if i % OVERLAP_EVERY == 0:
+            step_mismatch += int((info.trigger_overlap != kt).sum())
+        e, l_ = trigger_events(prev, info.trigger_overlap)
+        enters += e
+        leaves += l_
+        prev = info.trigger_overlap
+        lifted |= (st.lin_vel[:, field_bodies, 1] > 0.0).any(-1)
+    # the spheres' trigger pairs: each enters once and leaves once
+    c = scene.colliders
+    pairs = scene.overlap_pairs.long()
+    sphere_pairs = ((c.owner_type[pairs].amax(-1) == 3)
+                    & (c.ctype[pairs].amin(-1) == 0))
+    per_env_enters = enters[:, sphere_pairs].sum(-1)
+    per_env_leaves = leaves[:, sphere_pairs].sum(-1)
+    want = int(sphere_pairs.sum())
+    return dict(envs=OVERLAP_ENVS, steps=OVERLAP_STEPS,
+                overlap_pairs=Q, sphere_trigger_pairs=want,
+                enters_by_pair=enters.sum(0).tolist(),
+                leaves_by_pair=leaves.sum(0).tolist(),
+                field_force=list(OVERLAP_FF_FORCE),
+                field_turn_rad=OVERLAP_FF_TURN,
+                samples=samples, mask_mismatch_card_vs_cpu=mismatch,
+                mask_mismatch_step_vs_card=step_mismatch,
+                force_err=force_err, force_scale=force_scale,
+                tolerance=OVERLAP_TOL, reason=OVERLAP_REASON,
+                enters_per_env=sorted(set(per_env_enters.tolist())),
+                leaves_per_env=sorted(set(per_env_leaves.tolist())),
+                every_env_sphere_enters_and_leaves_once=bool(
+                    (per_env_enters == want).all()
+                    & (per_env_leaves == want).all()),
+                envs_lifted=int(lifted.sum()),
+                device=str(info.trigger_overlap.device))
+
+
+def config4_phase(seed):
+    """BASELINE config 4 whole (bench.py:354-396): the driven vehicle and
+    the 12 x 12 sheet on the terrain, finalize(orbit_margin=0.5), on the
+    fused step (prepped build, terrain rows passed in), "colored" cloth.
+    The main path at each batch for CONFIG4_STEPS steps (CONFIG4_PRUNE_STEPS
+    at CONFIG4_PRUNE_BATCH), counts from zero just before it:
+    tests/test_vehicle.py's drop-and-drive gates in every env, the sheet's
+    gates, rates, host and device ms and launches a step, peak memory, the
+    kernel's times and bound; the kernel vs its plain version (initial,
+    after CONFIG4_WARM steps, at 128 and a ragged 1000, on posed states
+    with every recipe live, and after the 4096 run); the unpruned scene
+    (2,591 rows) on the kernel beside the pruned one; the cloth step on the
+    card against the CPU; a trigger and an owned force field on the card
+    against the CPU (overlap_check)."""
+    from dxk_tpu_torch.ops.kernels import broadphase_kernel as bk
+    from dxk_tpu_torch.ops.kernels import fused_step as fs
+    from dxk_tpu_torch.ops.kernels import kselect_broadphase as ks
+    from dxk_tpu_torch.ops.kernels import sap_broadphase as sp
+    from dxk_tpu_torch.physics import PhysicsSettings, physics_step
+
+    t_phase = time.perf_counter()
+    marks = {}
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t_phase
+
+    counters = {"fused_step": fs, "aabb_overlap_matrix": bk,
+                "kselect_broadphase": ks, "sap_broadphase": sp}
+    scene, veh = config4_scene(DEVICE)
+    cpu_scene, _veh = config4_scene("cpu")
+    tab = fs.fused_tables(scene, DEVICE)
+    solver = fs.make_fused_step_solver(scene, ITERATIONS, 1.0)
+    settings = PhysicsSettings(num_rigid_solver_iterations=ITERATIONS,
+                               solver_mode="fused",
+                               cloth_solver_mode=CONFIG4_MODE)
+    P = scene.cloth.inv_masses.shape[0]
+
+    def counted(fn):
+        for mod in counters.values():
+            mod.reset_launch_count()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = {n: mod.launch_count() for n, mod in counters.items()}
+        launches["fused_step.prepped"] = fs.launch_count("prepped")
+        return out, time.perf_counter() - t0, launches
+
+    # ---- the main path at each batch, counts from zero just before it
+    states, runs, timing, ends = {}, {}, {}, {}
+    for batch in CONFIG4_BATCHES:
+        steps = (CONFIG4_PRUNE_STEPS if batch == CONFIG4_PRUNE_BATCH
+                 else CONFIG4_STEPS)
+        st0 = config4_initial_state(scene, batch, seed)
+        snap = {}
+
+        def run(st=st0, steps=steps, snap=snap):
+            clear = torch.full((), float("inf"), device=DEVICE)
+            for i in range(steps):
+                st = physics_step(scene, st, settings, CONFIG4_DT)[0]
+                if i == CONFIG4_WARM - 1:
+                    snap["warm"] = st
+                if i == CONFIG4_STEPS - 1:
+                    snap["gated"] = st
+                if i % 25 == 24:
+                    clear = torch.minimum(clear, sheet_clearance(scene, st))
+            snap["clear"] = clear
+            return st
+        torch.cuda.reset_peak_memory_stats()
+        st, secs, launches = counted(run)
+        peak = torch.cuda.max_memory_allocated()
+        if batch == CONFIG4_BATCHES[0]:
+            states[f"B{batch}_initial"] = st0
+            states[f"B{batch}_after_{CONFIG4_WARM}_steps"] = snap["warm"]
+        else:
+            cut = lambda x: x[:CONFIG4_RAGGED].contiguous()
+            states[f"B{CONFIG4_RAGGED}_initial"] = _sub_state(st0, cut)
+            states[f"B{CONFIG4_RAGGED}_after_{CONFIG4_WARM}_steps"] = \
+                _sub_state(snap["warm"], cut)
+        ends[batch] = st
+        holder = [st]
+
+        def step():
+            holder[0] = physics_step(scene, holder[0], settings,
+                                     CONFIG4_DT)[0]
+        prof = profile_steps(step, CONFIG4_PROFILED)
+        ms = secs / steps * 1e3
+        gates = vehicle_gates(scene, veh, snap["gated"])
+        runs[batch] = dict(
+            steps=steps, gated_at_step=CONFIG4_STEPS, seconds=secs,
+            env_steps_per_s=batch * steps / secs,
+            body_steps_per_s=CONFIG4_BODIES * batch * steps / secs,
+            particle_steps_per_s=P * batch * steps / secs,
+            ms_per_step=ms, launches=launches, vehicle=gates,
+            cloth_finite=bool(cloth_finite(st)),
+            pinned_bit_equal=cloth_pinned_equal(scene, st),
+            median_stretch_by_cloth=cloth_stretch(scene, st),
+            sheet_min_clearance_m=float(snap["clear"]),
+            peak_memory_bytes=peak,
+            **{k: v for k, v in prof.items() if k != "top_device_kernels"},
+            top_device_kernels=prof["top_device_kernels"][:4],
+            device_idle_share=1.0 - prof["device_busy_ms_per_step"] / ms)
+        # the kernel at this batch on the state after the run
+        inputs = kernel_inputs(scene, st, CONFIG4_DT)
+        for _ in range(3):
+            out = solver(*inputs)
+        work = recipe_flops(tab, fs.recipe_branches(
+            tab, inputs[1].a, inputs[1].b, inputs[1].rot), batch)
+        b_ms, b_by, b_detail = bound_ms(tab, out[3], batch, work)
+        timing[batch] = dict(ms=time_ms(lambda: solver(*inputs), 20),
+                             bound_ms=b_ms, bound_by=b_by,
+                             bound_detail=b_detail, recipe_flops=work)
+        mark(f"run_B{batch}")
+    big = CONFIG4_BATCHES[-1]
+    bodies_k, wcol, ctl, inv_dt, passed = inputs
+    timing[big]["plain_ms"] = time_ms(lambda: fs._fused_core(
+        tab, ITERATIONS, 1.0, inv_dt, torch.cat([bodies_k.v, bodies_k.w], -1),
+        bodies_k.inv_mass, bodies_k.inv_inertia, bodies_k.pos_cog,
+        bodies_k.rot, ctl, wcol.a, wcol.b, wcol.rot, passed=passed), 1)
+    mark("plain_ms")
+
+    # ---- pruning leaves the trajectory alone: the unpruned scene on the
+    # kernel from the same initial state as the pruned run at its batch
+    uscene, _uveh = config4_scene(DEVICE, orbit_margin=None)
+    utab = fs.fused_tables(uscene, DEVICE)
+    nb = CONFIG4_PRUNE_BATCH
+
+    def urun():
+        st = config4_initial_state(uscene, nb, seed)
+        for _ in range(CONFIG4_PRUNE_STEPS):
+            st = physics_step(uscene, st, settings, CONFIG4_DT)[0]
+        return st
+    ust, usecs, ulaunches = counted(urun)
+    pst = ends[nb]
+    diffs = {}
+    for name, a, b in (("pos", ust.pos, pst.pos), ("rot", ust.rot, pst.rot),
+                       ("lin_vel", ust.lin_vel, pst.lin_vel),
+                       ("ang_vel", ust.ang_vel, pst.ang_vel),
+                       ("cloth", ust.cloth.positions, pst.cloth.positions)):
+        err, scale = _rel_err(a, b)
+        diffs[name] = dict(err=err, scale=scale)
+    prune = dict(batch=nb, steps=CONFIG4_PRUNE_STEPS,
+                 pair_rows=dict(pruned=tab.num_rows, unpruned=utab.num_rows),
+                 plans=dict(pruned=vars(tab.launch_plan(nb)),
+                            unpruned=vars(utab.launch_plan(nb))),
+                 unpruned_seconds=usecs, unpruned_launches=ulaunches,
+                 diffs=diffs, bit_equal=all(v["err"] == 0.0
+                                            for v in diffs.values()),
+                 tolerance=CONFIG4_PRUNE_TOL, reason=CONFIG4_PRUNE_REASON)
+    mark("prune_check")
+
+    # ---- kernel vs plain version: bench's batch, a ragged one, the posed
+    # states with every recipe live, and the 4096 run's last state
+    states[f"B{CONFIG4_POSE_ENVS}_poses"] = config4_poses(
+        scene, CONFIG4_POSE_ENVS, seed + 1)
+    states[f"B{big}_after_{CONFIG4_STEPS}_steps"] = ends[big]
+    checks = hold_modes(scene, states, CONFIG4_DT, False, prep_in_kernel=True)
+    live = {}
+    for c in checks.values():
+        for r, n in c["live_rows_by_recipe"].items():
+            live[r] = live.get(r, 0) + n
+    mark("kernel_checks")
+
+    # ---- the cloth step on the card against the CPU, both cloth modes
+    first = _sub_state(ends[CONFIG4_BATCHES[0]],
+                       lambda x: x[:CLOTH_CPU_ENVS].contiguous())
+    cpu_checks = {mode: cloth_cpu_check(scene, cpu_scene, first, mode)
+                  for mode in ("colored", "scan")}
+    mark("cloth_card_vs_cpu")
+    overlaps = overlap_check(seed + 2)
+    mark("overlap_check")
+    seconds = time.perf_counter() - t_phase
+    emit("config4", bodies=scene.num_bodies, colliders=tab.num_colliders,
+         pair_rows=tab.num_rows, joints=tab.joint_counts, particles=P,
+         orbit_margin=CONFIG4_ORBIT_MARGIN, motor=CONFIG4_MOTOR,
+         iterations=ITERATIONS, dt=CONFIG4_DT,
+         cloth_solver_mode=CONFIG4_MODE, state_reason=CONFIG4_STATE_REASON,
+         plans=plans_by_batch(tab, CONFIG4_BATCHES + (CONFIG4_RAGGED,
+                                                      CONFIG4_POSE_ENVS)),
+         tolerance=KERNEL_TOL, tolerance_reason=TERRAIN_TOL_REASON,
+         checks=checks, live_rows_by_recipe=live,
+         vehicle_bounds=dict(spread_m=CONFIG4_SPREAD, floor_m=CONFIG4_FLOOR,
+                             spin_rad_s=CONFIG4_SPIN,
+                             spin_share=CONFIG4_SPIN_SHARE),
+         spin_reason=CONFIG4_SPIN_REASON, prune=prune,
+         card_vs_cpu=cpu_checks, card_vs_cpu_tol=CLOTH_CPU_TOL,
+         card_vs_cpu_reason=CLOTH_CPU_REASON, cloth_reason=CONFIG4_CLOTH_REASON,
+         stretch_tol=CLOTH_STRETCH_TOL, overlaps=overlaps, runs=runs,
+         kernel=timing, seconds=seconds, seconds_at_end_of=marks)
+    # ---- gates
+    for name, c in checks.items():
+        worst = max(c["err_v"] / c["v_scale"], c["err_w"] / c["w_scale"],
+                    c["err_imp"] / c["imp_scale"])
+        if not c["finite"] or c["mask_mismatch"] or not worst <= KERNEL_TOL:
+            raise RuntimeError(f"config4 {name}: the kernel disagrees with "
+                               f"its plain version: {c}")
+    dead = [r for r in CONFIG4_RECIPES if not live.get(r, 0)]
+    if dead:
+        raise RuntimeError(f"config4: no live {dead} row in the compared "
+                           f"states: {live}")
+    for batch, r in runs.items():
+        want = {n: (r["steps"] if n == "fused_step" else 0)
+                for n in counters}
+        want["fused_step.prepped"] = r["steps"]
+        v = r["vehicle"]
+        if (r["launches"] != want or not v["finite"]
+                or not v["spread_max_m"] < CONFIG4_SPREAD
+                or not v["lowest_part_y_m"] > CONFIG4_FLOOR
+                or not v["spin_env0_rad_s"] > CONFIG4_SPIN
+                or not v["share_spin_above"] >= CONFIG4_SPIN_SHARE
+                or not r["cloth_finite"] or not r["pinned_bit_equal"]
+                or not max(r["median_stretch_by_cloth"]) < CLOTH_STRETCH_TOL):
+            raise RuntimeError(f"config4 B={batch}: launches {r['launches']} "
+                               f"(expected {want}): {r}")
+    want = {n: (CONFIG4_PRUNE_STEPS if n == "fused_step" else 0)
+            for n in counters}
+    want["fused_step.prepped"] = CONFIG4_PRUNE_STEPS
+    bad = {k: v for k, v in diffs.items()
+           if not v["err"] <= CONFIG4_PRUNE_TOL * v["scale"]}
+    if bad or ulaunches != want:
+        raise RuntimeError(f"config4: the unpruned scene parts from the "
+                           f"pruned one: {prune}")
+    for mode, c in cpu_checks.items():
+        bad = {k: v for k, v in c.items()
+               if not v["err"] <= CLOTH_CPU_TOL * v["scale"]}
+        if bad:
+            raise RuntimeError(f"config4 cloth {mode}: the card's cloth step "
+                               f"disagrees with the CPU's: {bad}")
+    if (overlaps["mask_mismatch_card_vs_cpu"]
+            or overlaps["mask_mismatch_step_vs_card"]
+            or not overlaps["force_err"] <= OVERLAP_TOL
+            * overlaps["force_scale"]
+            or not overlaps["every_env_sphere_enters_and_leaves_once"]
+            or overlaps["envs_lifted"] != OVERLAP_ENVS
+            or overlaps["device"] == "cpu"):
+        raise RuntimeError(f"config4: trigger / force-field check failed: "
+                           f"{overlaps}")
+    return {
+        "name": "fused_step_config4", "route": "cuda",
+        "source": "dxk_tpu_torch/ops/kernels/csrc/fused_step.cu",
+        "replaces": "dxk_tpu/ops/pallas/fused_step.py:1177",
+        "launches": runs[big]["launches"]["fused_step.prepped"],
+        "max_abs_err": max(max(c["err_v"], c["err_w"], c["err_imp"])
+                           for c in checks.values()),
+        "ms": timing[big]["ms"], "plain_ms": timing[big]["plain_ms"],
+        "bound_ms": timing[big]["bound_ms"],
+        "bound_by": timing[big]["bound_by"], "library_ms": None,
+        **plan_fields(tab, big)}
+
+
+# ---------------------------------------------------------------------------
 # a 1,081-row box pile: a scene the one-env-per-block kernel refused
 
 BIGPILE_BOXES = 46
@@ -4037,6 +4647,38 @@ def services_check(sub, state, seed):
     return out
 
 
+OVERLAP_FF_FORCE = (0.0, 1500.0, 0.0)     # N, in the field owner's frame
+OVERLAP_FF_TURN = 0.3                     # rad about z: the force is turned
+
+
+def overlap_builder(builder):
+    """A trigger volume and a localized force field over a ground box
+    (tests/test_events.py's trigger scene, widened): a static 2 x 1 x 2 m
+    trigger box 2 m up, which two spheres fall through, and a static 2 m
+    force-field cube at x = -3, turned OVERLAP_FF_TURN about z, whose force
+    (1500 N up in its own frame, so also 443 N towards -x, away from the
+    trigger) lifts the box and the capsule dropped into it. Returns
+    (builder, the ids of those two bodies)."""
+    b = builder()
+    g = b.add_static()
+    b.add_box_collider(g, (0, -1, 0), (20, 1, 20))
+    trig = b.add_static(position=(0.0, 2.0, 0.0))
+    b.add_box_collider(trig, (0, 0, 0), (1.0, 0.5, 1.0))
+    b.mark_trigger(trig)
+    h = OVERLAP_FF_TURN * 0.5
+    ff = b.add_static(position=(-3.0, 1.0, 0.0),
+                      rotation=(0.0, 0.0, float(np.sin(h)), float(np.cos(h))))
+    b.add_box_collider(ff, (0, 0, 0), (1.0, 1.0, 1.0))
+    b.add_force_field(OVERLAP_FF_FORCE, owner=ff)
+    for x, y, z in ((0.0, 4.0, 0.0), (0.5, 5.5, 0.3)):
+        b.add_sphere_collider(b.add_body(position=(x, y, z)), (0, 0, 0), 0.3)
+    box = b.add_body(position=(-3.0, 3.0, 0.0))
+    b.add_box_collider(box, (0, 0, 0), (0.2, 0.2, 0.2))
+    capsule = b.add_body(position=(-2.7, 4.0, 0.2))
+    b.add_capsule_collider(capsule, (-0.25, 0, 0), (0.25, 0, 0), 0.15)
+    return b, [box, capsule]
+
+
 def islands_phase(seed, smi):
     """BASELINE config 1 on its default path: islandize turns the 64 towers
     into 64 identical 16-box sub-scenes, gather puts BOX_BATCH worlds of them
@@ -4164,7 +4806,7 @@ def islands_phase(seed, smi):
             ctl, wcol.a, wcol.b, wcol.rot, passed=passed)
     b_ms, b_by, b_detail = bound_ms(tab, klive, B)
     timing = dict(batch=B, ms=time_ms(lambda: solver(*inputs), 20),
-                  plain_ms=time_ms(run_plain, 2), bound_ms=b_ms,
+                  plain_ms=time_ms(run_plain, 1), bound_ms=b_ms,
                   bound_by=b_by, bound_detail=b_detail,
                   live_rows_per_env=float((klive != 0).sum()) / B)
     services = services_check(sub, st, seed)
@@ -4445,32 +5087,28 @@ def scan_phase(seed):
                            f"{gate_launches} times in one step")
     _hold_state(gate, b, "scan vs fused_seq, step 1", SCAN_FMA_REASON)
 
-    # ---- (d) the fast goldens on "scan", one env each
-    goldens = {}
-    for name, steps in SCAN_GOLDENS:
-        gscene = shapes_scene(name, DEVICE)
-        gold = np.load(golden_path(name))
-        gs = gscene.initial_state(1)
-        ss = PhysicsSettings(solver_mode="scan")
-        rows = []
-        t1 = time.perf_counter()
-        for i in range(steps):
-            gs = physics_step(gscene, gs, ss, FIDELITY_DT)[0]
-            if i % FIDELITY_EVERY == FIDELITY_EVERY - 1:
-                rows.append(torch.cat([gs.pos[0].flatten(),
-                                       gs.rot[0].flatten()]))
-        torch.cuda.synchronize()
-        g_secs = time.perf_counter() - t1
-        dev = np.abs(torch.stack(rows).cpu().numpy()
-                     - gold[:len(rows)]).max(axis=1)
-        gated = SCAN_GOLDEN_GATED.get(name, steps) // FIDELITY_EVERY
-        goldens[name] = dict(steps=steps, seconds=g_secs,
-                             max_dev=float(dev.max()),
-                             max_dev_gated=float(dev[:gated].max()),
-                             gated_steps=gated * FIDELITY_EVERY)
-        if not goldens[name]["max_dev_gated"] <= FIDELITY_TOL:
+    # ---- (d) the fast goldens on "scan", one env each: the longest in a
+    # child process of its own (scan_golden_child), beside the others here
+    # (each is launch bound on the host; the child is stopped on any error)
+    child = scan_golden_child(SCAN_GOLDEN_CHILD)
+    try:
+        goldens = {name: scan_golden(name, steps)
+                   for name, steps in SCAN_GOLDENS
+                   if name != SCAN_GOLDEN_CHILD}
+        out, _err = child.communicate(timeout=SCAN_GOLDEN_CHILD_TIMEOUT)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        raise RuntimeError(f"scan: the {SCAN_GOLDEN_CHILD} golden's process "
+                           f"exited with {child.returncode}: {out[-2000:]}")
+    goldens[SCAN_GOLDEN_CHILD] = json.loads(out.strip().splitlines()[-1])
+    goldens[SCAN_GOLDEN_CHILD]["own_process"] = True
+    for name, g in goldens.items():
+        if not g["max_dev_gated"] <= FIDELITY_TOL:
             raise RuntimeError(f"scan: {name} leaves its golden by "
-                               f"{goldens[name]['max_dev_gated']}")
+                               f"{g['max_dev_gated']}")
 
     emit("scan", envs=SCAN_ENVS, iterations=SCAN_ITERS,
          max_narrow_pairs=SCAN_NARROW, pokes=True, groups=groups,
@@ -4490,6 +5128,44 @@ def scan_phase(seed):
          golden_reason=SCAN_GOLDEN_REASON,
          phase_seconds=time.perf_counter() - t_phase)
     return launches["aabb_overlap_matrix"], matrix
+
+
+SCAN_GOLDEN_CHILD = "double_pendulum"   # the longest: ~164 s of 242
+SCAN_GOLDEN_CHILD_TIMEOUT = 600
+
+
+def scan_golden(name, steps):
+    """One golden scene at one env on "scan" for `steps` steps from its
+    start: its deviation from tests/golden/ at every FIDELITY_EVERY-th step
+    (the largest, and the largest over the gated steps) and the seconds."""
+    from dxk_tpu_torch.physics import PhysicsSettings, physics_step
+    gscene = shapes_scene(name, DEVICE)
+    gold = np.load(golden_path(name))
+    gs = gscene.initial_state(1)
+    ss = PhysicsSettings(solver_mode="scan")
+    rows = []
+    t1 = time.perf_counter()
+    for i in range(steps):
+        gs = physics_step(gscene, gs, ss, FIDELITY_DT)[0]
+        if i % FIDELITY_EVERY == FIDELITY_EVERY - 1:
+            rows.append(torch.cat([gs.pos[0].flatten(), gs.rot[0].flatten()]))
+    torch.cuda.synchronize()
+    g_secs = time.perf_counter() - t1
+    dev = np.abs(torch.stack(rows).cpu().numpy()
+                 - gold[:len(rows)]).max(axis=1)
+    gated = SCAN_GOLDEN_GATED.get(name, steps) // FIDELITY_EVERY
+    return dict(steps=steps, seconds=g_secs, max_dev=float(dev.max()),
+                max_dev_gated=float(dev[:gated].max()),
+                gated_steps=gated * FIDELITY_EVERY)
+
+
+def scan_golden_child(name):
+    """A child process of this script that runs scan_golden(name) on the
+    card and prints its result as its last line (main's --scan-golden)."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--scan-golden", name],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
 
 
 def _sub_state(state, sub):
@@ -4512,7 +5188,15 @@ def main():
     ap.add_argument("--steps", type=int, default=600,
                     help="env steps of each serve rollout (at least 120)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--scan-golden", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.scan_golden:
+        # the scan phase's child: one golden on "scan", its result as JSON
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke.py needs a CUDA device")
+        print(json.dumps(scan_golden(args.scan_golden, dict(SCAN_GOLDENS)[
+            args.scan_golden])), flush=True)
+        return
     if args.steps < 120:
         raise SystemExit("--steps must be at least 120")
 
@@ -4549,7 +5233,7 @@ def main():
     for _ in range(3):
         run_kernel()
     kernel_ms = time_ms(run_kernel, 20)
-    plain_ms = time_ms(run_plain, 2)
+    plain_ms = time_ms(run_plain, 1)
     kernel_ms2 = time_ms(run_kernel, 20)
     b_ms, b_by, b_detail = bound_ms(tab, live, NUM_ENVS)
     emit("kernels", tolerance=KERNEL_TOL, tolerance_reason=TOL_REASON,
@@ -4601,6 +5285,10 @@ def main():
     # ---- config 4 without its vehicle: cloth on the terrain and ragdoll
     cloth_kernel = cloth_phase(args.seed + 13)
 
+    # ---- config 4 whole: the vehicle and the sheet on the terrain; a
+    # trigger and an owned force field
+    config4_kernel = config4_phase(args.seed + 14)
+
     # ---- a 1,081-row box pile, past the one-env-per-block kernel's limit
     bigpile_phase(args.seed + 9)
 
@@ -4636,7 +5324,7 @@ def main():
         **plan_fields(tab, NUM_ENVS)}, train_kernel, zoo_kernel,
         settle_kernel,
         shapes_kernel, fidelity_kernel, terrain_kernel, cloth_kernel,
-        islands_kernel]
+        config4_kernel, islands_kernel]
         + box_kernels}),
         flush=True)
     print(smi, flush=True)

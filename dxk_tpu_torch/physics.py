@@ -5,7 +5,8 @@ package's physics.py):
   1. world-space collider flattening + AABBs
   2. broadphase: static pair tables, K-select or sort-and-sweep
   3. narrowphase: per-bucket contact manifolds (+ heightfield terrain rows)
-  4. integrate forces (gravity, damping, global force fields)
+  4. trigger / localized force-field overlaps, then integrate forces
+     (gravity, damping, global and localized force fields)
   5. contact and joint prep + N solver iterations over the seven types
   6. integrate velocities
   7. cloth (ops/cloth.py): wind, the constraint passes, the push-out from
@@ -18,9 +19,9 @@ and 5 run inside one kernel (ops/kernels/fused_step.py), heightfield
 terrain contacts prepared beside it and passed in; and the reference step
 for every other scene and mode ("scan", "jacobi", "colored"; "fused" runs
 "jacobi" there and "fused_seq" runs "scan"), with all 15 contact buckets,
-the six joint types and heightfield terrain. Both branches step cloth.
-Trigger and localized force-field overlaps raise NotImplementedError on
-both branches.
+the six joint types and heightfield terrain. Both branches find the
+trigger and localized force-field overlaps before the forces are
+integrated, and step cloth.
 """
 
 from __future__ import annotations
@@ -106,9 +107,6 @@ def _cloth_substep(scene, new_state, state, settings, dt, w, bodies):
 def physics_step(scene: Scene, state: State, settings: PhysicsSettings,
                  dt: float) -> Tuple[State, StepInfo]:
     """One fixed substep of a batch of environments."""
-    if scene.overlap_pairs is not None and scene.overlap_pairs.shape[0] > 0:
-        raise NotImplementedError(
-            "trigger / force-field overlaps are not ported yet")
     tracker = None
     if settings.validate:
         from dxk_tpu_torch.utils.validate import StageTracker
@@ -188,6 +186,52 @@ def _contacts_for_group(scene, w, group, pairs, mask):
     hit = hit & mask
     cnt = torch.where(hit, cnt, 0)
     return pts, dps, nrm, cnt, hit
+
+
+def _overlap_interactions(scene, w, mn, mx):
+    """Trigger and localized force-field overlaps with the rigid bodies
+    (overlapCheck, collision_narrow.cpp:1593-1689): the AABB pre-filter,
+    then the exact shape test of each type bucket (the contact recipes as
+    boolean tests), scattered back to the order of scene.overlap_pairs by
+    each bucket's baked flat_index. w: the step's world colliders, mn / mx
+    (B, C, 3). Returns (trigger_overlap (B, Q) bool, the force-field force
+    on each body (B, N+1, 3))."""
+    from dxk_tpu_torch.ops.broadphase import aabb_overlap_mask
+    pairs = scene.overlap_pairs.long()
+    B, Q = mn.shape[0], pairs.shape[0]
+    overlap = torch.zeros((B, Q), dtype=torch.bool, device=mn.device)
+    for g in scene.overlap_groups:
+        m = aabb_overlap_mask(mn, mx, g.pairs)
+        hit = _contacts_for_group(scene, w, g,
+                                  g.pairs[None].expand(B, -1, 2), m)[4]
+        overlap[:, g.flat_index] = hit
+
+    c = scene.colliders
+    ia, ib = pairs[:, 0], pairs[:, 1]
+    # which side is the trigger / force field, which the rigid body
+    a_is_other = c.owner_type[ia] >= 2
+    other = torch.where(a_is_other, ia, ib)
+    rb_body = c.body[torch.where(a_is_other, ib, ia)].long()
+    ff_type = c.owner_type[other] == 2
+    is_ff = ff_type & overlap                                   # (B, Q)
+    # a trigger's owner index counts triggers, not force-field slots
+    slot = torch.where(ff_type, c.owner_index[other], 0).long()
+    ff_force = scene.ff_forces[slot] * is_ff[..., None]         # (B, Q, 3)
+    force = torch.zeros((B, scene.num_bodies + 1, 3), dtype=ff_force.dtype,
+                        device=mn.device)
+    force.index_add_(1, rb_body, ff_force)
+    return (c.owner_type[other] == 3) & overlap, force
+
+
+def _with_overlaps(scene, state, w, mn, mx):
+    """The state with the localized force fields' forces added to its
+    accumulators before the forces are integrated (physics.cpp:963-967),
+    and the trigger mask; the state as it is and None for a scene without
+    overlap pairs."""
+    if scene.overlap_pairs is None or scene.overlap_pairs.shape[0] == 0:
+        return state, None
+    trigger, force = _overlap_interactions(scene, w, mn, mx)
+    return state.replace(force_acc=state.force_acc + force), trigger
 
 
 def reference_preps(scene, bodies, controls, dt32, contacts=None):
@@ -301,7 +345,8 @@ def _physics_step_reference(scene, state, settings, dt, tracker=None):
                                   scene.num_bodies,
                                   plan=heightfield_plan(scene))
 
-    # 4: integrate forces
+    # 4: trigger / force-field overlaps, then integrate forces
+    state, trigger_overlap = _with_overlaps(scene, state, w, mn, mx)
     bodies = integrate_forces(scene, state, dt32)
 
     # pair-major contact rows: (B, P, 4) points per pair, phases contiguous
@@ -383,7 +428,7 @@ def _physics_step_reference(scene, state, settings, dt, tracker=None):
         num_broadphase_overlaps=num_overlaps,
         num_contacts=total_contacts,
         broadphase_overflow=num_dropped,
-        trigger_overlap=None,
+        trigger_overlap=trigger_overlap,
         contact_pairs=contact_pairs,
         contact_mask=contact_mask,
         contact_impulse=(torch.sum(contact_imp_n, dim=-1)
@@ -442,9 +487,15 @@ def _physics_step_fused(scene, state, settings, dt, tracker=None):
     jp_in_kernel = settings.joint_prep_in_kernel and not sequential
 
     w = world_colliders(scene, state.pos, state.rot)
-    if tracker is not None:
-        tracker.check("world_colliders", w)
-        tracker.check("aabbs", collider_aabbs(scene, w))
+    trigger_overlap = None
+    if tracker is not None or scene.overlap_groups:
+        # the AABBs feed the trigger / force-field overlaps only here: the
+        # kernel's narrowphase needs no pre-filter
+        mn, mx = collider_aabbs(scene, w)
+        if tracker is not None:
+            tracker.check("world_colliders", w)
+            tracker.check("aabbs", (mn, mx))
+        state, trigger_overlap = _with_overlaps(scene, state, w, mn, mx)
     bodies = integrate_forces(scene, state, float(dt32))
     joints = joint_inputs(scene, bodies, controls, dt32, jp_in_kernel)
 
@@ -485,7 +536,7 @@ def _physics_step_fused(scene, state, settings, dt, tracker=None):
         num_broadphase_overlaps=n_live,
         num_contacts=n_live,
         broadphase_overflow=torch.zeros_like(n_live),
-        trigger_overlap=None,
+        trigger_overlap=trigger_overlap,
         contact_pairs=contact_pairs,
         contact_mask=live,
         contact_impulse=torch.sum(imp_n, dim=-1),
@@ -501,8 +552,6 @@ def apply_ray_impulse(scene: Scene, state: State, origin, direction,
     closest hit body's accumulators. origin, direction: (B, 3). The force
     persists until the next integration step."""
     from dxk_tpu_torch.ops import raycast as rc
-    if scene.hulls is not None:
-        raise NotImplementedError("ray casts against hulls are not ported")
 
     c = scene.colliders
     cbody = c.body.long()
@@ -518,7 +567,14 @@ def apply_ray_impulse(scene: Scene, state: State, origin, direction,
     t_cap, _ = rc.ray_capsule(o_l, d_l, c.a, c.b, c.r)
     t_cyl, _ = rc.ray_cylinder(o_l, d_l, c.a, c.b, c.r)
     t_box, _ = rc.ray_box(o_l, d_l, c.a, c.b, c.rot)
-    t_hull = torch.full_like(t_sph, big)
+    if scene.hulls is not None:
+        h = scene.hulls
+        hid = c.hull_id.long().clamp(min=0)    # -1 on the other types
+        t_hull, _ = rc.ray_hull(o_l, d_l, c.a, c.rot, h.vertices[hid],
+                                h.vertex_mask[hid], h.face_normals[hid],
+                                h.face_offsets[hid], h.face_mask[hid])
+    else:
+        t_hull = torch.full_like(t_sph, big)
 
     t = torch.where(c.ctype == 0, t_sph,
         torch.where(c.ctype == 1, t_cap,

@@ -10,11 +10,11 @@ in the JAX package, so both builders round the same values to float32);
 Ported so far: rigid bodies, statics, sphere/capsule/cylinder/box colliders,
 convex hull geometry (from triangle faces or a point cloud) and hull
 colliders, heightfield terrain, all six joint types, grid cloths, global
-(ownerless) force fields, static pair tables (capped or not, in contact
-phases or not, pruned by `candidate_margin` or not) and the K-select /
-sort-and-sweep broadphase settings. Force fields with an owner, trigger
-volumes and `orbit_margin` raise NotImplementedError naming their ROADMAP
-item.
+and localized force fields, trigger volumes and their overlap tables,
+static pair tables (capped or not, in contact phases or not, pruned by
+`candidate_margin` or `orbit_margin` or not) and the K-select /
+sort-and-sweep broadphase settings: everything the JAX package's builder
+does.
 """
 
 from __future__ import annotations
@@ -36,12 +36,6 @@ from dxk_tpu_torch.scene.scene import (
 
 GRAVITY = -9.81
 
-
-def _later(what, item=None):
-    where = f"ROADMAP.md Queue A {item}" if item else (
-        "see ROADMAP.md, PyTorch/CUDA port queues")
-    return NotImplementedError(
-        f"{what} is not ported to dxk_tpu_torch yet ({where})")
 
 # ---------------------------------------------------------------------------
 # numpy quaternion helpers (host side)
@@ -288,17 +282,31 @@ class SceneBuilder:
             int(hull_id)))
 
     def add_force_field(self, force, owner=None):
-        """A global force field: `force` acts on every rigid body and, as
-        wind, on every cloth. Returns its index. A localized field (an
-        `owner` whose colliders bound it) raises NotImplementedError."""
-        if owner is not None:
-            raise _later("force fields with an owner", "5c")
+        """A global force field if `owner` is None: `force` acts on every
+        rigid body and, as wind, on every cloth. Otherwise a localized
+        one: the owner's colliders bound it, and `force`, turned by the
+        owner's rotation, acts on the bodies that overlap them
+        (physics.cpp:759-787). Returns its index."""
+        idx = len(self._force_fields)
         self._force_fields.append({"force": np.asarray(force, np.float64),
-                                   "owner": None})
-        return len(self._force_fields) - 1
+                                   "owner": owner})
+        if owner is not None:
+            for ci in self._bodies[owner].colliders:
+                self._colliders[ci].owner_type = OWNER_FORCE_FIELD
+                self._colliders[ci].owner_index = idx
+        return idx
 
     def mark_trigger(self, owner):
-        raise _later("trigger volumes", "5c")
+        """Mark an owner's colliders as a trigger volume; the bodies that
+        overlap it are reported as a boolean mask in
+        StepInfo.trigger_overlap (the events-as-data form of the
+        reference's trigger callbacks). Returns the trigger's index."""
+        idx = self._num_triggers
+        self._num_triggers += 1
+        for ci in self._bodies[owner].colliders:
+            self._colliders[ci].owner_type = OWNER_TRIGGER
+            self._colliders[ci].owner_index = idx
+        return idx
 
     # -- joints ----------------------------------------------------------
 
@@ -496,7 +504,7 @@ class SceneBuilder:
             I = rot @ I_per_rho @ rot.T * rho
             cog_l = _np_quat_rotate(c.rot, cog) + c.a
             return m_per_rho * rho, cog_l, I
-        raise _later(f"mass properties of shape type {c.ctype}")
+        raise ValueError(f"unknown shape type {c.ctype}")
 
     def _aggregate_body(self, body: _Body):
         """rigid_body_component::recalculateProperties (rigid_body.cpp:29-81)."""
@@ -559,7 +567,7 @@ class SceneBuilder:
     def _collider_bounding_spheres(self, col, init_pos, init_rot, nb):
         """Initial-pose world bounding sphere per collider (conservative):
         picks the broad statics of the sort-and-sweep broadphase and prunes
-        the pair tables under candidate_margin."""
+        the pair tables under candidate_margin and orbit_margin."""
         C = len(self._colliders)
         centers = np.zeros((C, 3))
         brads = np.zeros(C)
@@ -604,11 +612,24 @@ class SceneBuilder:
         paired by a dense side pass. candidate_margin=M keeps a static
         candidate pair only if the colliders' initial bounding spheres
         come within M of each other (the scene promises that pruned pairs
-        never touch). orbit_margin raises NotImplementedError."""
+        never touch).
+
+        orbit_margin=M is the rotation-safe variant of candidate_margin
+        for articulated machines with spinning parts (gear trains: the
+        vehicle's tooth capsules sweep full circles, so initial-centre
+        pruning would drop tooth pairs that mesh half a revolution later).
+        Each collider is bounded by the spherical shell it sweeps when its
+        body rotates arbitrarily about its own centre of mass: radii
+        [max(0, d-b), d+b] around the body COM, where d = the collider
+        centre's distance from the COM and b = its bounding radius
+        (statics, which never rotate, use their plain bounding sphere). A
+        pair is kept iff the shells come within M of each other at the
+        initial body-COM separation. The scene promises only that the
+        COM-to-COM distances stay within M of their initial values (true
+        for joint-held mechanisms like the vehicle: suspension travel
+        bounds the COM drift, so pass M >= that travel)."""
         if broadphase not in ("table", "kselect", "sap"):
             raise ValueError(f"unknown broadphase {broadphase!r}")
-        if orbit_margin is not None:
-            raise _later("orbit_margin pruning")
         device = resolve_device(device)
 
         def tens(x):
@@ -709,6 +730,31 @@ class SceneBuilder:
                              + candidate_margin)
                 coll_buckets[key] = [tuple(q) for q in p[keep]]
 
+        if orbit_margin is not None:
+            centers, brads = sphs or self._collider_bounding_spheres(
+                col, init_pos, init_rot, nb)
+            # world COM per body at t0; a collider's swept shell is centred
+            # on its body's COM (statics never rotate: pinned to the
+            # collider centre, the shell is the plain bounding sphere)
+            com_w = init_pos + np.stack(
+                [_np_quat_rotate(init_rot[i], local_cog[i])
+                 for i in range(n1)])
+            cbody = col["body"]
+            ref = np.where((cbody < nb)[:, None], com_w[cbody], centers)
+            d0 = np.linalg.norm(centers - ref, axis=-1)
+            outer = d0 + brads
+            inner = np.maximum(0.0, d0 - brads)
+            for key, pairs in list(coll_buckets.items()):
+                p = np.asarray(pairs, np.int32).reshape(-1, 2)
+                if len(p) == 0:
+                    continue
+                ia, ib = p[:, 0], p[:, 1]
+                D = np.linalg.norm(ref[ia] - ref[ib], axis=-1)
+                gap = np.maximum.reduce([D - outer[ia] - outer[ib],
+                                         inner[ia] - D - outer[ib],
+                                         inner[ib] - D - outer[ia]])
+                coll_buckets[key] = [tuple(q) for q in p[gap <= orbit_margin]]
+
         cap = max_narrow_pairs_per_group or self.max_narrow_pairs_per_group
         groups = []
         for (ta, tb), pairs in sorted(coll_buckets.items()):
@@ -732,8 +778,22 @@ class SceneBuilder:
                                         pairs=tens(pp),
                                         max_narrow=int(max_narrow),
                                         phase=int(ph)))
-        if len(overlap_pairs):
-            raise _later("trigger / force-field overlap pairs")
+        # trigger / force-field overlap pairs, bucketed by type for the
+        # exact shape tests (overlapCheck, collision_narrow.cpp:1593-1689);
+        # each bucket keeps its rows' indices into overlap_pairs
+        overlap_groups = []
+        op = np.asarray(overlap_pairs, np.int32).reshape(-1, 2)
+        if len(op):
+            ta_arr = col["ctype"][op[:, 0]]
+            tb_arr = col["ctype"][op[:, 1]]
+            for t1 in range(5):
+                for t2 in range(t1, 5):
+                    m = (ta_arr == t1) & (tb_arr == t2)
+                    if m.any():
+                        overlap_groups.append(PairGroup(
+                            type_a=int(t1), type_b=int(t2),
+                            pairs=tens(op[m]), max_narrow=int(m.sum()),
+                            flat_index=tens(np.flatnonzero(m))))
 
         # --- joints -------------------------------------------------------
         def bake(kind, fields):
@@ -791,11 +851,15 @@ class SceneBuilder:
         )
 
         # --- force fields: the global ones summed (ownerless, so not
-        # rotated); localized slots stay zero
+        # rotated); a localized one's force turned by its owner's rotation
         global_ff = np.zeros(3)
         ff_forces = np.zeros((max(len(self._force_fields), 1), 3))
-        for ff in self._force_fields:
-            global_ff += ff["force"]
+        for idx, ff in enumerate(self._force_fields):
+            if ff["owner"] is not None:
+                ff_forces[idx] = _np_quat_rotate(
+                    self._bodies[ff["owner"]].rotation, ff["force"])
+            else:
+                global_ff += ff["force"]
 
         f32 = lambda x: tens(np.asarray(x).astype(dtype))
         cloth = None
@@ -827,8 +891,8 @@ class SceneBuilder:
             broadphase_kind=("sap" if broadphase == "sap" else "kselect"),
             sap_window=int(sap_window),
             sap_broad=sap_broad,
-            overlap_groups=(),
-            overlap_pairs=tens(np.zeros((0, 2), np.int32)),
+            overlap_groups=tuple(overlap_groups),
+            overlap_pairs=tens(op),
             distance=distance, ball=ball, fixed=fixed, hinge=hinge,
             cone_twist=cone_twist, slider=slider,
             default_controls=controls,

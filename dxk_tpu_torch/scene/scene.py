@@ -134,6 +134,13 @@ class BodyParams(_Struct):
     angular_damping: torch.Tensor   # (N+1,)
 
 
+def port_only(default=None):
+    """A field the JAX package's struct does not have: data the port keeps
+    on the host (or derives at finalize) so that a step never reads a
+    device tensor back. utils.convert.scene_arrays leaves it out."""
+    return dataclasses.field(default=default, metadata={"port_only": True})
+
+
 @dataclass
 class PairGroup(_Struct):
     """A static candidate-pair table for one (typeA, typeB) bucket. Pairs
@@ -145,6 +152,9 @@ class PairGroup(_Struct):
     pairs: torch.Tensor = None       # (P, 2) int32 collider indices
     max_narrow: int = 0
     phase: int = 0
+    # an overlap group's rows' indices into Scene.overlap_pairs, (P,) int64
+    # on the device (None for a contact group)
+    flat_index: torch.Tensor = port_only()
 
 
 @dataclass
@@ -192,13 +202,6 @@ class MotorControls(_Struct):
     slider_motor_type: torch.Tensor     # (Js,) int32
     slider_target: torch.Tensor         # (Js,)
     slider_max_force: torch.Tensor      # (Js,)
-
-
-def port_only(default=None):
-    """A field the JAX package's struct does not have: data the port keeps
-    on the host (or derives at finalize) so that a step never reads a
-    device tensor back. utils.convert.scene_arrays leaves it out."""
-    return dataclasses.field(default=default, metadata={"port_only": True})
 
 
 @dataclass

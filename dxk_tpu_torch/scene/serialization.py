@@ -5,10 +5,9 @@ through npz. Counterpart of the JAX package's scene/serialization.py, with
 the same files: a scene or state written by either package loads in the
 other.
 
-Cloths and global (ownerless) force fields round-trip; the port's
-builder has no triggers or localized force fields yet, so it writes
-`num_triggers: 0`, and a file with a trigger or a force field that has an
-owner raises NotImplementedError on load.
+Cloths, force fields (global and localized: the owner's body index) and
+trigger volumes (the colliders' owner type and index, and the count)
+round-trip.
 
 A state's npz holds its tensors as `leaf_0`, `leaf_1`, ... in field order
 (pos, rot, lin_vel, ang_vel, force_acc, torque_acc, the controls' fields,
@@ -75,11 +74,6 @@ def builder_to_dict(b: SceneBuilder) -> dict:
 
 
 def builder_from_dict(d: dict) -> SceneBuilder:
-    if d.get("num_triggers", 0) or any(
-            ff["owner"] is not None for ff in d.get("force_fields", [])):
-        raise NotImplementedError(
-            "the scene holds triggers or force fields with an owner, which "
-            "are not ported yet (ROADMAP.md Queue A 5c)")
     b = SceneBuilder()
     for body in d["bodies"]:
         b._bodies.append(_Body(
@@ -119,7 +113,8 @@ def builder_from_dict(d: dict) -> SceneBuilder:
             b._hull_faces.append((np.zeros((0, 3)), np.zeros((0,))))
     for ff in d.get("force_fields", []):
         b._force_fields.append({"force": np.asarray(ff["force"], np.float64),
-                                "owner": None})
+                                "owner": ff["owner"]})
+    b._num_triggers = d.get("num_triggers", 0)
     # "cloth" (singular) is the format from before scenes held several
     legacy = [d["cloth"]] if d.get("cloth") else []
     for c in legacy + list(d.get("cloths", [])):

@@ -12,7 +12,8 @@ whole steps against the JAX package's physics_step:
     position's rounding, over 60 steps);
   - the fused branch at one env against the JAX step run op by op under
     jax.disable_jit(), bit for bit, over 3 steps of a sphere on a ground
-    box under a thick sheet with two-way coupling, "colored" cloth;
+    box under a thick sheet with two-way coupling, "colored" cloth (and,
+    marked slow, "scan" cloth);
   - chip_smoke's cloth scene on the fused branch: tests/test_torch_cloth.py.
 
 Inputs come from the scenes' builders and a numpy seed."""
@@ -250,12 +251,23 @@ FUSED_STEPS = 3
 
 def test_fused_step_matches_eager_jax():
     """FUSED_STEPS fused steps of drop_builder's scene with a ground box
-    and a 6 x 6 sheet in "colored" cloth, bit for bit ("scan" cloth is
-    held against the compiled JAX step by test_reference_step_matches_jax
-    and tests/test_torch_cloth.py; the JAX package's eager "scan" runs its
-    lax.scan constraint by constraint, 47 s for these 3 steps)."""
+    and a 6 x 6 sheet in "colored" cloth, bit for bit ("scan" cloth:
+    test_fused_step_matches_eager_jax_scan_cloth, slow; the JAX package's
+    eager "scan" runs its lax.scan constraint by constraint)."""
+    _fused_steps_vs_eager_jax("colored")
+
+
+@pytest.mark.slow
+def test_fused_step_matches_eager_jax_scan_cloth():
+    """The same FUSED_STEPS fused steps in "scan" cloth (the reference's
+    sequential sweep, run by the port as dependency levels), bit for bit
+    against the JAX package's eager step."""
+    _fused_steps_vs_eager_jax("scan")
+
+
+def _fused_steps_vs_eager_jax(cloth_mode):
     kw = dict(solver_mode="fused", num_rigid_solver_iterations=10,
-              cloth_solver_mode="colored", **CLOTH_ITERS)
+              cloth_solver_mode=cloth_mode, **CLOTH_ITERS)
     jscene = drop_builder(JaxSceneBuilder, cloth_size=6).finalize()
     tscene = drop_builder(SceneBuilder, cloth_size=6).finalize(device="cpu")
     jst = jscene.initial_state()

@@ -190,22 +190,24 @@ def test_refusals(name, kw):
 
 @pytest.mark.parametrize("field", ["cloth", "overlap_pairs"])
 def test_cloth_and_trigger_scenes_refused(field):
-    """A cloth scene as each package's add_cloth builds it, with the same
-    message in both. The port's builder makes no trigger yet: the overlap
-    pairs are set on the finalized scenes, as such a scene would carry
-    them."""
+    """A cloth scene as each package's add_cloth builds it, and a trigger
+    scene as each package's mark_trigger builds it, with the same message
+    in both."""
     make, kw = SCENES["towers"]
-    if field == "cloth":
-        def with_cloth(builder):
-            b = make(builder)
+
+    def with_extra(builder):
+        b = make(builder)
+        if field == "cloth":
             b.add_cloth(1.0, 1.0, 4, 4, 1.0, transform_pos=(0, 6, 0))
-            return b
-        jscene = with_cloth(JaxSceneBuilder).finalize(**kw)
-        tscene = with_cloth(SceneBuilder).finalize(device="cpu", **kw)
-    else:
-        (jscene, _jim), (tscene, _tim) = both("towers")
-        tscene = tscene.replace(overlap_pairs=torch.tensor([[0, 1]]))
-        jscene = jscene.replace(overlap_pairs=jnp.asarray([[0, 1]]))
+        else:
+            trig = b.add_static(position=(0.0, 6.0, 0.0))
+            b.add_box_collider(trig, (0, 0, 0), (1.0, 0.5, 1.0))
+            b.mark_trigger(trig)
+        return b
+    jscene = with_extra(JaxSceneBuilder).finalize(**kw)
+    tscene = with_extra(SceneBuilder).finalize(device="cpu", **kw)
+    if field == "overlap_pairs":
+        assert tscene.overlap_pairs.shape[0] > 0
     with pytest.raises(NotIslandizable) as te:
         islandize(tscene)
     with pytest.raises(JaxNotIslandizable) as je:

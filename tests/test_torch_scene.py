@@ -99,33 +99,58 @@ def test_ragdoll_tables():
 
 
 def _trigger_volume(b):
-    """A trigger volume (Queue A 8). This case stepped a heightfield scene
-    on the reference step until that was ported;
-    tests/test_torch_scan_terrain.py holds that step against the JAX
-    package now."""
-    b.mark_trigger(b.add_static())
+    """A trigger volume (Queue A 5c): a box over the sphere."""
+    owner = b.add_static(position=(0.0, 2.0, 0.0))
+    b.add_box_collider(owner, (0, 0, 0), (0.5, 0.5, 0.5))
+    b.mark_trigger(owner)
 
 
 def _owned_force_field(b):
-    """A force field with an owner (Queue A 5c). This case was add_cloth
-    until cloth was ported; tests/test_torch_cloth.py and
-    tests/test_torch_cloth_step.py hold cloth against the JAX package now."""
-    b.add_force_field((0.0, 5.0, 0.0), owner=b.add_static())
+    """A force field with an owner (Queue A 5c), turned with its owner."""
+    owner = b.add_static(position=(1.0, 0.5, 0.0),
+                         rotation=(0.0, 0.0, 0.3826834, 0.9238795))
+    b.add_box_collider(owner, (0, 0, 0), (0.5, 0.5, 0.5))
+    b.add_force_field((0.0, 5.0, 0.0), owner=owner)
+
+
+def _orbit_margin(b):
+    """finalize(orbit_margin=...) (Queue A 5b)."""
+    return dict(orbit_margin=0.25)
 
 
 @pytest.mark.parametrize("call", [
     _owned_force_field,
     _trigger_volume,
-    lambda b: b.finalize(orbit_margin=0.25, device="cpu"),
+    _orbit_margin,
 ])
 def test_unported_builder_features_raise(call):
-    b = SceneBuilder()
-    g = b.add_static()
-    b.add_box_collider(g, (0, -1, 0), (5, 1, 5))
-    bd = b.add_body(position=(0, 1, 0))
-    b.add_sphere_collider(bd, (0, 0, 0), 0.5)
-    with pytest.raises(NotImplementedError):
-        call(b)
+    """The builder features that raised NotImplementedError until they were
+    ported (the test keeps its name): each builds, on a ground box and a
+    sphere, the same Scene as the JAX package's builder (ints exactly, floats to 1e-7)."""
+    def make(builder):
+        b = builder()
+        g = b.add_static()
+        b.add_box_collider(g, (0, -1, 0), (5, 1, 5))
+        bd = b.add_body(position=(0, 1, 0))
+        b.add_sphere_collider(bd, (0, 0, 0), 0.5)
+        return b, call(b) or {}
+    from dxk_tpu.scene import SceneBuilder as JaxSceneBuilder
+    tb, kw = make(SceneBuilder)
+    jb, _ = make(JaxSceneBuilder)
+    want = {}
+    _flatten_jax("", jb.finalize(**kw), want)
+    want.pop("heightfield", None)
+    got = scene_arrays(tb.finalize(device="cpu", **kw))
+    assert sorted(got) == sorted(want)
+    for name in sorted(want):
+        w, g = want[name], got[name]
+        assert g.shape == w.shape, name
+        if np.issubdtype(w.dtype, np.floating):
+            assert np.abs(g.astype(np.float64) - w).max(initial=0.0) <= 1e-7, name
+        else:
+            assert np.array_equal(g, w), name
+    if call is not _orbit_margin:
+        assert got["overlap_pairs"].shape == (1, 2)
 
 
 def _box_towers(builder):

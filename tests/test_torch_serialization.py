@@ -15,8 +15,9 @@ written by one package and read by the other.
     ownerless force fields loaded by both packages to the same scene, and a
     cloth scene written by either loaded by the other; a State carrying a
     ClothState round-tripped within the port and across the packages;
-  - a file with triggers or a force field that has an owner refused by the
-    port."""
+  - a file with triggers or a force field that has an owner loaded by
+    both packages to the same scene (tests/test_torch_triggers.py
+    round-trips whole trigger scenes)."""
 import json
 
 import jax
@@ -170,12 +171,18 @@ def test_scene_and_state_roundtrip(tmp_path):
     ("num_triggers", 1), ("force_fields", [{"force": [0, 1, 0],
                                             "owner": 0}])])
 def test_unported_content_refused(key, value):
-    """Triggers and force fields with an owner (ROADMAP Queue A 5c). Cloths
-    and ownerless force fields load: test_cloth_content_loads."""
-    d = tser.builder_to_dict(build(SceneBuilder))
+    """Triggers and force fields with an owner, which the port refused
+    until they were ported (the test keeps its name): such a file loads in
+    the port and in the JAX package to the same builder, and finalizes to
+    the same scene (every static array exact). Whole trigger and
+    owned-field scenes: tests/test_torch_triggers.py."""
+    d = _json(tser.builder_to_dict(build(SceneBuilder)))
     d[key] = value
-    with pytest.raises(NotImplementedError):
-        tser.builder_from_dict(d)
+    tb, jb = tser.builder_from_dict(_json(d)), jser.builder_from_dict(
+        _json(d))
+    assert _json(tser.builder_to_dict(tb)) == _json(jser.builder_to_dict(jb))
+    assert _json(tser.builder_to_dict(tb))[key] == value
+    _assert_scenes_equal(tb.finalize(device="cpu"), jb.finalize())
 
 
 CLOTH = dict(width=2.0, height=1.5, grid_x=6, grid_y=5, total_mass=1.0,
