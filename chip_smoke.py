@@ -37,7 +37,14 @@ checkout and holding each against its plain PyTorch version on the card:
     (the gym adapter, validate, editor picking) on the card;
   - the JAX package's entry() configuration, the ragdoll locomotion env
     on the reference step in "scan" (sequential impulses, 10 iterations,
-    capped narrowphase tables), 4096 envs.
+    capped narrowphase tables), 4096 envs;
+  - the demo scene (dxk_tpu_torch.examples.demo_scene: terrain from
+    Perlin noise, falling spheres, a trigger, a ball-joint chain, fire,
+    smoke and debris particles, collision sounds, the debug ray-caster) at
+    one env as the example runs it and at 1024 envs for a frame; the
+    ray-caster on the hull, cylinder and sphere scenes;
+  - GJK + EPA on every pairing of the five shapes and skeletal animation
+    of 4096 instances.
 
     python3 chip_smoke.py                 # full run
     python3 chip_smoke.py --steps 120     # shorter serve phase
@@ -173,13 +180,42 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
              (SCAN_FMA_REASON); the goldens sphere_bounce and
              double_pendulum over 1000 steps and box_stack over 50 on "scan"
              at one env (box_stack gated over 25, SCAN_GOLDEN_REASON)
+  demo       the noise's hash and the demo's terrain on the card against
+             the CPU (NOISE_REASON); the twin of examples/demo_scene.py at
+             one env, its terrain computed on the card (six frames of 60
+             "scan" steps, fire / smoke / debris pools of 256, begin
+             events, sound triggers, a 160 x 120 frame each): its
+             per-frame fields and parts' seconds, finite, the spheres'
+             heights within the bounds of the JAX example's run, a begin
+             event, debris alive after the burst, each frame's hit share
+             in (0, 1), the first frame on the card against the CPU
+             (DEMO_CPU_REASON); a crafted sphere-on-sphere impact whose
+             begin event is audible, card against CPU (DEMO_SOUND_REASON);
+             the twin's state after three frames as 1024 envs (env 0
+             undisturbed, the others with 0.01 m/s of velocity noise)
+             through two frames of demo_scene.run_frame after a warm one:
+             ms and launches a step, device idle share, particle-steps/s,
+             events and sounds host ms, rays/s and ms a render, peak
+             memory, begins in the first frame, debris alive after the
+             second; at the twin's and the batch's shapes the
+             overlap-matrix kernel against its plain version, its launches
+             and times; the ray-caster at 256 envs on the settle scene, the
+             golden mixed drop and the sphere bounce (every collider type
+             hit, 4 envs against the CPU); each part alone, in this process
+  content    GJK + EPA on 65,536 seeded pairs of each of the 15 pairings of
+             sphere, capsule, cylinder, box and hull: ms, hit share, a
+             slice against the CPU (CONTENT_REASON), the analytic
+             recipes' agreement (CONTENT_STATS_REASON); 4096 animation
+             instances of a 24-joint clip updated, composed and skinned
+             (1024 points, 4 weights), timed, 8 against the CPU
 The line before the last is the card's name and power limit; the line before
 that lists every kernel (the fused step once per phase that runs it: loco,
 train, zoo, settle, shapes, fidelity, terrain, cloth, config4 and islands, each
 with the launch plan
 of its timed batch, envs per block and warps per env; then the three
 broadphase kernels, the overlap matrix with the launches of the box stack's
-table path and of the scan phase's entry configuration). The last line is
+table path, of the scan phase's entry configuration and of the demo's
+twin and batch). The last line is
 {"ok": true, "device": {...}}.
 
 Imports torch and the port only; nothing of JAX.
@@ -897,6 +933,32 @@ def aabbs(scene, state):
     w = world_colliders(scene, state.pos, state.rot)
     mn, mx = collider_aabbs(scene, w)
     return mn.contiguous(), mx.contiguous()
+
+
+def overlap_matrix_check(scene, state, what):
+    """The overlap-matrix kernel against its plain version on the AABBs of
+    `state` (call it after the main path's launch count was read: these
+    launches are not the path's), then its time, the plain version's and
+    the bound at this (B, C). Raises on any difference."""
+    from dxk_tpu_torch.ops.kernels import broadphase_kernel as bk
+    mn, mx = aabbs(scene, state)
+    B, C = mn.shape[:2]
+    got = bk.aabb_overlap_matrix(mn, mx)
+    torch.cuda.synchronize()
+    err = int((got.long() - bk.aabb_overlap_matrix_plain(
+        mn, mx).long()).abs().max())
+    if err != 0:
+        raise RuntimeError(f"{what}: the overlap-matrix kernel differs from "
+                           f"its plain version by {err}")
+    for _ in range(3):
+        bk.aabb_overlap_matrix(mn, mx)
+    m_ms = time_ms(lambda: bk.aabb_overlap_matrix(mn, mx), 50)
+    m_plain = time_ms(lambda: bk.aabb_overlap_matrix_plain(mn, mx), 3)
+    t_bytes = (B * C * 6 * 4 + B * C * C) / PEAK_BYTES * 1e3
+    t_ops = B * C * C * OPS_AABB_TEST / PEAK_FLOPS * 1e3
+    return dict(ms=m_ms, plain_ms=m_plain, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes > t_ops else "operations",
+                B=B, C=C, max_abs_err=err)
 
 
 def broadphase_calls(scenes, mn, mx):
@@ -3075,12 +3137,15 @@ def terrain_counts(scene, inputs, live):
     return by_tag, by_k, safety
 
 
-def profile_steps(step, n):
+def profile_steps(step, n, host_ops=True):
     """Device busy ms, device kernel launches and fused-step kernel ms per
     call of `step` over `n` calls under torch.profiler, and the top device
-    kernels."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    kernels. host_ops=False traces the device alone: the same device rows,
+    without the host's operator events (tens of thousands a step on the
+    reference step, whose processing takes seconds)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if host_ops:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(n):
             step()
@@ -4963,7 +5028,6 @@ def scan_phase(seed):
                           f"{SHAPE_TYPE_NAMES[g.type_b]}",
                    pairs=int(g.pairs.shape[0]), slots=g.max_narrow,
                    phase=g.phase) for g in scene.pair_groups]
-    C = scene.colliders.ctype.shape[0]
 
     # ---- (a) the entry configuration: warm steps, then the timed steps
     # with the launch counts from zero
@@ -5022,23 +5086,8 @@ def scan_phase(seed):
     dropped = int(info.broadphase_overflow.sum())
 
     # the overlap-matrix kernel against its plain version on these AABBs
-    mn, mx = aabbs(scene, st.physics)
-    got = bk.aabb_overlap_matrix(mn, mx)
-    torch.cuda.synchronize()
-    matrix_err = int((got.long() - bk.aabb_overlap_matrix_plain(
-        mn, mx).long()).abs().max())
-    if matrix_err != 0:
-        raise RuntimeError(f"scan: the overlap-matrix kernel differs from "
-                           f"its plain version by {matrix_err}")
-    for _ in range(3):
-        bk.aabb_overlap_matrix(mn, mx)
-    m_ms = time_ms(lambda: bk.aabb_overlap_matrix(mn, mx), 50)
-    m_plain = time_ms(lambda: bk.aabb_overlap_matrix_plain(mn, mx), 3)
-    t_bytes = (SCAN_ENVS * C * 6 * 4 + SCAN_ENVS * C * C) / PEAK_BYTES * 1e3
-    t_ops = SCAN_ENVS * C * C * OPS_AABB_TEST / PEAK_FLOPS * 1e3
-    matrix = dict(ms=m_ms, plain_ms=m_plain, bound_ms=max(t_bytes, t_ops),
-                  bound_by="bytes" if t_bytes > t_ops else "operations",
-                  B=SCAN_ENVS, C=C)
+    matrix = overlap_matrix_check(scene, st.physics, "scan")
+    matrix_err = matrix.pop("max_abs_err")
 
     # 8 envs' state before the last timed step, with the controls that
     # step set (and no poke), stepped by the same code on the card and on
@@ -5137,7 +5186,9 @@ SCAN_GOLDEN_CHILD_TIMEOUT = 600
 def scan_golden(name, steps):
     """One golden scene at one env on "scan" for `steps` steps from its
     start: its deviation from tests/golden/ at every FIDELITY_EVERY-th step
-    (the largest, and the largest over the gated steps) and the seconds."""
+    (the largest, and the largest over the gated steps) and the seconds.
+    The steps run in inference mode, as the demo's frames do: the same
+    operations, each with less host work."""
     from dxk_tpu_torch.physics import PhysicsSettings, physics_step
     gscene = shapes_scene(name, DEVICE)
     gold = np.load(golden_path(name))
@@ -5145,10 +5196,12 @@ def scan_golden(name, steps):
     ss = PhysicsSettings(solver_mode="scan")
     rows = []
     t1 = time.perf_counter()
-    for i in range(steps):
-        gs = physics_step(gscene, gs, ss, FIDELITY_DT)[0]
-        if i % FIDELITY_EVERY == FIDELITY_EVERY - 1:
-            rows.append(torch.cat([gs.pos[0].flatten(), gs.rot[0].flatten()]))
+    with torch.inference_mode():
+        for i in range(steps):
+            gs = physics_step(gscene, gs, ss, FIDELITY_DT)[0]
+            if i % FIDELITY_EVERY == FIDELITY_EVERY - 1:
+                rows.append(torch.cat([gs.pos[0].flatten(),
+                                       gs.rot[0].flatten()]))
     torch.cuda.synchronize()
     g_secs = time.perf_counter() - t1
     dev = np.abs(torch.stack(rows).cpu().numpy()
@@ -5181,6 +5234,803 @@ def _sub_state(state, sub):
         else:
             fields[f.name] = x
     return state.replace(**fields)
+
+
+DEMO_ENVS = 1024
+DEMO_BATCH_FROM = 3                       # the twin's frames before the batch
+DEMO_BATCH_FRAMES = 2
+NOISE_HASH_POINTS = 4096
+NOISE_HEIGHT_TOL = 4e-6                   # m, tests/test_torch_noise.py's
+NOISE_REASON = (
+    "the hash is integer arithmetic, held bit for bit; the heights pass "
+    "through cos / sin, which the card and the CPU may round an ulp apart, "
+    "summed over four octaves and scaled by 4 to ~6 m: held within 4e-6 m, "
+    "the tolerance the tests hold the port's CPU heights to against JAX's")
+DEMO_STATE_TOL = 1e-4                     # of max(1, the largest |value|)
+DEMO_POOL_TOL = 1e-4
+DEMO_DEPTH_TOL = 1e-4                     # of max(1, depth)
+DEMO_RGB_TOL = 1e-3
+DEMO_EXCUSED_PIXELS = 8                   # of a 160 x 120 frame's pixels
+DEMO_CPU_REASON = (
+    "the first frame (60 \"scan\" steps and the pools' tick) on the card "
+    "against the same code on the CPU from the same state and uniforms: "
+    "the same float32 operations, but the card's reductions (the solver's "
+    "per-body sums) may add in another order, so states and pools are held "
+    "within 1e-4 of scale after 60 steps")
+DEMO_RENDER_REASON = (
+    "a render of one state on the card against the CPU: the same float32 "
+    "operations, but the card's 3-term sums may round an ulp apart, and "
+    "t = -b - sqrt(b^2 - c) divides that ulp (of b^2 ~ 600 m^2 at the "
+    "demo's 25 m) by sqrt(b^2 - c), which is at most the radius: ~2.5e-5 "
+    "of the depth on the chain's 0.08 m capsules, more where a ray grazes "
+    "any surface; such an ulp can also flip a grazing ray's hit or tip a "
+    "box's face, picked by the largest |local coordinate| at an edge. "
+    "Depths are held within 1e-4 relative and colours within 1e-3, and 8 "
+    "pixels of each 160 x 120 frame may flip or differ past those: "
+    "against 1e-5 relative, the first card run had 10 pixels past, the "
+    "largest 1.7e-4 in depth and 0.015 in colour")
+# sphere heights after the six frames: python examples/demo_scene.py (the
+# JAX package on the CPU) prints [1.0, 1.42, 1.76]; the port's plain path
+# on the CPU [1.0, 1.41, 1.76] (python -m dxk_tpu_torch.examples.demo_scene
+# --device cpu). Sphere 0 rests on the ground box (top at y = 0, radius 1),
+# the others on it or beside it: centres within 1.0 +- 0.02 for sphere 0
+# and within [0.95, 3.05] (on the ground, or on a sphere) for all
+DEMO_SPHERE0_Y = (0.98, 1.02)
+DEMO_SPHERE_Y = (0.95, 3.05)
+DEMO_SOUND_REASON = (
+    "events are diffed once a frame, the frame's last step against the "
+    "last frame's (as the JAX example does), and in the six frames only "
+    "resting contacts begin there, below the audible speed, in the JAX "
+    "example too (it prints no sound line); the sound path is gated on a "
+    "crafted impact instead: sphere 1 dropped onto sphere 0 at 4 m/s from "
+    "3 cm above, whose begin event on the frame's last step is audible "
+    "(tests/test_torch_demo_scene.py's drop), card against CPU")
+RASTER_ENVS = 256
+RASTER_CPU_ENVS = 4
+RASTER_SCENES = {"settle": ((4.0, 2.5, 5.0), (0.0, 1.0, 0.0)),
+                 "mixed_shape_drop": ((5.0, 4.0, 6.0), (0.0, 2.0, 0.0)),
+                 "sphere_bounce": ((3.0, 2.0, 4.0), (0.0, 1.0, 0.0))}
+
+
+def _demo_draws(batch, gen, device):
+    """Each pool's uniforms for one tick, drawn from `gen` on `device`."""
+    return {k: torch.rand((batch, 256, 6), generator=gen, device=device)
+            for k in ("fire", "smoke", "debris")}
+
+
+def _finite(*xs):
+    return all(bool(torch.isfinite(x).all()) for x in xs)
+
+
+def _frame_finite(fr):
+    s = fr.state
+    ok = _finite(s.pos, s.rot, s.lin_vel, s.ang_vel)
+    for _p, ps in fr.pools.values():
+        ok = ok and _finite(ps.pos, ps.vel, ps.life)
+    if fr.rgb is not None:
+        ok = ok and _finite(fr.rgb, fr.depth)
+    return ok
+
+
+def _pool_errs(a, b):
+    """Per pool: alive counts equal, emit_accum and fields' largest error
+    relative to max(1, their largest)."""
+    from dxk_tpu_torch.ops.particles import alive_count
+    out = {}
+    for k in a:
+        pa, pb = a[k][1], b[k][1]
+        errs = {f: _rel_err(getattr(pa, f), getattr(pb, f))
+                for f in ("pos", "vel", "life", "max_life", "rot",
+                          "emit_accum")}
+        out[k] = dict(alive_equal=bool(torch.equal(
+            alive_count(pa).cpu(), alive_count(pb).cpu())),
+            worst=max(e / s for e, s in errs.values()))
+    return out
+
+
+def _render_errs(rgb, depth, rgb_ref, depth_ref):
+    """Pixels whose hit flips; over the pixels both hit, those whose depth
+    differs past DEMO_DEPTH_TOL relative or whose colour differs past
+    DEMO_RGB_TOL, and the largest errors."""
+    hit, hit_ref = depth.cpu() > 0, depth_ref.cpu() > 0
+    both = hit & hit_ref
+    dd = (depth.cpu() - depth_ref.cpu()).abs()[both]
+    rel = dd / torch.clamp(depth_ref.cpu()[both], min=1.0)
+    dc = (rgb.cpu() - rgb_ref.cpu()).abs().amax(-1)[both]
+    past = (rel > DEMO_DEPTH_TOL) | (dc > DEMO_RGB_TOL)
+    return dict(pixels=int(hit.numel()), flips=int((hit != hit_ref).sum()),
+                pixels_past_tol=int(past.sum()),
+                depth_rel_err=float(rel.max()) if rel.numel() else 0.0,
+                rgb_err=float(dc.max()) if dc.numel() else 0.0)
+
+
+def _hold_render(errs, what):
+    allowed = DEMO_EXCUSED_PIXELS * errs["pixels"] // (160 * 120)
+    if errs["flips"] + errs["pixels_past_tol"] > allowed:
+        raise RuntimeError(f"{what}: render differs {errs} "
+                           f"({DEMO_RENDER_REASON})")
+
+
+def demo_impact_check(device, heights):
+    """tests/test_torch_demo_scene.py's drop on the card and on the CPU (both
+    on the terrain `heights`): one frame of two steps in which sphere 1
+    lands on sphere 0. Returns the begin events and sound triggers of
+    each."""
+    from dxk_tpu_torch.examples import demo_scene as demo
+    from dxk_tpu_torch.ops.cloth import collider_groups
+    out = {}
+    for dev in (device, "cpu"):
+        b, spheres = demo.build_demo_scene(heights=heights)
+        scene = demo.finalize_demo(b, dev)
+        st = scene.initial_state(1)
+        st.pos[0, spheres[0], 1] = 8.0
+        st.pos[0, spheres[1], 1] = 10.03
+        st.lin_vel[0, spheres[1], 1] = -4.0
+        groups = collider_groups(scene.colliders.ctype.cpu().numpy(),
+                                 scene.hulls is not None, dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        fr = demo.run_frame(scene, st, demo.init_pools(1, dev), None,
+                            groups=groups, steps=2, generator=gen,
+                            rng=np.random.default_rng(demo.SOUND_SEED),
+                            render_frame=False)
+        out[dev] = dict(begins=[(e.collider_a, e.collider_b, e.impulse)
+                                for e in fr.events[0][0]],
+                        sounds=fr.sounds[0])
+    card, cpu = out[device], out["cpu"]
+    if not card["sounds"]:          # triggers are audible (volume > 0)
+        raise RuntimeError(f"demo: the crafted impact made no sound "
+                           f"trigger on the card: {card}")
+    same = ([b[:2] for b in card["begins"]] == [b[:2] for b in cpu["begins"]]
+            and len(card["sounds"]) == len(cpu["sounds"])
+            and all(abs(a["volume"] - b["volume"]) <= 1e-5
+                    and a["pitch"] == b["pitch"]
+                    for a, b in zip(card["sounds"], cpu["sounds"])))
+    if not same:
+        raise RuntimeError(f"demo: the impact's events on the card {card} "
+                           f"differ from the CPU's {cpu}")
+    return dict(card=card, cpu=cpu, equal_to_cpu=same)
+
+
+def noise_check(device):
+    """utils/noise.py on the card against the CPU: the lattice hash on
+    NOISE_HASH_POINTS seeded coordinates whose products pass int32, and the
+    int32 extremes, bit for bit; the demo's terrain within
+    NOISE_HEIGHT_TOL. Returns the result and the card's heights."""
+    from dxk_tpu_torch.examples import demo_scene as demo
+    from dxk_tpu_torch.utils import noise
+    rng = np.random.default_rng(3)
+    ix = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, NOISE_HASH_POINTS))
+    iy = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, NOISE_HASH_POINTS))
+    ix[:4] = torch.tensor([2 ** 31 - 1, -2 ** 31, 0, -1])
+    iy[:4] = torch.tensor([-2 ** 31, 2 ** 31 - 1, -1, 0])
+    hash_equal = all(torch.equal(
+        noise._hash2(ix.to(device), iy.to(device), seed).cpu(),
+        noise._hash2(ix, iy, seed)) for seed in (0, 3, 2 ** 31 - 1))
+    t0 = time.perf_counter()
+    heights = noise.terrain_heightfield(**demo.TERRAIN, device=device)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    err = float((heights.cpu() - noise.terrain_heightfield(
+        **demo.TERRAIN, device="cpu")).abs().max())
+    out = dict(hash_points=NOISE_HASH_POINTS, hash_equal=hash_equal,
+               terrain_shape=list(heights.shape), terrain_ms=ms,
+               height_err_m=err, height_tol_m=NOISE_HEIGHT_TOL,
+               reason=NOISE_REASON)
+    if not (hash_equal and err <= NOISE_HEIGHT_TOL):
+        raise RuntimeError(f"demo: the noise on the card differs from the "
+                           f"CPU: {out}")
+    return out, heights.cpu().numpy()
+
+
+def demo_twin(device, heights):
+    """The twin as `python -m dxk_tpu_torch.examples.demo_scene` runs it: one
+    env, six frames of 60 steps and 160 x 120 frames, the terrain's noise
+    computed on the card (`heights` is what noise_check got there; the CPU
+    rerun of the first frame takes them, to keep the noise's rounding out
+    of the step's). The pools' uniforms are drawn from a seeded generator
+    on the card up front, so that the first frame can be redone on the CPU.
+    Returns its per-frame fields and gates, and the state, step info and
+    pools after DEMO_BATCH_FROM frames (demo_batch starts there)."""
+    from dxk_tpu_torch.examples import demo_scene as demo
+    from dxk_tpu_torch.ops.cloth import collider_groups
+    from dxk_tpu_torch.ops.kernels import broadphase_kernel as bk
+    from dxk_tpu_torch.ops.particles import alive_count
+    from dxk_tpu_torch.physics import PhysicsSettings, physics_step
+    from dxk_tpu_torch.render.raster import render
+
+    b, spheres = demo.build_demo_scene(device=device)
+    scene = demo.finalize_demo(b, device)
+    if not np.array_equal(scene.heightfield.heights.cpu().numpy(), heights):
+        raise RuntimeError("demo: the twin's terrain is not noise_check's")
+    groups = collider_groups(scene.colliders.ctype.cpu().numpy(),
+                             scene.hulls is not None, device)
+    st = scene.initial_state(1)
+    pools = demo.init_pools(1, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    rng = np.random.default_rng(demo.SOUND_SEED)
+    prev, frames, first, start = None, [], None, None
+    begins_total, sounds_total = 0, 0
+    bk.reset_launch_count()
+    t0 = time.perf_counter()
+    for i in range(demo.FRAMES):
+        draws = _demo_draws(1, gen, device)
+        fr = demo.run_frame(scene, st, pools, prev, groups=groups, rng=rng,
+                            draws=draws)
+        if i == 0:
+            first = (st, pools, draws, fr)
+        st, pools, prev = fr.state, fr.pools, fr.info
+        if i + 1 == DEMO_BATCH_FROM:
+            start = (st, prev, pools)
+        if not _frame_finite(fr):
+            raise RuntimeError(f"demo: frame {i} is not finite")
+        hit_share = float((fr.depth[0] > 0).float().mean())
+        if not 0.0 < hit_share < 1.0:
+            raise RuntimeError(f"demo: frame {i} hit share {hit_share}")
+        begins = fr.events[0][0]
+        begins_total += len(begins)
+        sounds_total += len(fr.sounds[0])
+        trig = (fr.info.trigger_overlap[0].cpu().tolist()
+                if fr.info.trigger_overlap is not None else None)
+        frames.append(dict(
+            t=demo.PARTICLE_DT * (i + 1), seconds=fr.seconds, trigger=trig,
+            contacts=int(fr.info.num_contacts[0]),
+            alive={k: int(alive_count(p[1])[0]) for k, p in pools.items()},
+            begins=[(e.collider_a, e.collider_b, e.body_a, e.body_b,
+                     e.impulse) for e in begins],
+            sounds=len(fr.sounds[0]), hit_share=hit_share))
+        print(json.dumps(frames[-1]), file=sys.stderr, flush=True)
+    total = time.perf_counter() - t0
+    matrix_launches = bk.launch_count()
+    ys = [float(st.pos[0, s, 1]) for s in spheres]
+    lo0, hi0 = DEMO_SPHERE0_Y
+    lo, hi = DEMO_SPHERE_Y
+    if not (lo0 <= ys[0] <= hi0 and all(lo <= y <= hi for y in ys)):
+        raise RuntimeError(f"demo: sphere heights {ys} outside the bounds "
+                           f"{DEMO_SPHERE0_Y}, {DEMO_SPHERE_Y}")
+    if begins_total == 0:
+        raise RuntimeError("demo: no collision begin event in six frames")
+    if max(f["alive"]["debris"] for f in frames) == 0:
+        raise RuntimeError("demo: no debris alive after the burst")
+
+    # ms a step from the frames' own steps; device busy time and launches
+    # of one more step under torch.profiler
+    step_s = sum(f["seconds"]["steps"] for f in frames)
+    ms_step = step_s / (demo.FRAMES * demo.STEPS_PER_FRAME) * 1e3
+    settings = PhysicsSettings()
+    holder = [st]
+
+    def one_step():
+        holder[0] = physics_step(scene, holder[0], settings, demo.DT)[0]
+    prof = profile_steps(one_step, 1, host_ops=False)
+    prof.pop("fused_kernel_ms_per_step")
+    prof["device_idle_share"] = 1.0 - prof["device_busy_ms_per_step"] / ms_step
+    matrix = overlap_matrix_check(scene, st, "demo twin")
+
+    # the first frame again on the CPU from the same state and uniforms
+    s0, p0, draws, fr0 = first
+    cb, _ = demo.build_demo_scene(heights=heights)
+    cscene = demo.finalize_demo(cb, "cpu")
+    cgroups = collider_groups(cscene.colliders.ctype.numpy(),
+                              cscene.hulls is not None, "cpu")
+    cpools = {k: (p.to("cpu"), ps.to("cpu")) for k, (p, ps) in p0.items()}
+    cfr = demo.run_frame(cscene, s0.to("cpu"), cpools, None, groups=cgroups,
+                         rng=np.random.default_rng(demo.SOUND_SEED),
+                         draws={k: v.cpu() for k, v in draws.items()})
+    state_errs = {k: _rel_err(getattr(fr0.state, k), getattr(cfr.state, k))
+                  for k in ("pos", "rot", "lin_vel", "ang_vel")}
+    pool_errs = _pool_errs(fr0.pools, cfr.pools)
+    # the render of the card's own state on the CPU: the ray-caster alone
+    crgb, cdepth = render(cscene, fr0.state.to("cpu"), eye=demo.EYE,
+                          target=demo.TARGET, width=demo.WIDTH,
+                          height=demo.HEIGHT)
+    render_errs = _render_errs(fr0.rgb, fr0.depth, crgb, cdepth)
+    for k, (e, s) in state_errs.items():
+        if not e <= DEMO_STATE_TOL * s:
+            raise RuntimeError(f"demo: frame 0's {k} differs from the CPU by "
+                               f"{e} (scale {s}; {DEMO_CPU_REASON})")
+    for k, e in pool_errs.items():
+        if not (e["alive_equal"] and e["worst"] <= DEMO_POOL_TOL):
+            raise RuntimeError(f"demo: frame 0's {k} pool differs from the "
+                               f"CPU: {e} ({DEMO_CPU_REASON})")
+    _hold_render(render_errs, "demo: frame 0")
+    return dict(frames=frames, seconds=total,
+                overlap_matrix_launches=matrix_launches,
+                overlap_matrix=matrix, ms_per_step=ms_step,
+                profiled_step=prof, sphere_heights=ys, sphere_bounds=dict(
+                    sphere0=DEMO_SPHERE0_Y, all=DEMO_SPHERE_Y),
+                begins=begins_total, sounds=sounds_total,
+                sound_reason=DEMO_SOUND_REASON,
+                card_vs_cpu=dict(state=state_errs, pools=pool_errs,
+                                 render=render_errs,
+                                 reason=DEMO_CPU_REASON)), start
+
+
+def _tile_env(x, batch):
+    """A State, StepInfo or ParticleState of one env as `batch` copies of
+    it (an unbatched (P, 2) contact_pairs stays as it is)."""
+    pairs = getattr(x, "contact_pairs", None)
+    return x.map_tensors(
+        lambda t: t if (t is pairs and t.dim() == 2)
+        else t.expand(batch, *t.shape[1:]).contiguous())
+
+
+def demo_batch(device, seed, start):
+    """The demo at DEMO_ENVS envs through demo_scene.run_frame, from the
+    twin's state, step info and pools after DEMO_BATCH_FROM frames (the
+    frame after it is the first with begin events, whose bursts the next
+    frame's debris tick emits): env 0 goes on undisturbed, the others'
+    dynamic bodies get config4_noise's 0.01 m/s there. A warm frame of one
+    step from the same start (its own generators), then DEMO_BATCH_FRAMES
+    frames of 60 steps, three pools of (DEMO_ENVS, 256) a frame, events
+    and sound triggers in every env, and a 160 x 120 render of every env;
+    each part timed (Frame.seconds); launches and device time of one more
+    step under torch.profiler; peak memory of the frames."""
+    from dxk_tpu_torch.examples import demo_scene as demo
+    from dxk_tpu_torch.ops.cloth import collider_groups
+    from dxk_tpu_torch.ops.kernels import broadphase_kernel as bk
+    from dxk_tpu_torch.ops.particles import alive_count
+    from dxk_tpu_torch.physics import PhysicsSettings, physics_step
+
+    B = DEMO_ENVS
+    s1, info1, pools1 = start
+    scene = demo.finalize_demo(demo.build_demo_scene(device=device)[0],
+                               device)
+    groups = collider_groups(scene.colliders.ctype.cpu().numpy(),
+                             scene.hulls is not None, device)
+    st = _tile_env(s1, B)
+    dyn = (scene.body_params.inv_mass > 0.0).to(torch.float32)[None, :, None]
+    noise = torch.from_numpy(config4_noise(B, st.lin_vel.shape[1], seed)).to(
+        device)
+    st = st.replace(lin_vel=st.lin_vel + noise * dyn)
+    prev = _tile_env(info1, B)
+    pools = {k: (p, _tile_env(pools1[k][1], B))
+             for k, (p, _ps) in demo.init_pools(B, device).items()}
+    warm_gen = torch.Generator(device=device)
+    warm_gen.manual_seed(seed + 1)
+    demo.run_frame(scene, st, pools, prev, groups=groups, steps=1,
+                   generator=warm_gen, rng=np.random.default_rng(seed + 1))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    rng = np.random.default_rng(demo.SOUND_SEED)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bk.reset_launch_count()
+    frames = []
+    for i in range(DEMO_BATCH_FRAMES):
+        fr = demo.run_frame(scene, st, pools, prev, groups=groups, rng=rng,
+                            generator=gen)
+        st, pools, prev = fr.state, fr.pools, fr.info
+        if not _frame_finite(fr):
+            raise RuntimeError(f"demo: the batch's frame {i} is not finite")
+        hit_share = float((fr.depth > 0).float().mean())
+        if not 0.0 < hit_share < 1.0:
+            raise RuntimeError(f"demo: the batch's frame {i} hit share "
+                               f"{hit_share}")
+        sec = fr.seconds
+        frames.append(dict(
+            seconds=sec,
+            ms_per_step=sec["steps"] / demo.STEPS_PER_FRAME * 1e3,
+            env_steps_per_s=B * demo.STEPS_PER_FRAME / sec["steps"],
+            particle_steps_per_s=3 * B * demo.CAPACITY / sec["particles"],
+            events_and_sounds_ms=sec["events"] * 1e3,
+            render_ms=sec["render"] * 1e3,
+            rays_per_s=B * demo.WIDTH * demo.HEIGHT / sec["render"],
+            envs_with_begins=sum(1 for bg, _ in fr.events if bg),
+            begins=sum(len(bg) for bg, _ in fr.events),
+            sounds=sum(len(x) for x in fr.sounds),
+            alive={k: int(alive_count(q[1]).sum()) for k, q in pools.items()},
+            hit_share=hit_share))
+    matrix_launches = bk.launch_count()
+    peak = torch.cuda.max_memory_allocated()
+    if frames[0]["envs_with_begins"] == 0:
+        raise RuntimeError("demo: no begin event in the batch's first frame")
+    if frames[-1]["alive"]["debris"] == 0:
+        raise RuntimeError("demo: no debris alive in the batch")
+
+    settings = PhysicsSettings()
+    holder = [st]
+
+    def one_step():
+        holder[0] = physics_step(scene, holder[0], settings, demo.DT)[0]
+    prof = profile_steps(one_step, 1, host_ops=False)
+    prof.pop("fused_kernel_ms_per_step")
+    step_s = sum(f["seconds"]["steps"] for f in frames)
+    ms_step = step_s / (DEMO_BATCH_FRAMES * demo.STEPS_PER_FRAME) * 1e3
+    prof["device_idle_share"] = 1.0 - prof["device_busy_ms_per_step"] / ms_step
+    matrix = overlap_matrix_check(scene, st, "demo batch")
+    return dict(envs=B, start_frame=DEMO_BATCH_FROM,
+                frames=frames, ms_per_step=ms_step,
+                profiled_step=prof, overlap_matrix_launches=matrix_launches,
+                overlap_matrix=matrix, peak_memory_bytes=peak)
+
+
+def raster_check(device, seed):
+    """The ray-caster at RASTER_ENVS envs on the settle scene (hulls), the
+    golden mixed drop (cylinders) and the sphere bounce (spheres): times,
+    the collider types hit, and RASTER_CPU_ENVS envs on the card against
+    the CPU."""
+    from dxk_tpu_torch.render import raster
+    out = {}
+    for name, (eye, target) in RASTER_SCENES.items():
+        if name == "settle":
+            scene, cscene = settle_scene(device), settle_scene("cpu")
+            st = settle_initial_state(scene, RASTER_ENVS, seed)
+        else:
+            scene, cscene = shapes_scene(name, device), shapes_scene(name,
+                                                                     "cpu")
+            st = shapes_initial_state(scene, RASTER_ENVS, seed)
+        kw = dict(eye=eye, target=target, width=160, height=120)
+        raster.render(scene, st, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rgb, depth = raster.render(scene, st, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        w = raster.world_colliders(scene, st.pos[:8], st.rot[:8])
+        o, dirs = raster.camera_rays(eye, target, width=160, height=120,
+                                     device=device)
+        t, ci = raster._hit_all_colliders(scene, w, o, dirs.reshape(-1, 3))
+        types = sorted(set(scene.colliders.ctype[ci[t < 1e9]].tolist()))
+        want = sorted(set(scene.colliders.ctype.tolist()))
+        if types != want:
+            raise RuntimeError(f"raster {name}: collider types hit {types}, "
+                               f"the scene has {want}")
+        sub = _sub_state(st, lambda x: x[:RASTER_CPU_ENVS]).to("cpu")
+        crgb, cdepth = raster.render(cscene, sub, **kw)
+        errs = _render_errs(rgb[:RASTER_CPU_ENVS], depth[:RASTER_CPU_ENVS],
+                            crgb, cdepth)
+        _hold_render(errs, f"raster {name}")
+        if not _finite(rgb, depth):
+            raise RuntimeError(f"raster {name}: not finite")
+        out[name] = dict(envs=RASTER_ENVS, render_ms=secs * 1e3,
+                         rays_per_s=RASTER_ENVS * 160 * 120 / secs,
+                         types_hit=types,
+                         hit_share=float((depth > 0).float().mean()),
+                         card_vs_cpu=errs)
+    return out
+
+
+def demo_phase(seed):
+    """The demo scene on the card: the noise against the CPU, the twin at
+    one env as the example runs it, the crafted impact's sound, the batch
+    from the twin's state and the ray-caster on the hull, cylinder and
+    sphere scenes, one after another. Returns the overlap-matrix kernel's
+    launches in the twin's 360 steps and in the batch's frames, and its
+    checks at their shapes."""
+    t_phase = time.perf_counter()
+    secs, parts = {}, {}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t0
+        return out
+    parts["noise"], heights = part("noise", lambda: noise_check(DEVICE))
+    parts["twin"], start = part("twin", lambda: demo_twin(DEVICE, heights))
+    parts["impact"] = part("impact",
+                           lambda: demo_impact_check(DEVICE, heights))
+    parts["batch"] = part("batch", lambda: demo_batch(DEVICE, seed, start))
+    parts["raster"] = part("raster", lambda: raster_check(DEVICE, seed))
+    emit("demo", **parts, seconds=secs,
+         phase_seconds=time.perf_counter() - t_phase)
+    return {k: (parts[k]["overlap_matrix_launches"],
+                parts[k]["overlap_matrix"]) for k in ("twin", "batch")}
+
+
+CONTENT_PAIRS = 65536
+CONTENT_CPU_PAIRS = 256
+CONTENT_TOL = 1e-4                        # of max(1, the largest |value|)
+CONTENT_REASON = (
+    "GJK and EPA write their 3-term sums out (ops/gjk.py), so the card runs "
+    "the CPU's float32 operations in the CPU's order and 0.0 is expected; "
+    "EPA on curved shapes is chaotic in an ulp (an input moved by one ulp on "
+    "the CPU turns a quarter of the sphere-sphere pairs' normals, by up to "
+    "1.7), so hit flags must agree on all but 1 % of the CPU slice and "
+    "points, normals and depths be within 1e-4 of scale on all but 1 % of "
+    "the pairs both call hits")
+CONTENT_SHAPES = ("sphere", "capsule", "cylinder", "box", "hull")
+CONTENT_PAIRINGS = tuple((a, b) for i, a in enumerate(CONTENT_SHAPES)
+                         for b in CONTENT_SHAPES[i:])
+ANIM_INSTANCES = 4096
+ANIM_JOINTS = 24
+ANIM_VERTS = 1024
+ANIM_WEIGHTS = 4
+ANIM_CPU_INSTANCES = 8
+ANIM_TOL = 1e-5                           # of max(1, the largest |value|)
+
+
+def _content_shape(kind, rng, n, centre, device):
+    f = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(device)  # noqa: E731,E501
+    if kind == "sphere":
+        return (f(centre), f(rng.uniform(0.2, 1.0, n)))
+    if kind in ("capsule", "cylinder"):
+        axis = rng.normal(size=(n, 3)) * 0.5
+        return (f(centre - axis), f(centre + axis),
+                f(rng.uniform(0.1, 0.5, n)))
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    if kind == "box":
+        return (f(centre), f(rng.uniform(0.3, 1.0, (n, 3))), f(q))
+    mask = np.ones((n, 12), bool)
+    mask[:, 10:] = False
+    return (f(centre), f(q), f(rng.normal(size=(n, 12, 3)) * 0.6),
+            torch.from_numpy(mask).to(device))
+
+
+CONTENT_JAX_SOUPS = (("cylinder", "box"), ("cylinder", "cylinder"))
+# the JAX package's own GJK + EPA (24 iterations) against its analytic
+# recipes on these soups at 65,536 pairs and the phase's seed (16):
+# JAX_PLATFORMS=cpu python3 tools/gjk_epa_soups_cpu.py
+CONTENT_JAX_STATS = {
+    "cylinder-box": dict(hit_agreement=0.9862060546875,
+                         normal_or_depth_ok=0.9820284419440538,
+                         depth_p90=0.005202719010412693),
+    "cylinder-cylinder": dict(hit_agreement=0.99285888671875,
+                              normal_or_depth_ok=0.9018751605445672,
+                              depth_p90=0.04126860946416855)}
+CONTENT_STATS_REASON = (
+    "tests/test_gjk_epa.py bounds GJK + EPA against the analytic recipes on "
+    "256 pairs (agreement >= 0.995, normal or depth share > 0.9, depth gap "
+    "p90 < 0.05, max < 0.15); at 65,536 pairs of the same distributions the "
+    "JAX package itself has agreement 0.9862 (cylinder-box) and 0.9929 "
+    "(cylinder-cylinder) and largest gaps 0.174 and 0.234 "
+    "(tools/gjk_epa_soups_cpu.py), so the card is held to the JAX "
+    "package's own statistics on the same pairs: agreement within 0.002, "
+    "the normal-or-depth share within 0.005, the p90 gap within 0.005; the "
+    "largest gap is printed")
+
+
+def _sync(device):
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def _jax_test_soup(ka, kb, rng, n, device):
+    """tests/test_gjk_epa.py's cylinder-box and cylinder-cylinder soups
+    (their distributions, drawn with numpy): the cylinder-box pairs have
+    the box at the origin, unturned, and the first quarter of the
+    cylinders upright over it."""
+    f = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(device)  # noqa: E731,E501
+    u = rng.uniform
+    if kb == "box":
+        aa = u(-1.5, 1.5, (n, 3))
+        ab = aa + u(-1.5, 1.5, (n, 3))
+        ar = u(0.1, 0.5, n)
+        bh = u(0.3, 1.0, (n, 3))
+        q = n // 4
+        aa[:q, 0] = u(-0.5, 0.5, q)
+        aa[:q, 2] = u(-0.5, 0.5, q)
+        aa[:q, 1] = u(0.2, 1.2, q)
+        ab[:q] = aa[:q] + np.array([0.0, 1.0, 0.0])
+        idq = np.tile([0.0, 0.0, 0.0, 1.0], (n, 1))
+        return (f(aa), f(ab), f(ar)), (f(np.zeros((n, 3))), f(bh), f(idq))
+    aa = u(-1.0, 1.0, (n, 3))
+    ab = aa + u(-1.5, 1.5, (n, 3))
+    ba = u(-1.0, 1.0, (n, 3))
+    bb = ba + u(-1.5, 1.5, (n, 3))
+    return ((f(aa), f(ab), f(u(0.1, 0.5, n))),
+            (f(ba), f(bb), f(u(0.1, 0.5, n))))
+
+
+def _analytic(ka, kb, pa, pb):
+    """The reference step's closed-form recipe of a pairing, where the
+    port has one: (hit, the first point's depth, normal), as
+    tests/test_gjk_epa.py reads them."""
+    from dxk_tpu_torch.ops import narrowphase as nph
+    fn = {("sphere", "sphere"): nph.sphere_sphere_contact,
+          ("sphere", "capsule"): nph.sphere_capsule_contact,
+          ("sphere", "cylinder"): nph.sphere_cylinder_contact,
+          ("sphere", "box"): nph.sphere_box_contact,
+          ("capsule", "capsule"): nph.capsule_capsule_contact,
+          ("capsule", "cylinder"): nph.capsule_cylinder_contact,
+          ("capsule", "box"): nph.capsule_box_contact,
+          ("cylinder", "cylinder"): nph.cylinder_cylinder_contact,
+          ("cylinder", "box"): nph.cylinder_box_contact,
+          ("box", "box"): nph.box_box_contact}.get((ka, kb))
+    if fn is None:
+        return None
+    _pts, dps, nrm, _cnt, hit = fn(*pa, *pb)
+    return hit, dps[:, 0], nrm
+
+
+def content_gjk(device, seed):
+    """GJK + EPA on CONTENT_PAIRS seeded pairs of each pairing of the five
+    shapes: ms a call, hit share, the analytic recipe's agreement where
+    there is one (held to the JAX package's own statistics on the JAX
+    test's cylinder-box and cylinder-cylinder soups), and a slice on the
+    card against the CPU."""
+    from dxk_tpu_torch.ops import epa as epa_mod
+    from dxk_tpu_torch.ops import gjk as gjk_mod
+    out = {}
+    for ka, kb in CONTENT_PAIRINGS:
+        rng = np.random.default_rng(seed + 31 * CONTENT_SHAPES.index(ka)
+                                    + CONTENT_SHAPES.index(kb))
+        n = CONTENT_PAIRS
+        if (ka, kb) in CONTENT_JAX_SOUPS:
+            pa, pb = _jax_test_soup(ka, kb, rng, n, device)
+        else:
+            ca = rng.normal(size=(n, 3))
+            cb = ca + rng.normal(size=(n, 3)) * 0.9
+            pa = _content_shape(ka, rng, n, ca, device)
+            pb = _content_shape(kb, rng, n, cb, device)
+        sa = getattr(gjk_mod, f"support_{ka}")
+        sb = getattr(gjk_mod, f"support_{kb}")
+
+        iters = 24 if (ka, kb) in CONTENT_JAX_SOUPS else 20
+        _sync(device)
+        t0 = time.perf_counter()
+        hit, simplex = gjk_mod.gjk_intersection(sa, sb, pa, pb)
+        point, normal, depth = epa_mod.epa(sa, sb, pa, pb, simplex,
+                                           max_iterations=iters)
+        _sync(device)
+        secs = time.perf_counter() - t0
+        if not _finite(point[hit], normal[hit], depth[hit]):
+            raise RuntimeError(f"content {ka}-{kb}: not finite")
+        row = dict(ms=secs * 1e3, pairs=n, epa_iterations=iters,
+                   pairs_per_s=n / secs,
+                   hit_share=float(hit.float().mean()))
+        # the CPU slice, pair by pair
+        m = CONTENT_CPU_PAIRS
+        cpa, cpb = (tuple(x[:m].cpu() for x in p) for p in (pa, pb))
+        chit, csx = gjk_mod.gjk_intersection(sa, sb, cpa, cpb)
+        cpu = (chit,) + epa_mod.epa(sa, sb, cpa, cpb, csx,
+                                    max_iterations=iters)
+        card = [x[:m].cpu() for x in (hit, point, normal, depth)]
+        both = card[0] & cpu[0]
+        worst = torch.stack([
+            (x - y).abs().reshape(m, -1).amax(-1)
+            / max(1.0, float(y.abs().max()))
+            for x, y in zip(card[1:], cpu[1:])]).amax(0)[both]
+        off = float((worst > CONTENT_TOL).float().mean()) if worst.numel() \
+            else 0.0
+        row["card_vs_cpu"] = dict(
+            hit_agreement=float((card[0] == cpu[0]).float().mean()),
+            hits=int(both.sum()), share_past_tol=off,
+            worst=float(worst.max()) if worst.numel() else 0.0)
+        if row["card_vs_cpu"]["hit_agreement"] < 0.99 or off > 0.01:
+            raise RuntimeError(f"content {ka}-{kb}: card vs CPU "
+                               f"{row['card_vs_cpu']} ({CONTENT_REASON})")
+        ana = _analytic(ka, kb, pa, pb)
+        if ana is not None:
+            ahit, adepth, anrm = ana
+            valid = torch.ones_like(hit)
+            if (ka, kb) == ("cylinder", "cylinder"):
+                ua = pa[1] - pa[0]
+                ub = pb[1] - pb[0]
+                cosab = (ua * ub).sum(-1) / (ua.norm(dim=-1)
+                                             * ub.norm(dim=-1))
+                valid = cosab.abs() <= 0.99
+            both = hit & ahit & valid & (depth < 0.3)
+            dd = (adepth - depth).abs()[both]
+            nd = (anrm * normal).sum(-1)[both]
+            ok = (nd > 0.9) | (dd < 0.01)
+            ana_row = dict(
+                hit_agreement=float(((hit == ahit) | ~valid)
+                                    .float().mean()),
+                depth_p90=float(torch.quantile(dd, 0.9)) if dd.numel()
+                else 0.0, depth_max=float(dd.max()) if dd.numel()
+                else 0.0, normal_or_depth_ok=float(ok.float().mean())
+                if ok.numel() else 1.0)
+            row["analytic"] = ana_row
+            want = CONTENT_JAX_STATS.get(f"{ka}-{kb}")
+            if want is not None:
+                ana_row["jax_package"] = want
+                if not (ana_row["hit_agreement"]
+                        >= want["hit_agreement"] - 0.002
+                        and ana_row["normal_or_depth_ok"]
+                        >= want["normal_or_depth_ok"] - 0.005
+                        and ana_row["depth_p90"]
+                        <= want["depth_p90"] + 0.005):
+                    raise RuntimeError(f"content {ka}-{kb}: GJK+EPA vs "
+                                       f"the analytic recipe {ana_row} "
+                                       f"({CONTENT_STATS_REASON})")
+        out[f"{ka}-{kb}"] = row
+    return out
+
+
+def content_clip(device, seed):
+    """A seeded clip of ANIM_JOINTS joints (a chain with branches), keys at
+    seeded times, root motion, looping."""
+    from dxk_tpu_torch.ops.animation import make_clip
+    rng = np.random.default_rng(seed)
+    length = 3.0
+
+    def tracks(dim, quat):
+        out = []
+        for _ in range(ANIM_JOINTS):
+            n = int(rng.integers(0, 9))
+            ts = np.sort(rng.uniform(0, length, n))
+            if n:
+                ts[0] = 0.0
+            v = rng.normal(size=(n, dim))
+            if quat:
+                v /= np.linalg.norm(v, axis=-1, keepdims=True)
+            elif dim == 3 and rng.uniform() < 0.3:
+                v = np.abs(v) * 0.2 + 0.9
+            out.append((ts.tolist(), v.tolist()))
+        return out
+    parents = np.array([-1] + [int(rng.integers(0, j))
+                               for j in range(1, ANIM_JOINTS)])
+    clip = make_clip(tracks(3, False), tracks(4, True),
+                     [([], [])] * ANIM_JOINTS, length,
+                     root_pos=([0.0, length], [(0, 0, 0), (2, 0, 1)]),
+                     device=device)
+    return clip, parents
+
+
+def content_animation(device, seed):
+    """ANIM_INSTANCES instances of a seeded clip: instance_update,
+    global_transforms, skinning_matrices and skin_points of ANIM_VERTS
+    points, timed on the card; ANIM_CPU_INSTANCES of them on the card
+    against the CPU."""
+    from dxk_tpu_torch.ops import animation as an
+    rng = np.random.default_rng(seed + 1)
+    f = lambda x: torch.from_numpy(np.asarray(x, np.float32))  # noqa: E731
+    inv_bind = f(rng.normal(size=(ANIM_JOINTS, 4, 4)) * 0.3 + np.eye(4))
+    pts = f(rng.normal(size=(ANIM_VERTS, 3)))
+    ids = torch.from_numpy(rng.integers(0, ANIM_JOINTS,
+                                        (ANIM_VERTS, ANIM_WEIGHTS)))
+    wts = f(rng.dirichlet(np.ones(ANIM_WEIGHTS), ANIM_VERTS))
+    start = f(rng.uniform(0, 3.0, ANIM_INSTANCES))
+
+    def run(dev, n, steps=3):
+        clip, parents = content_clip(dev, seed)
+        inst = an.instance_init(clip, start[:n].to(dev))
+        times = {}
+
+        def timed(name, fn):
+            _sync(dev)
+            t0 = time.perf_counter()
+            r = fn()
+            _sync(dev)
+            times[name] = (time.perf_counter() - t0) * 1e3
+            return r
+        for _ in range(steps):
+            inst, loc, delta = timed("instance_update_ms",
+                                     lambda: an.instance_update(clip, inst,
+                                                                1.0 / 30.0))
+        g = timed("global_transforms_ms",
+                  lambda: an.global_transforms(parents, loc))
+        m = timed("skinning_matrices_ms",
+                  lambda: an.skinning_matrices(g, inv_bind.to(dev)))
+        skin = timed("skin_points_ms", lambda: an.skin_points(
+            m, pts.to(dev), ids.to(dev), wts.to(dev)))
+        return dict(inst=inst, delta=delta, g=g, m=m, skin=skin), times
+    card, times = run(device, ANIM_INSTANCES)
+    card, times = run(device, ANIM_INSTANCES)         # warm
+    cpu, _ = run("cpu", ANIM_CPU_INSTANCES)
+    k = ANIM_CPU_INSTANCES
+    errs = {
+        "time": _rel_err(card["inst"].time[:k], cpu["inst"].time),
+        "delta_pos": _rel_err(card["delta"].pos[:k], cpu["delta"].pos),
+        "global_rot": _rel_err(card["g"].rot[:k], cpu["g"].rot),
+        "global_pos": _rel_err(card["g"].pos[:k], cpu["g"].pos),
+        "matrices": _rel_err(card["m"][:k], cpu["m"]),
+        "skinned": _rel_err(card["skin"][:k], cpu["skin"])}
+    for name, (e, s) in errs.items():
+        if not e <= ANIM_TOL * s:
+            raise RuntimeError(f"content animation: {name} differs from the "
+                               f"CPU by {e} (scale {s})")
+    if not _finite(card["skin"], card["m"]):
+        raise RuntimeError("content animation: not finite")
+    return dict(instances=ANIM_INSTANCES, joints=ANIM_JOINTS,
+                verts=ANIM_VERTS, weights=ANIM_WEIGHTS, **times,
+                card_vs_cpu=errs, tolerance=ANIM_TOL)
+
+
+def content_phase(seed):
+    """GJK + EPA and skeletal animation on the card."""
+    t_phase = time.perf_counter()
+    gjk = content_gjk(DEVICE, seed)
+    t_anim = time.perf_counter()
+    anim = content_animation(DEVICE, seed)
+    emit("content", gjk_epa=gjk, gjk_epa_reason=CONTENT_REASON,
+         animation=anim, seconds=dict(gjk_epa=t_anim - t_phase,
+                                      animation=time.perf_counter() - t_anim),
+         phase_seconds=time.perf_counter() - t_phase)
 
 
 def main():
@@ -5305,12 +6155,22 @@ def main():
     # ---- the reference step in "scan": the entry() configuration, the
     # other reference modes, the step-1 gate and the fast goldens
     scan_launches, scan_matrix = scan_phase(args.seed + 11)
+
+    # ---- the demo scene: the noise, the twin, a batch of it, the
+    # ray-caster; then GJK + EPA and skeletal animation
+    demo_matrix = demo_phase(args.seed + 15)
+    content_phase(args.seed + 16)
     for k in box_kernels:
         if k["name"] == "aabb_overlap_matrix":
             k["launches_by_path"] = {"box_stack_table": k["launches"],
-                                     "scan_entry": scan_launches}
-            k["launches"] += scan_launches
+                                     "scan_entry": scan_launches,
+                                     "demo_twin": demo_matrix["twin"][0],
+                                     "demo_batch": demo_matrix["batch"][0]}
+            k["launches"] += scan_launches + sum(
+                n for n, _m in demo_matrix.values())
             k["scan_entry_shape"] = scan_matrix
+            for path, (_n, m) in demo_matrix.items():
+                k[f"demo_{path}_shape"] = m
 
     print(json.dumps({"kernels": [{
         "name": "fused_step", "route": "cuda",

@@ -45,12 +45,16 @@ def dot(a, b):
 
 def cross(a, b):
     """Component cross product (broadcasts, unlike torch.linalg.cross on
-    mismatched batch shapes)."""
-    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
-    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
-    return torch.stack([a1 * b2 - a2 * b1,
-                        a2 * b0 - a0 * b2,
-                        a0 * b1 - a1 * b0], dim=-1)
+    mismatched batch shapes): (a1 b2 - a2 b1, a2 b0 - a0 b2, a0 b1 - a1 b0),
+    each product and difference one float32 operation, as written. The six
+    products are taken in one multiply of two gathered 6-vectors, so that
+    the cross product is four operations (two gathers, a multiply and a
+    subtraction), not ten: the reference step's sequential passes are bound
+    by the host's operation count."""
+    ag = torch.cat([a[..., 1:3], a[..., 0:1], a[..., 2:3], a[..., 0:2]], -1)
+    bg = torch.cat([b[..., 2:3], b[..., 0:2], b[..., 1:3], b[..., 0:1]], -1)
+    p = ag * bg            # a1b2, a2b0, a0b1, a2b1, a0b2, a1b0
+    return p[..., :3] - p[..., 3:]
 
 
 def length(v):
@@ -232,3 +236,134 @@ def skew(r):
                      r[..., 2], zero, -r[..., 0],
                      -r[..., 1], r[..., 0], zero], dim=-1)
     return m.reshape(*m.shape[:-1], 3, 3)
+
+
+# -- the remaining helpers of the JAX package's core/maths.py
+
+
+def clamp(x, lo, hi):
+    return torch.clamp(x, lo, hi)
+
+
+def clamp01(x):
+    return torch.clamp(x, 0.0, 1.0)
+
+
+def deg2rad(d):
+    """Degrees to radians in float32 (a Python number becomes a 0-d
+    tensor on the CPU)."""
+    if not isinstance(d, torch.Tensor):
+        d = torch.tensor(d, dtype=torch.float32)
+    return d * (torch.pi / 180.0)
+
+
+def quat_identity(batch_shape=(), device="cuda"):
+    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float32,
+                        device=device).expand(*batch_shape, 4)
+
+
+def quat_v(q):
+    return q[..., :3]
+
+
+def quat_w(q):
+    return q[..., 3]
+
+
+def twist_swing_decompose(q, twist_axis):
+    """Project the vector part onto the (normalized) twist axis; swing =
+    q * conj(twist)."""
+    proj = dot(q[..., :3], twist_axis)[..., None] * twist_axis
+    twist = quat_normalize(quat(proj, q[..., 3]))
+    return twist, quat_mul(q, quat_conj(twist))
+
+
+def mat3_mul(a, b):
+    """(..., 3, 3) product as a broadcast multiply-sum (no matmul, so no
+    TF32 on the card)."""
+    return torch.sum(a[..., :, :, None] * b[..., None, :, :], dim=-2)
+
+
+def mat3_vec(m, v):
+    return torch.sum(m * v[..., None, :], dim=-1)
+
+
+def outer(a, b):
+    return a[..., :, None] * b[..., None, :]
+
+
+def mat3_inverse(m):
+    """Inverse of (..., 3, 3) by the adjugate over the determinant (the
+    reference's invert(mat3)); no zero check, as in the JAX package."""
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    c00 = e * i - f * h
+    c01 = f * g - d * i
+    c02 = d * h - e * g
+    inv_det = 1.0 / (a * c00 + b * c01 + c * c02)
+    adj = torch.stack([c00, c * h - b * i, b * f - c * e,
+                       c01, a * i - c * g, c * d - a * f,
+                       c02, b * g - a * h, a * e - b * d], dim=-1)
+    return (adj * inv_det[..., None]).reshape(*m.shape)
+
+
+def transform_position(pos, rot, p):
+    """rot * p + pos (scale 1)."""
+    return quat_rotate(rot, p) + pos
+
+
+def transform_direction(rot, d):
+    return quat_rotate(rot, d)
+
+
+def inverse_transform_position(pos, rot, p):
+    return quat_inv_rotate(rot, p - pos)
+
+
+def inverse_transform_direction(rot, d):
+    return quat_inv_rotate(rot, d)
+
+
+def angle_to_npi_pi(angle):
+    """Wrap to [-pi, pi]: torch.remainder takes the divisor's sign, as
+    jnp.mod does (torch.fmod would not)."""
+    return torch.remainder(angle + torch.pi, 2.0 * torch.pi) - torch.pi
+
+
+def evaluate_spline(ts, values, t):
+    """Catmull-Rom spline (the reference's catmull_rom_spline::evaluate),
+    branchless, as the JAX package evaluates it.
+
+    `ts` (N,) ascending knots; a negative entry at index k+1 truncates the
+    spline to k+1 points (the reference's sentinel). `values` (N,) or
+    (N, D); `t` any shape. k is the count of steppable knots below t,
+    clamped to [1, N-1]; the four control values are gathered by index
+    (the JAX package sums one-hot products: the same values)."""
+    n = ts.shape[0]
+    idx = torch.arange(n, device=ts.device)
+    valid = (idx < 2) | (ts >= 0.0)
+    # effective point count: the first invalid index (all valid: n)
+    num = torch.where(valid.all(), n,
+                      torch.argmin(valid.to(torch.int32)))
+    m = num - 1
+    stepable = (idx < m) & valid
+    k = torch.sum(stepable & (ts < t[..., None]), dim=-1)
+    k = torch.clamp(k, 1, n - 1)
+
+    t0 = ts[k - 1]
+    t1 = ts[k]
+    h1 = torch.clamp((t - t0) / torch.where(t1 == t0, 1.0, t1 - t0),
+                     0.0, 1.0)
+    h2 = h1 * h1
+    h3 = h2 * h1
+    w0 = -h3 + 2.0 * h2 - h1
+    w1 = 3.0 * h3 - 5.0 * h2 + 2.0
+    w2 = -3.0 * h3 + 4.0 * h2 + h1
+    w3 = h3 - h2
+    if values.dim() > 1:
+        w0, w1, w2, w3 = (w[..., None] for w in (w0, w1, w2, w3))
+    out = (values[torch.minimum(torch.clamp(k - 2, min=0), m)] * w0
+           + values[k - 1] * w1 + values[k] * w2
+           + values[torch.minimum(k + 1, m)] * w3)
+    return out * 0.5

@@ -1064,3 +1064,21 @@ def hull_hull_contact(ap, aq, averts, amask, apn, apo, apm, alp, all_, aed,
     hwb = _hull_world_topo(bp, bq, bverts, bpn, bpo, bpm, blp, bll, bed,
                            bem, LM)
     return _stack_manifold(*hull_hull_cm(hwa, hwb))
+
+
+# ---------------------------------------------------------------------------
+# generic GJK + EPA pair (collision_narrow.cpp:496-520); no bucket calls it,
+# in the JAX package neither
+
+
+def _gjk_epa_point(sup_a, sup_b, pa, pb, max_iterations=20):
+    """One-contact GJK + EPA manifold of a batch of pairs (support
+    functions of ops/gjk.py, parameter tuples of (P, ...) tensors). Like
+    the reference, EPA's best approximation is used even if it did not
+    fully converge."""
+    from dxk_tpu_torch.ops.epa import epa
+    from dxk_tpu_torch.ops.gjk import gjk_intersection
+    hit, simplex = gjk_intersection(sup_a, sup_b, pa, pb)
+    point, normal, depth = epa(sup_a, sup_b, pa, pb, simplex,
+                               max_iterations=max_iterations)
+    return _one_point(point, depth, normal, hit)

@@ -158,3 +158,64 @@ def scene_arrays(scene) -> dict:
     out: dict = {}
     _flatten("", scene, out)
     return out
+
+
+def particle_state_from_numpy(fields: dict, device="cuda", batch=None):
+    """ops.particles.ParticleState from {"pos", "vel", "life", "max_life",
+    "rot", "emit_accum": ndarray}, batched like controls_from_numpy (a
+    JAX ParticleState's fields; its "key" is dropped: the port draws from
+    a torch.Generator or takes `draws`)."""
+    from dxk_tpu_torch.ops.particles import ParticleState
+    return ParticleState(**{
+        f.name: _tensor(fields[f.name], device, batch).to(torch.float32)
+        for f in dataclasses.fields(ParticleState)})
+
+
+def particle_params_from_numpy(kind: str, fields: dict, device="cuda"):
+    """One of the four parameter packs of ops.particles ("fire", "smoke",
+    "boid" or "debris") from {field: ndarray} (a JAX pack's fields)."""
+    from dxk_tpu_torch.ops import particles
+    cls = {"fire": particles.FireParams, "smoke": particles.SmokeParams,
+           "boid": particles.BoidParams,
+           "debris": particles.DebrisParams}[kind]
+    return cls(**{f.name: _tensor(fields[f.name], device, None)
+                  .to(torch.float32) for f in dataclasses.fields(cls)})
+
+
+def trs_from_numpy(fields: dict, device="cuda", batch=None):
+    """ops.animation.Trs from {"pos", "rot", "scale": ndarray}."""
+    from dxk_tpu_torch.ops.animation import Trs
+    return Trs(**{k: _tensor(fields[k], device, batch).to(torch.float32)
+                  for k in ("pos", "rot", "scale")})
+
+
+def animation_clip_from_numpy(fields: dict, device="cuda"):
+    """ops.animation.AnimationClip from {"pos", "rot", "scale": {"ts",
+    "vals", "count": ndarray}, "animated", "length": ndarray, and the
+    static "looping", "bake_root_rotation", "bake_root_xz",
+    "bake_root_y": bool}."""
+    from dxk_tpu_torch.ops.animation import AnimationClip, Channel
+
+    def channel(ch):
+        return Channel(ts=_tensor(ch["ts"], device, None).to(torch.float32),
+                       vals=_tensor(ch["vals"], device, None)
+                       .to(torch.float32),
+                       count=_tensor(ch["count"], device, None)
+                       .to(torch.int32))
+    return AnimationClip(
+        pos=channel(fields["pos"]), rot=channel(fields["rot"]),
+        scale=channel(fields["scale"]),
+        animated=_tensor(fields["animated"], device, None).to(torch.bool),
+        length=_tensor(fields["length"], device, None).to(torch.float32),
+        **{k: bool(fields[k]) for k in ("looping", "bake_root_rotation",
+                                        "bake_root_xz", "bake_root_y")})
+
+
+def animation_instance_from_numpy(fields: dict, device="cuda", batch=None):
+    """ops.animation.AnimationInstance from {"time": ndarray (I,),
+    "last_root": <trs_from_numpy fields>}; `batch` broadcasts one
+    instance's arrays."""
+    from dxk_tpu_torch.ops.animation import AnimationInstance
+    return AnimationInstance(
+        time=_tensor(fields["time"], device, batch).to(torch.float32),
+        last_root=trs_from_numpy(fields["last_root"], device, batch))

@@ -137,3 +137,103 @@ def test_rotate_from_to_and_axis_rotation():
     ok = np.abs(q_t.numpy()[:, 3]) < 0.999
     assert np.abs(an_t.numpy() - np.asarray(an_j))[ok].max() < 1e-5
     assert np.abs(ax_t.numpy() - np.asarray(ax_j))[ok].max() < 1e-5
+
+
+# -- the remaining helpers: the same numpy inputs through both packages
+
+
+@pytest.mark.parametrize("name", ["clamp", "clamp01", "deg2rad", "quat_v",
+                                  "quat_w", "angle_to_npi_pi"])
+def test_elementwise_helpers(name):
+    """Exact (0.0): one rounding each, in the same order. The angles
+    reach +-20 rad, past several wraps, and hit the wrap points."""
+    rng = _rng()
+    x = rng.uniform(-20, 20, (N, 4)).astype(np.float32)
+    x[0, :3] = [np.pi, -np.pi, 3 * np.pi]
+    args = {"clamp": lambda a: (a, -0.5, 1.5)}.get(name, lambda a: (a,))
+    _cmp(getattr(tm, name)(*args(_t(x))),
+         getattr(jm, name)(*args(jnp.asarray(x))), 0.0)
+    if name == "deg2rad":
+        # a Python number: float32 in both
+        assert tm.deg2rad(60.0).dtype == torch.float32
+        _cmp(tm.deg2rad(60.0), jm.deg2rad(60.0), 0.0)
+
+
+def test_quat_identity_and_outer():
+    """Exact: constants and single products."""
+    _cmp(tm.quat_identity((3, 2), device="cpu"), jm.quat_identity((3, 2)),
+         0.0)
+    rng = _rng()
+    a = rng.normal(size=(N, 3)).astype(np.float32)
+    b = rng.normal(size=(N, 3)).astype(np.float32)
+    _cmp(tm.outer(_t(a), _t(b)), jm.outer(jnp.asarray(a), jnp.asarray(b)),
+         0.0)
+
+
+def test_mat3_products_and_inverse():
+    """Products: 3-term sums, 1e-6 of unit-scale entries (XLA:CPU's dot
+    may contract multiply-adds). Inverse: the port's adjugate against
+    jnp.linalg.inv's LU on matrices with condition number below ~50,
+    within 1e-5 of max(1, the largest entry)."""
+    rng = _rng()
+    m = rng.normal(size=(N, 3, 3)).astype(np.float32)
+    n = rng.normal(size=(N, 3, 3)).astype(np.float32)
+    v = rng.normal(size=(N, 3)).astype(np.float32)
+    _cmp(tm.mat3_mul(_t(m), _t(n)), jm.mat3_mul(jnp.asarray(m),
+                                                jnp.asarray(n)), 4e-6)
+    _cmp(tm.mat3_vec(_t(m), _t(v)), jm.mat3_vec(jnp.asarray(m),
+                                                jnp.asarray(v)), 4e-6)
+    ok = np.linalg.cond(m.astype(np.float64)) < 50.0
+    got = tm.mat3_inverse(_t(m[ok])).numpy()
+    want = np.asarray(jm.mat3_inverse(jnp.asarray(m[ok])))
+    scale = np.maximum(1.0, np.abs(want).max(axis=(1, 2)))
+    assert (np.abs(got - want).max(axis=(1, 2)) / scale).max() <= 1e-5
+
+
+def test_transforms_and_twist_swing():
+    """Rotations as quat_rotate's: 4e-6 absolute on unit-scale inputs
+    (test_binary_ops' bound)."""
+    rng = _rng()
+    q = _quats(rng, N)
+    pos = rng.uniform(-3, 3, (N, 3)).astype(np.float32)
+    p = rng.uniform(-3, 3, (N, 3)).astype(np.float32)
+    for name in ("transform_position", "inverse_transform_position"):
+        _cmp(getattr(tm, name)(_t(pos), _t(q), _t(p)),
+             getattr(jm, name)(jnp.asarray(pos), jnp.asarray(q),
+                               jnp.asarray(p)), 4e-6)
+    for name in ("transform_direction", "inverse_transform_direction"):
+        _cmp(getattr(tm, name)(_t(q), _t(p)),
+             getattr(jm, name)(jnp.asarray(q), jnp.asarray(p)), 4e-6)
+    axis = rng.normal(size=(N, 3)).astype(np.float32)
+    axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+    tw, sw = tm.twist_swing_decompose(_t(q), _t(axis))
+    jtw, jsw = jm.twist_swing_decompose(jnp.asarray(q), jnp.asarray(axis))
+    # away from a twist of zero length (the vector part normal to the
+    # axis and w ~ 0), where the normalize divides by ~0
+    ok = np.linalg.norm(np.asarray(jtw), axis=-1) > 0.5
+    ok &= np.abs((q[:, :3] * axis).sum(-1)) + np.abs(q[:, 3]) > 1e-2
+    assert np.abs(tw.numpy() - np.asarray(jtw))[ok].max() <= 4e-6
+    assert np.abs(sw.numpy() - np.asarray(jsw))[ok].max() <= 4e-6
+
+
+@pytest.mark.parametrize("case", ["sentinel", "full", "vector"])
+def test_evaluate_spline(case):
+    """The smoke pool's spline (knots [0, 1] then the -1 sentinel), a full
+    8-knot spline and (N, 2) values, at t across and outside the knots
+    and on the knots: within 1e-6 (the same polynomial in the same
+    order; the JAX package picks the controls by one-hot sums, exact)."""
+    rng = _rng()
+    if case == "sentinel":
+        ts = np.array([0.0, 1.0] + [-1.0] * 6, np.float32)
+        vals = np.array([1.0, 0.4] + [0.0] * 6, np.float32)
+    else:
+        ts = np.sort(rng.uniform(0, 4, 8)).astype(np.float32)
+        ts[0] = 0.0
+        vals = rng.normal(size=(8,) if case == "full" else (8, 2)) \
+            .astype(np.float32)
+    t = rng.uniform(-0.5, float(ts.max()) + 0.5, 1000).astype(np.float32)
+    t[:8] = np.where(ts >= 0, ts, 0.5)
+    got = tm.evaluate_spline(_t(ts), _t(vals), _t(t))
+    want = jm.evaluate_spline(jnp.asarray(ts), jnp.asarray(vals),
+                              jnp.asarray(t))
+    _cmp(got, want, 1e-6)
